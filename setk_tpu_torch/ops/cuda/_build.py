@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``setk_tpu_torch/csrc/`` compiles with ``nvcc`` into
+its own shared library with a plain C interface, loaded with ``ctypes``.
+Libraries are named by a hash of their source and the flags, so an
+edited source rebuilds and an unchanged one loads as built.  The
+build directory (``setk_tpu_torch/_build/``) is not committed.  Nothing
+here runs at import: the first kernel launch builds its library, and
+``build_all`` builds every library at once, one ``nvcc`` per source.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check"]
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = {"mvdr_power": "mvdr_power.cu", "fused_mvdr": "fused_mvdr.cu"}
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# C entry points and their ctypes signatures
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "mvdr_power": {"mvdr_power_launch": [_P, _P, _P, _I, _I, _I, _F, _P]},
+    "fused_mvdr": {
+        "stft_covar_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
+        "beamform_istft_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P],
+    },
+}
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (SOURCE_DIR / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when the library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(SOURCE_DIR / SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all() -> dict:
+    """Build every kernel library in parallel; returns nvcc's log
+    (registers, shared memory and spills from ``-Xptxas -v``) per
+    library, empty for one that was already built."""
+    with _lock:
+        jobs = {name: _start(name) for name in SOURCES}
+        return {name: _finish(name, job) for name, job in jobs.items()}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    with _lock:
+        if name not in _loaded:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
+        return _loaded[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
