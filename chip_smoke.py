@@ -6,22 +6,40 @@
 Run from the root of a checkout on a machine with one NVIDIA H100 and
 the CUDA toolkit.  In order it:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the three kernels from setk_tpu_torch/csrc (one nvcc per
-     source, all at once) and prints the build time and ptxas' register
-     and spill counts;
-  3. holds each kernel against its plain PyTorch version on the card at
-     the bench shape (B=128, N=6, 8 s at 16 kHz, int16 audio, mask
-     uniform on [0, 1) from numpy.random.default_rng(0)): max |diff| /
-     max |plain| must stay <= 1e-4;
+  2. builds the kernels from setk_tpu_torch/csrc (one nvcc per source,
+     all at once) and prints the build time and ptxas' register and
+     spill counts;
+  3. holds kernel A, the MVDR solve and kernel B against their plain
+     PyTorch versions on the card at the bench shape (B=128, N=6, 8 s at
+     16 kHz, int16 audio, mask uniform on [0, 1) from
+     numpy.random.default_rng(0)): max |diff| / max |plain| <= 1e-4;
   4. runs BatchEnhancer(device="cuda", batch_size=128) over 128 keyed
      8 s utterances and a few other lengths (buckets of T = 513, 449 and
      193 frames), with the launch counts set to 0 just before and read
      just after; every kernel must have launched, every output must be
      finite, match the plain path on the card within 1e-4 of its peak
      and correlate with the clean source;
-  5. times each kernel, its plain version and enhance_batch with CUDA
-     events (warm-up, then 20 launches) and prints the kernels line;
-  6. prints {"ok": true, "device": {...}} as the last line.
+  5. on a gated scene at the same width (a source in on/off bursts,
+     delayed a sample and attenuated per mic, noise at 0.05, a 0.95/0.05
+     mask that follows the bursts; the uniform mask makes Rs and Rn
+     proportional, where GEVD and PMWF have no defined answer) holds the
+     family's solve kernels (gevd_power at 30 and 50 iterations,
+     pmwf_solve at beta 0 and 1 with powers, capon) against their plain
+     versions on kernel A's covariances: 1e-4 of the peak, or for
+     gevd_power the JAX package's Rayleigh-quotient contract
+     (tests/test_pallas.py:466-481) where near-degenerate bins miss it;
+  6. drives each of gevd, gevd+BAN, pmwf-0, pmwf-1, mpdr and mpdr-whiten
+     through BatchEnhancer over the gated scene (one bucket of 128 x 8 s,
+     T = 513, and one of 4 x 3 s, T = 193), counts reset before and read
+     after each: exactly the name's kernels launched, outputs finite,
+     within 1e-4 of enhance_plain(beamformer=X) on the card and, for the
+     distortionless names, correlating >= 0.9 with the source as mic 0
+     sees it;
+  7. times each kernel (20 launches replayed from one CUDA graph, so the
+     wrapper's host work is not counted; the eager per-call time beside
+     it), its plain version and enhance_batch for every name with CUDA
+     events (warm-up, then 20 calls) and prints the kernels line;
+  8. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2 and
 prints no result.
@@ -64,6 +82,31 @@ def _time_ms(torch, fn, iters=ITERS, warmup=2) -> float:
     return beg.elapsed_time(end) / iters
 
 
+def _graph_ms(torch, fn, iters=ITERS) -> float:
+    """Device time per call of ``fn`` without the host's launch overhead:
+    ``iters`` calls captured in one CUDA graph, replayed and timed with
+    events.  Eager timing of a kernel shorter than its Python wrapper's
+    host work (~20-40 us) measures the host instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    beg = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    beg.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return beg.elapsed_time(end) / iters
+
+
 def _bound(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -88,6 +131,30 @@ def _flops_mvdr(bins, n, iters):
     return bins * per_bin
 
 
+def _chol_flops(n):
+    return 4 * n**3 // 3
+
+
+def _solve_flops(n):
+    # forward and back substitution (complex multiply-subtract, 8 FLOP)
+    # plus the pivot and equilibration scalings
+    return 8 * n * (n - 1) + 12 * n
+
+
+def _flops_gevd(bins, n, iters):
+    per_iter = 8 * n * n + _solve_flops(n) + 6 * n
+    return bins * (_chol_flops(n) + iters * per_iter + 8 * n * n + 12 * n)
+
+
+def _flops_pmwf(bins, n):
+    powers = 2 * n * (8 * n * n + 4 * n)
+    return bins * (_chol_flops(n) + n * _solve_flops(n) + 8 * n * n + powers)
+
+
+def _flops_capon(bins, n):
+    return bins * (_chol_flops(n) + _solve_flops(n) + 16 * n)
+
+
 def _flops_beamform_istft(b, n, t):
     pairs = (n + 1) // 2
     fwd = n * 512 + pairs * FFT512_FLOP + 257 * (pairs * 8 + n * 8)
@@ -100,8 +167,8 @@ def _ptxas_summary(log: str) -> dict:
     nvcc's -Xptxas -v log, keyed like "stft_covar<6,int16>"."""
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"(mvdr_power|stft_covar|beamform_istft)"
-                      r"_kernelILi(\d)E([fs]?)E", line)
+        m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
+                      r"|beamform_istft)_kernelILi(\d)E([fs]?)E", line)
         if "Compiling entry function" in line and m:
             dtype = {"f": ",f32", "s": ",int16"}.get(m.group(3), "")
             key = f"{m.group(1)}<{m.group(2)}{dtype}>"
@@ -115,6 +182,38 @@ def _ptxas_summary(log: str) -> dict:
             smem = re.search(r"(\d+) bytes smem", line)
             out[key]["smem_bytes"] = int(smem.group(1)) if smem else 0
     return out
+
+
+def _gated_scene(b, n, s, seed):
+    """(wav int16 (B, N, S), mask (B, T, 257), source at mic 0 (B, S)):
+    a source at 0.2 in on/off bursts of 2048 samples, delayed one sample
+    and attenuated 1/(1 + k/4) at mic k (nearest mic 0, so PMWF's
+    SNR-selected reference is mic 0), noise at 0.05, and a 0.95/0.05 mask
+    that follows the bursts per frame, as tests/test_pallas.py:413-424
+    builds it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    gate = (np.arange(s) // 2048) % 2 == 0
+    src = (rng.standard_normal((b, s)) * 0.2 * gate).astype(np.float32)
+    wav = rng.standard_normal((b, n, s)).astype(np.float32) * 0.05
+    for k in range(n):
+        wav[:, k] += np.roll(src, k, axis=-1) / (1 + k / 4)
+    wav16 = np.clip(wav * 32768.0, -32768, 32767).astype(np.int16)
+    t = s // 256 + 1
+    gate_f = gate[np.minimum(np.arange(t) * 256, s - 1)]
+    mask = np.ascontiguousarray(np.broadcast_to(
+        np.where(gate_f, 0.95, 0.05)[None, :, None], (b, t, 257)),
+        dtype=np.float32)
+    return wav16, mask, src
+
+
+# (name, ban) of the family's path, with the solve kernels each needs
+FAMILY = [(("gevd", False), ("gevd_power",)),
+          (("gevd", True), ("gevd_power",)),
+          (("pmwf-0", False), ("pmwf_solve",)),
+          (("pmwf-1", False), ("pmwf_solve",)),
+          (("mpdr", False), ("mvdr_power",)),
+          (("mpdr-whiten", False), ("gevd_power", "capon"))]
 
 
 def main() -> int:
@@ -131,6 +230,7 @@ def main() -> int:
     import numpy as np
     from setk_tpu_torch.dsp.stft import StftConfig
     from setk_tpu_torch.dsp.window import wss_inverse_blocks
+    from setk_tpu_torch.enhance.beamformer import fix_steer_phase
     from setk_tpu_torch.enhance.pipeline import enhance_plain
     from setk_tpu_torch.ops.cuda import _build
     from setk_tpu_torch.ops.cuda import fused_mvdr as fm
@@ -269,7 +369,127 @@ def main() -> int:
     if max(frames_seen) <= 512:
         raise AssertionError("no bucket with T > 512 was driven")
 
-    # ---- 5. timing at the bench shape ----
+    # ---- 5. the family's solve kernels against their plain versions ----
+    gwav16, gmask, gsrc = _gated_scene(B, N, S, seed=1)
+    gwav_d = torch.from_numpy(gwav16).to(dev)
+    gmask_d = torch.from_numpy(gmask).to(dev)
+    rs_num, rn_num = fm.stft_covar(gwav_d, gmask_d, window)
+    gden = gmask_d.sum(1)
+    grs = (rs_num / torch.clamp(gden, min=1e-6)[..., None, None]).contiguous()
+    grn = (rn_num / torch.clamp(t_frames - gden, min=1e-6)[..., None, None]
+           ).contiguous()
+    gry = ((rs_num + rn_num) / t_frames).contiguous()
+    hrs = 0.5 * (grs + grs.conj().transpose(-1, -2))
+    hrn = 0.5 * (grn + grn.conj().transpose(-1, -2))
+
+    def rayleigh(v):
+        num = torch.einsum("...a,...ab,...b->...", v.conj(), hrs, v).real
+        den = torch.einsum("...a,...ab,...b->...", v.conj(), hrn, v).real
+        return num / torch.clamp(den, min=1e-12)
+
+    fam_errs, fam_abs, checks = {}, {}, {}
+    for iters in (30, 50):
+        v_k = mv.gevd_power(grs, grn, power_iters=iters)
+        v_p = mv.gevd_power_plain(grs, grn, power_iters=iters)
+        err = _rel(v_k, v_p)
+        key = f"gevd_power_{iters}"
+        fam_errs[key], fam_abs[key] = err, _abs(v_k, v_p)
+        if err <= TOL:
+            checks[key] = "plain within tol"
+            continue
+        # the JAX package's contract for this kernel: v^H Rn v = 1 and
+        # the generalized Rayleigh quotient of the plain version's vector
+        q = torch.einsum("...a,...ab,...b->...", v_k.conj(), hrn, v_k).real
+        ratio = rayleigh(v_k) / torch.clamp(rayleigh(v_p), min=1e-12)
+        checks[key] = {"contract": "rayleigh",
+                       "max_abs_vHRnv_minus_1": float((q - 1).abs().max()),
+                       "median_ratio": float(ratio.median()),
+                       "min_ratio": float(ratio.min())}
+        if not ((q - 1).abs().max() <= 2e-3 and ratio.median() > 0.999
+                and ratio.min() > 0.95):
+            raise AssertionError(f"{key}: kernel fails the Rayleigh "
+                                 f"contract {checks[key]}")
+    for beta in (0.0, 1.0):
+        got = mv.pmwf_solve(grs, grn, beta, return_powers=True)
+        ref = mv.pmwf_solve_plain(grs, grn, beta, return_powers=True)
+        key = f"pmwf_solve_beta{beta:g}"
+        fam_errs[key] = max(_rel(g, r) for g, r in zip(got, ref))
+        fam_abs[key] = max(_abs(g, r) for g, r in zip(got, ref))
+        checks[key] = "plain within tol"
+    # mpdr-whiten's steer: the whitened GEV vector, anchored to mic 0
+    gsteer = fix_steer_phase((grn * mv.gevd_power_plain(
+        grs, grn, power_iters=50)[..., None, :]).sum(-1)).contiguous()
+    w_c = mv.capon(gsteer, gry)
+    fam_errs["capon"] = _rel(w_c, mv.capon_plain(gsteer, gry))
+    fam_abs["capon"] = _abs(w_c, mv.capon_plain(gsteer, gry))
+    checks["capon"] = "plain within tol"
+    torch.cuda.synchronize()
+    print(json.dumps({"family_kernel_vs_plain_max_rel_err": fam_errs,
+                      "checks": checks, "tol": TOL}))
+    for key, err in fam_errs.items():
+        if checks[key] == "plain within tol" and not err <= TOL:
+            raise AssertionError(f"{key}: kernel vs plain {err} > {TOL}")
+
+    # ---- 6. the family's path: BatchEnhancer over the gated scene ----
+    swav16, smask, ssrc = _gated_scene(4, N, 48000, seed=2)
+    gutts = {f"g{i:03d}": (gwav16[i], gmask[i], gsrc[i]) for i in range(B)}
+    gutts.update({f"s{i}": (swav16[i], smask[i], ssrc[i]) for i in range(4)})
+    fam_counted = (fm.stft_covar, mv.mvdr_power, mv.gevd_power,
+                   mv.pmwf_solve, mv.capon, fm.beamform_istft)
+    fam_launches, fam_worst, fam_corr = {}, {}, {}
+    for (name, ban), solves in FAMILY:
+        label = name + ("+ban" if ban else "")
+        enhancer = BatchEnhancer(cfg, beamformer=name, batch_size=B,
+                                 ban=ban, device="cuda")
+        for fn in fam_counted:
+            fn.launches = 0
+        results = {}
+        for key, (x, m, _) in gutts.items():
+            results.update(enhancer.add(key, x, m))
+        results.update(enhancer.flush())
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in fam_counted}
+        fam_launches[label] = counts
+        want = set(solves) | {"stft_covar", "beamform_istft"}
+        if {k for k, c in counts.items() if c} != want:
+            raise AssertionError(f"{label}: launched {counts}, needs {want}")
+        if set(results) != set(gutts):
+            raise AssertionError(f"{label}: BatchEnhancer lost utterances")
+        worst, corr_min = 0.0, 1.0
+        for bucket, keys in (
+                (bucketer.bucket(S), [k for k in gutts if k[0] == "g"]),
+                (bucketer.bucket(48000), [k for k in gutts if k[0] == "s"])):
+            t_pad = cfg.num_frames(bucket)
+            wv = np.zeros((len(keys), N, bucket), np.int16)
+            mk = np.zeros((len(keys), t_pad, cfg.num_bins), np.float32)
+            for i, key in enumerate(keys):
+                x, m, _ = gutts[key]
+                wv[i, :, :x.shape[-1]] = x
+                mk[i, :m.shape[0]] = m[:t_pad]
+            ref = enhance_plain(torch.from_numpy(wv).to(dev),
+                                torch.from_numpy(mk).to(dev), cfg,
+                                beamformer=name, ban=ban,
+                                nsamps=bucket).cpu().numpy()
+            for i, key in enumerate(keys):
+                got, (x, _, c) = results[key], gutts[key]
+                if got.shape != (x.shape[-1],) or not np.isfinite(got).all():
+                    raise AssertionError(f"{label} {key}: bad output")
+                r = ref[i, :x.shape[-1]]
+                worst = max(worst,
+                            float(np.abs(got - r).max() / np.abs(r).max()))
+                corr_min = min(corr_min, float(np.corrcoef(got, c)[0, 1]))
+        fam_worst[label], fam_corr[label] = worst, corr_min
+        if not worst <= TOL:
+            raise AssertionError(f"{label}: path vs plain {worst} > {TOL}")
+        if label != "gevd" and not corr_min >= 0.9:
+            raise AssertionError(f"{label}: correlation with the source at "
+                                 f"mic 0 {corr_min} < 0.9")
+    print(json.dumps({"family_path_launches": fam_launches}))
+    print(json.dumps({"family_path_vs_plain_max_rel_err": fam_worst,
+                      "min_corr_with_source_at_mic0": fam_corr, "tol": TOL,
+                      "corr_bar": "0.9 for all but gevd (printed only)"}))
+
+    # ---- 7. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -293,27 +513,76 @@ def main() -> int:
          _bound(wav_d.nbytes + w_d.nbytes + wss_inv.nbytes + out_k.nbytes,
                 _flops_beamform_istft(B, N, t_frames))),
     ]
+    bins = B * cfg.num_bins
+    g_w = torch.empty((B, cfg.num_bins, N), dtype=torch.complex64, device=dev)
+    rows += [
+        ("gevd_power", "setk_tpu/ops/pallas/mvdr.py:474",
+         lambda: mv.gevd_power(grs, grn, power_iters=30),
+         lambda: mv.gevd_power_plain(grs, grn, power_iters=30),
+         _bound(grs.nbytes + grn.nbytes + g_w.nbytes,
+                _flops_gevd(bins, N, 30))),
+        ("pmwf_solve", "setk_tpu/ops/pallas/mvdr.py:493",
+         lambda: mv.pmwf_solve(grs, grn, 0.0, return_powers=True),
+         lambda: mv.pmwf_solve_plain(grs, grn, 0.0, return_powers=True),
+         _bound(2 * grs.nbytes + grn.nbytes + 2 * bins * N * 4,
+                _flops_pmwf(bins, N))),
+        ("capon", "setk_tpu/ops/pallas/mvdr.py:523",
+         lambda: mv.capon(gsteer, gry),
+         lambda: mv.capon_plain(gsteer, gry),
+         _bound(gsteer.nbytes + gry.nbytes + g_w.nbytes,
+                _flops_capon(bins, N))),
+    ]
     source = {"stft_covar": "setk_tpu_torch/csrc/fused_mvdr.cu",
-              "mvdr_power": "setk_tpu_torch/csrc/mvdr_power.cu",
               "beamform_istft": "setk_tpu_torch/csrc/fused_mvdr.cu"}
+    # the family's kernels: launches summed over the six runs of step 6
+    launches.update({k: sum(c[k] for c in fam_launches.values())
+                     for k in ("gevd_power", "pmwf_solve", "capon")})
+    abs_errs.update(gevd_power=fam_abs["gevd_power_30"],
+                    pmwf_solve=fam_abs["pmwf_solve_beta0"],
+                    capon=fam_abs["capon"])
+    errs.update(gevd_power=fam_errs["gevd_power_30"],
+                pmwf_solve=fam_errs["pmwf_solve_beta0"],
+                capon=fam_errs["capon"])
+    # for information only: torch.linalg.solve on the same systems (the
+    # port never calls it; it is not the same function, so library_ms
+    # stays null)
+    info = {"pmwf_solve": _time_ms(torch, lambda: torch.linalg.solve(grn,
+                                                                      grs)),
+            "capon": _time_ms(torch, lambda: torch.linalg.solve(
+                gry, gsteer[..., None]))}
     kernels = []
     for name, replaces, run_k, run_p, (bound_ms, bound_by) in rows:
-        ms = _time_ms(torch, run_k)
+        eager_ms = _time_ms(torch, run_k)
         plain_ms = _time_ms(torch, run_p)
-        kernels.append({
-            "name": name, "route": "cuda", "source": source[name],
+        row = {
+            "name": name, "route": "cuda",
+            "source": source.get(name, "setk_tpu_torch/csrc/mvdr_power.cu"),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": abs_errs[name], "max_rel_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "ms": _graph_ms(torch, run_k), "eager_ms": eager_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+        if name in info:
+            row["linalg_solve_ms_info"] = info[name]
+        kernels.append(row)
+    gevd50_ms = _graph_ms(torch, lambda: mv.gevd_power(grs, grn,
+                                                       power_iters=50))
     step_ms = _time_ms(torch, lambda: enhance_batch(
         wav_d, mask_d, cfg, beamformer="mvdr"))
     plain_step_ms = _time_ms(torch, lambda: enhance_plain(
         wav_d, mask_d, cfg), iters=5, warmup=1)
+    fam_ms = {}
+    for (name, ban), _ in FAMILY:
+        label = name + ("+ban" if ban else "")
+        ms = _time_ms(torch, lambda: enhance_batch(
+            gwav_d, gmask_d, cfg, beamformer=name, ban=ban))
+        fam_ms[label] = {"ms": ms, "audio_s_per_s": B * SECS / (ms / 1e3)}
     print(json.dumps({
         "card": smi, "enhance_batch_ms": step_ms,
         "audio_s_per_s": B * SECS / (step_ms / 1e3),
         "plain_path_ms": plain_step_ms, "rfft_frames_ms_info": rfft_ms,
+        "family_enhance_batch_gated_scene": fam_ms,
+        "gevd_power_50_iters_ms": gevd50_ms,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,8 @@
-"""Mask-weighted PSDs and the MVDR weight solve — the port's plain path.
+"""Mask-weighted PSDs and the supervised weight solves — the plain path.
 
-Counterpart of the MVDR part of ``setk_tpu/enhance/beamformer.py``,
-batched over leading axes, with the same layouts (F: bins, N: mics,
-T: frames):
+Counterpart of ``setk_tpu/enhance/beamformer.py`` (the mvdr, mpdr,
+gevd and pmwf weights, one-shot and online runs), batched over leading
+axes, with the same layouts (F: bins, N: mics, T: frames):
 
     obs     (..., F, N, T)   complex STFT observations
     mask    (..., F, T)      real T-F masks
@@ -11,25 +11,27 @@ T: frames):
 
 This spectrum-domain path is what ``enhance_batch`` runs on the CPU; on
 a CUDA device the main path runs the fused kernels instead, and the
-parts of this module that have no kernel yet raise there.  The mpdr,
-gevd and pmwf weights and the online run come with ROADMAP queue 1
-item 2.
+parts of this module that have no kernel yet raise there (the EVD
+through ``ops.linalg.eigh``).
 """
+
+import functools
 
 import torch
 
 from setk_tpu_torch.utils.common import EPSILON
 from setk_tpu_torch.ops.linalg import (solve_pevd, hermitianize,
+                                       hermitian_solve,
                                        equilibrated_hermitian_solve,
                                        power_iteration)
 
 __all__ = [
     "covar_stats", "compute_covar", "compute_covar_pair", "beamform",
-    "do_ban", "fix_steer_phase", "mvdr_weights", "supervised_run",
+    "do_ban", "rank1_constraint", "fix_steer_phase", "mvdr_weights",
+    "mpdr_weights", "gevd_weights", "pmwf_weights", "pmwf_select_ref",
+    "pmwf_select_powers", "supervised_run", "online_supervised_run",
     "WEIGHT_FNS"
 ]
-
-_OTHERS = "arrives with ROADMAP queue 1 item 2"
 
 
 def covar_stats(obs: torch.Tensor, mask: torch.Tensor):
@@ -73,6 +75,20 @@ def do_ban(weight: torch.Tensor, rn: torch.Tensor) -> torch.Tensor:
     return filters[..., None] * weight
 
 
+def rank1_constraint(rs: torch.Tensor,
+                     rn: torch.Tensor | None = None) -> torch.Tensor:
+    """Rank-1 approximation of Rs (GEV-based with ``rn``), rescaled to
+    Rs's trace."""
+    pvec = solve_pevd(rs, rn)
+    if rn is not None:
+        pvec = (rn * pvec[..., None, :]).sum(-1)
+    appro = pvec[..., :, None] * pvec.conj()[..., None, :]
+    tr_a = torch.diagonal(appro, dim1=-2, dim2=-1).sum(-1)
+    scale = (torch.diagonal(rs, dim1=-2, dim2=-1).sum(-1) /
+             torch.clamp(tr_a.abs(), min=EPSILON))
+    return scale[..., None, None] * appro
+
+
 def fix_steer_phase(steer: torch.Tensor,
                     ref_channel: int = 0) -> torch.Tensor:
     """Rotate each steer vector so its reference-channel entry is
@@ -108,17 +124,84 @@ def mvdr_weights(rs: torch.Tensor, rn: torch.Tensor,
                               power_iters=power_iters)
         vec = power_iteration(hermitianize(rs), num_iters=power_iters)
     elif steer == "eigh":
-        if rs.device.type == "cuda":
-            raise NotImplementedError(
-                "the eigh steer on a CUDA device arrives with the batched "
-                "small-matrix EVD kernel, ROADMAP queue 2 item 14")
         vec = solve_pevd(rs)
     else:
         raise ValueError(f"Unknown steer method: {steer}")
     return _capon(fix_steer_phase(vec), rn)
 
 
-WEIGHT_FNS = {"mvdr": mvdr_weights}
+def mpdr_weights(rs: torch.Tensor, ry: torch.Tensor,
+                 rn: torch.Tensor | None = None) -> torch.Tensor:
+    """MPDR: Capon on the observation PSD Ry.  The steer vector is Rs's
+    principal eigenvector, or with ``rn`` the whitened GEV vector
+    Rn x (principal generalized eigenvector of (Rs, Rn))."""
+    if rn is None:
+        steer = solve_pevd(rs)
+    else:
+        steer = (rn * solve_pevd(rs, rn)[..., None, :]).sum(-1)
+    return _capon(fix_steer_phase(steer), ry)
+
+
+def gevd_weights(rs: torch.Tensor, rn: torch.Tensor) -> torch.Tensor:
+    """Max-SNR / GEV beamformer: the principal generalized eigenvector,
+    v^H Rn v = 1, phase-anchored to channel 0."""
+    return fix_steer_phase(solve_pevd(rs, rn))
+
+
+def pmwf_weights(rs: torch.Tensor, rn: torch.Tensor,
+                 beta: float = 0.0, ref_channel: int = -1,
+                 rank1_appro: str = "") -> torch.Tensor:
+    """Parameterized multichannel Wiener filter (Souden):
+    w = Rn^{-1} Rs u / (beta + tr(Rn^{-1} Rs)); beta 0 is the MVDR form,
+    1 the MCWF.  ``ref_channel < 0`` picks the reference channel by the
+    estimated output SNR; ``rank1_appro`` "eig" or "gev" replaces Rs by
+    its rank-1 approximation first."""
+    if rank1_appro == "eig":
+        rs = rank1_constraint(rs)
+    elif rank1_appro == "gev":
+        rs = rank1_constraint(rs, rn=rn)
+    num = hermitian_solve(rn, rs)                     # (..., F, N, N)
+    den = beta + torch.diagonal(num, dim1=-2, dim2=-1).sum(-1)
+    return pmwf_select_ref(num / den[..., None, None], rs, rn,
+                           ref_channel=ref_channel)
+
+
+def _select_column(weight_mat: torch.Tensor, snr: torch.Tensor):
+    """Column argmax(snr) of every bin's weight matrix; snr (..., C)."""
+    ref = torch.argmax(snr, dim=-1)                   # (...)
+    idx = ref[..., None, None, None].expand(*weight_mat.shape[:-1], 1)
+    return torch.gather(weight_mat, -1, idx)[..., 0]
+
+
+def pmwf_select_ref(weight_mat: torch.Tensor, rs: torch.Tensor,
+                    rn: torch.Tensor, ref_channel: int = -1) -> torch.Tensor:
+    """The PMWF output column: ``ref_channel`` or, when negative, the
+    channel c of largest sum_f w_c^H Rs w_c / sum_f w_c^H Rn w_c."""
+    if ref_channel >= 0:
+        return weight_mat[..., ref_channel]
+    wc = weight_mat.transpose(-1, -2)                 # rows = channels
+    pow_s = torch.einsum("...fca,...fab,...fcb->...c", wc.conj(), rs,
+                         wc).real
+    pow_n = torch.einsum("...fca,...fab,...fcb->...c", wc.conj(), rn,
+                         wc).real
+    return _select_column(weight_mat,
+                          pow_s / torch.clamp(pow_n, min=EPSILON))
+
+
+def pmwf_select_powers(weight_mat: torch.Tensor, pow_s: torch.Tensor,
+                       pow_n: torch.Tensor) -> torch.Tensor:
+    """``pmwf_select_ref(ref_channel=-1)`` from precomputed per-bin,
+    per-channel powers (..., F, C), as the pmwf_solve kernel emits them."""
+    snr = (pow_s.sum(-2) / torch.clamp(pow_n.sum(-2), min=EPSILON))
+    return _select_column(weight_mat, snr)
+
+
+WEIGHT_FNS = {
+    "mvdr": mvdr_weights,
+    "gevd": gevd_weights,
+    "pmwf-0": functools.partial(pmwf_weights, beta=0.0),
+    "pmwf-1": functools.partial(pmwf_weights, beta=1.0),
+}
 
 
 def supervised_run(beamformer: str,
@@ -129,15 +212,66 @@ def supervised_run(beamformer: str,
                    **kwargs) -> torch.Tensor:
     """One-shot mask-based beamforming: masks + obs -> enhanced STFT
     (..., F, T)."""
-    if beamformer not in WEIGHT_FNS:
-        raise NotImplementedError(f"beamformer {beamformer!r} {_OTHERS}")
     if obs.device.type == "cuda":
         raise NotImplementedError(
             "the spectrum-domain supervised run on a CUDA device arrives "
             "with the planar STFT/iSTFT and pair-covariance kernels, "
             "ROADMAP queue 2 items 9-11; enhance_batch runs the fused kernels")
     rs, rn = compute_covar_pair(obs, mask_s, mask_n)
-    weight = WEIGHT_FNS[beamformer](rs, rn, **kwargs)
+    if beamformer in ("mpdr", "mpdr-whiten"):
+        ry = compute_covar(obs, torch.ones_like(mask_s))
+        weight = mpdr_weights(rs, ry,
+                              rn=rn if beamformer == "mpdr-whiten" else None)
+    elif beamformer in WEIGHT_FNS:
+        weight = WEIGHT_FNS[beamformer](rs, rn, **kwargs)
+    else:
+        raise ValueError(f"Unknown beamformer: {beamformer}")
     if ban:
         weight = do_ban(weight, rn)
     return beamform(weight, obs)
+
+
+def online_supervised_run(beamformer: str,
+                          obs: torch.Tensor,
+                          mask_s: torch.Tensor,
+                          mask_n: torch.Tensor | None = None,
+                          chunk_size: int = 32,
+                          alpha: float = 0.8,
+                          ban: bool = False) -> torch.Tensor:
+    """Chunked online beamforming with EMA covariance state.
+
+    T splits into chunks; (Rs, Rn) carry over chunks as
+    R <- alpha R + (1 - alpha) R_chunk (the first chunk initializes) and
+    each chunk is beamformed with the weights of the state after it.  BAN
+    normalizes against the chunk's own Rn, as the JAX package does.  T
+    must be a multiple of ``chunk_size`` (pad upstream; masks zero the
+    pad frames).  The plain path: on a CUDA tensor it raises until the
+    online kernels land (ROADMAP queue 2 items 7-8).
+    """
+    if beamformer not in WEIGHT_FNS:
+        raise ValueError(f"Unknown online beamformer: {beamformer}")
+    if obs.device.type == "cuda":
+        raise NotImplementedError(
+            "online (chunked EMA) enhancement on a CUDA device arrives with "
+            "the online kernels, ROADMAP queue 2 items 7-8")
+    t_frames = obs.shape[-1]
+    if t_frames % chunk_size:
+        raise ValueError(f"T={t_frames} not a multiple of {chunk_size}")
+    m_n = torch.clamp(1 - mask_s, min=0) if mask_n is None else mask_n
+    rs_ema = rn_ema = None
+    chunks = []
+    for beg in range(0, t_frames, chunk_size):
+        end = beg + chunk_size
+        obs_k = obs[..., beg:end]
+        rs = compute_covar(obs_k, mask_s[..., beg:end])
+        rn = compute_covar(obs_k, m_n[..., beg:end])
+        if rs_ema is None:
+            rs_ema, rn_ema = rs, rn
+        else:
+            rs_ema = rs_ema * alpha + (1.0 - alpha) * rs
+            rn_ema = rn_ema * alpha + (1.0 - alpha) * rn
+        weight = WEIGHT_FNS[beamformer](rs_ema, rn_ema)
+        if ban:
+            weight = do_ban(weight, rn)
+        chunks.append(beamform(weight, obs_k))
+    return torch.cat(chunks, dim=-1)

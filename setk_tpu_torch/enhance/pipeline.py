@@ -1,28 +1,36 @@
-"""The fused MVDR enhancement pipeline (the main path on the card).
+"""The fused enhancement pipeline (the main path on the card).
 
 Counterpart of ``setk_tpu/enhance/pipeline.py: enhance_fused``
-(pipeline.py:60-196) for ``beamformer="mvdr"`` with the power-iteration
-steer, with or without BAN: kernel A (ops/cuda/fused_mvdr.stft_covar)
-emits the Rs/Rn numerators with no spectrum in device memory, the
-per-bin solve (ops/cuda/mvdr.mvdr_power) gives the weights, and kernel
-B (fused_mvdr.beamform_istft) recomputes the DFT to beamform and
-resynthesize.  Bins stay in natural order.  ``enhance_plain`` runs the
-same steps through the kernels' plain versions on any device; it is
-what the kernels are held against.
+(pipeline.py:60-196) for the supervised family in ``FUSED_BEAMFORMERS``,
+with or without BAN: kernel A (ops/cuda/fused_mvdr.stft_covar) emits
+the Rs/Rn numerators with no spectrum in device memory, a per-bin solve
+kernel (ops/cuda/mvdr: mvdr_power, gevd_power, pmwf_solve, capon) gives
+the weights, and kernel B (fused_mvdr.beamform_istft) recomputes the DFT
+to beamform and resynthesize.  Kernels A and B do not depend on the
+weights.  Bins stay in natural order.  ``enhance_plain`` runs the same
+steps through the kernels' plain versions on any device; it is what the
+kernels are held against.
 """
 
 import functools
+import typing
 
 import torch
 
 from setk_tpu_torch.dsp.stft import StftConfig
 from setk_tpu_torch.dsp.window import wss_inverse_blocks
-from setk_tpu_torch.enhance.beamformer import do_ban
+from setk_tpu_torch.enhance import beamformer as bf
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.utils.device import full_f32_matmuls
 
-__all__ = ["fused_supported", "enhance_fused", "enhance_plain"]
+__all__ = ["FUSED_BEAMFORMERS", "fused_supported", "check_fused_options",
+           "enhance_fused", "enhance_plain"]
+
+# the beamformers the fused kernel pair serves: only the small per-bin
+# weight solve differs between them
+FUSED_BEAMFORMERS = ("mvdr", "gevd", "pmwf-0", "pmwf-1", "mpdr",
+                     "mpdr-whiten")
 
 
 def fused_supported(cfg: StftConfig, num_mics: int, nsamps: int,
@@ -52,8 +60,48 @@ def _constants(cfg: StftConfig, n_frames: int, out_samps: int,
     return window, wss_inv
 
 
-def _run(wav, mask_s, cfg, ban, power_iters, nsamps, stft_covar,
-         mvdr_power, beamform_istft):
+class _Ops(typing.NamedTuple):
+    """The functions one run goes through: the kernels or their plain
+    versions."""
+    stft_covar: typing.Callable
+    mvdr_power: typing.Callable
+    gevd_power: typing.Callable
+    pmwf_solve: typing.Callable
+    capon: typing.Callable
+    beamform_istft: typing.Callable
+
+
+_KERNELS = _Ops(fm.stft_covar, mv.mvdr_power, mv.gevd_power, mv.pmwf_solve,
+                mv.capon, fm.beamform_istft)
+_PLAIN = _Ops(fm.stft_covar_plain, mv.mvdr_power_plain, mv.gevd_power_plain,
+              mv.pmwf_solve_plain, mv.capon_plain, fm.beamform_istft_plain)
+
+
+def _weights(ops: _Ops, beamformer, rs, rn, ry, power_iters):
+    """The per-bin weight solve of each fused beamformer
+    (setk_tpu/enhance/pipeline.py:133-179, iteration counts included);
+    ``ry()`` gives the observation PSD for the mpdr pair."""
+    if beamformer == "mvdr":
+        return ops.mvdr_power(rs, rn, power_iters=power_iters)
+    if beamformer == "gevd":
+        return ops.gevd_power(rs, rn, power_iters=30)
+    if beamformer in ("pmwf-0", "pmwf-1"):
+        wm, ps, pn = ops.pmwf_solve(
+            rs, rn, beta=0.0 if beamformer == "pmwf-0" else 1.0,
+            return_powers=True)
+        return bf.pmwf_select_powers(wm, ps, pn)
+    if beamformer == "mpdr":
+        # steer from Rs by power iteration, Capon on Ry: the MVDR solve
+        # with Ry in Rn's place
+        return ops.mvdr_power(rs, ry(), power_iters=power_iters)
+    # mpdr-whiten: the whitened GEV steer Rn g, then Capon on Ry
+    g = ops.gevd_power(rs, rn, power_iters=50)
+    steer = bf.fix_steer_phase((rn * g[..., None, :]).sum(-1))
+    return ops.capon(steer.contiguous(), ry())
+
+
+def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
+         ops: _Ops):
     b, n, s = wav.shape
     out_samps = nsamps if nsamps is not None else s
     if not fused_supported(cfg, n, s, out_samps):
@@ -62,15 +110,28 @@ def _run(wav, mask_s, cfg, ban, power_iters, nsamps, stft_covar,
     t = cfg.num_frames(s)
     window, wss_inv = _constants(cfg, t, out_samps, wav.device)
     mask = mask_s.to(torch.float32).contiguous()
-    rs_num, rn_num = stft_covar(wav, mask, window)     # (B, F, N, N)
-    den_s = mask.sum(dim=1)                            # (B, F)
+    rs_num, rn_num = ops.stft_covar(wav, mask, window)   # (B, F, N, N)
+    den_s = mask.sum(dim=1)                              # (B, F)
     den_n = t - den_s
     rs = rs_num / torch.clamp(den_s, min=1e-6)[..., None, None]
     rn = rn_num / torch.clamp(den_n, min=1e-6)[..., None, None]
-    w = mvdr_power(rs, rn, power_iters=power_iters)   # (B, F, N)
+    # the numerators sum to sum_t y y^H over the valid frames
+    w = _weights(ops, beamformer, rs, rn, lambda: (rs_num + rn_num) / t,
+                 power_iters)                            # (B, F, N)
     if ban:
-        w = do_ban(w, rn).contiguous()
-    return beamform_istft(wav, w, wss_inv, window)
+        w = bf.do_ban(w, rn)
+    return ops.beamform_istft(wav, w.contiguous(), wss_inv, window)
+
+
+def check_fused_options(beamformer: str, steer: str) -> None:
+    """Raise on what the fused pipeline does not run: an unknown
+    beamformer, or the eigh steer for mvdr."""
+    if beamformer not in FUSED_BEAMFORMERS:
+        raise ValueError(f"Unsupported fused beamformer: {beamformer}")
+    if beamformer == "mvdr" and steer != "power":
+        raise NotImplementedError(
+            "the fused pipeline's eigh steer for mvdr arrives with the "
+            "batched small-matrix EVD kernel, ROADMAP queue 2 item 14")
 
 
 def enhance_fused(wav: torch.Tensor,
@@ -85,29 +146,24 @@ def enhance_fused(wav: torch.Tensor,
 
     ``wav`` may be int16: the kernels convert it with 1/32768 folded
     into the analysis window.  The output matches running on
-    ``wav.float() / 32768``.
+    ``wav.float() / 32768``.  ``steer`` is read only for mvdr, as in the
+    JAX package.
     """
-    if beamformer != "mvdr":
-        raise NotImplementedError(
-            f"fused beamformer {beamformer!r} arrives with ROADMAP queue 2 "
-            f"items 4-6 (gevd, pmwf and capon solves)")
-    if steer != "power":
-        raise NotImplementedError(
-            "the fused pipeline's eigh steer arrives with the batched "
-            "small-matrix EVD kernel, ROADMAP queue 2 item 14")
-    return _run(wav, mask_s, cfg, ban, power_iters, nsamps, fm.stft_covar,
-                mv.mvdr_power, fm.beamform_istft)
+    check_fused_options(beamformer, steer)
+    return _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
+                _KERNELS)
 
 
 def enhance_plain(wav: torch.Tensor,
                   mask_s: torch.Tensor,
                   cfg: StftConfig,
+                  beamformer: str = "mvdr",
                   ban: bool = False,
                   power_iters: int = 15,
                   nsamps: int | None = None) -> torch.Tensor:
     """``enhance_fused`` through the kernels' plain versions, on the
     tensors' own device: the reference the kernels are held against."""
+    check_fused_options(beamformer, "power")
     full_f32_matmuls(wav.device)
-    return _run(wav, mask_s, cfg, ban, power_iters, nsamps,
-                fm.stft_covar_plain, mv.mvdr_power_plain,
-                fm.beamform_istft_plain)
+    return _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
+                _PLAIN)

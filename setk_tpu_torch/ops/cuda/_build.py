@@ -29,7 +29,12 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points and their ctypes signatures
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mvdr_power": {"mvdr_power_launch": [_P, _P, _P, _I, _I, _I, _F, _P]},
+    "mvdr_power": {
+        "mvdr_power_launch": [_P, _P, _P, _I, _I, _I, _F, _P],
+        "gevd_power_launch": [_P, _P, _P, _I, _I, _I, _F, _P],
+        "pmwf_solve_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+        "capon_launch": [_P, _P, _P, _I, _I, _F, _P],
+    },
     "fused_mvdr": {
         "stft_covar_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P],

@@ -1,11 +1,14 @@
 """Batched Hermitian linear algebra for per-frequency-bin solves.
 
-Counterpart of the parts of ``setk_tpu/ops/linalg.py`` that the MVDR
-main path needs: hermitianize, scale-invariant diagonal loading, the
-loaded Cholesky solve, its equilibrated form, power iteration and the
-plain principal eigenvector.  Every op is batched over leading axes.
-The generalized EVD and the regularized inverse come with the other
-beamformers and the clustering EM.
+Counterpart of the parts of ``setk_tpu/ops/linalg.py`` that the
+supervised beamformers need: hermitianize, scale-invariant diagonal
+loading, the loaded Cholesky solve, its equilibrated form, power
+iteration, the principal eigenvector and the generalized EVD by Cholesky
+whitening.  Every op is batched over leading axes.  The regularized
+inverse comes with the clustering EM (ROADMAP queue 1 item 6).
+
+The EVD runs only on the CPU: on a CUDA tensor ``eigh`` raises until the
+batched small-matrix EVD kernel lands (ROADMAP queue 2 item 14).
 """
 
 import torch
@@ -14,12 +17,17 @@ from setk_tpu_torch.utils.common import EPSILON
 
 __all__ = [
     "hermitianize", "eigh", "principal_eigvec", "solve_pevd",
-    "hermitian_solve", "equilibrated_hermitian_solve", "power_iteration"
+    "generalized_eigh", "hermitian_solve", "equilibrated_hermitian_solve",
+    "power_iteration"
 ]
 
 
 def eigh(mat: torch.Tensor):
-    """Batched Hermitian EVD (eigenvalues ascending)."""
+    """Batched Hermitian EVD (eigenvalues ascending), CPU tensors only."""
+    if mat.device.type == "cuda":
+        raise NotImplementedError(
+            "a Hermitian EVD on a CUDA device arrives with the batched "
+            "small-matrix EVD kernel, ROADMAP queue 2 item 14")
     return torch.linalg.eigh(mat)
 
 
@@ -80,15 +88,30 @@ def principal_eigvec(mat: torch.Tensor) -> torch.Tensor:
     return vecs[..., :, -1]
 
 
-def solve_pevd(rs: torch.Tensor, rn=None, eps_rel: float = 1e-6):
-    """Principal eigenvector of hermitianized ``rs``.
+def generalized_eigh(a: torch.Tensor, b: torch.Tensor,
+                     eps_rel: float = 1e-6):
+    """Generalized Hermitian EVD ``a v = w b v`` by Cholesky whitening of
+    the loaded, hermitianized ``b``: eigenvalues ascending, eigenvectors
+    normalized so that ``v^H b v = I`` (scipy.linalg.eigh's convention,
+    up to per-vector phase)."""
+    chol = torch.linalg.cholesky(_diag_load(hermitianize(b), eps_rel))
+    # C = L^{-1} a L^{-H}: with X = L^{-1} a (a Hermitian), C = L^{-1} X^H
+    li_a = torch.linalg.solve_triangular(chol, hermitianize(a), upper=False)
+    c = torch.linalg.solve_triangular(chol, li_a.conj().transpose(-1, -2),
+                                      upper=False)
+    w, u = eigh(hermitianize(c))
+    v = torch.linalg.solve_triangular(chol.conj().transpose(-1, -2), u,
+                                      upper=True)
+    return w, v
 
-    The generalized form (``rn`` given) arrives with the GEVD family.
-    """
-    if rn is not None:
-        raise NotImplementedError(
-            "generalized EVD arrives with ROADMAP queue 1 item 2")
-    return principal_eigvec(hermitianize(rs))
+
+def solve_pevd(rs: torch.Tensor, rn=None, eps_rel: float = 1e-6):
+    """Principal eigenvector of hermitianized ``rs``, or with ``rn`` the
+    principal generalized eigenvector of (rs, rn)."""
+    if rn is None:
+        return principal_eigvec(hermitianize(rs))
+    _, v = generalized_eigh(rs, rn, eps_rel=eps_rel)
+    return v[..., :, -1]
 
 
 def power_iteration(mat: torch.Tensor,

@@ -1,11 +1,13 @@
 """Batched mask-based enhancement: the main-path library entry.
 
 Counterpart of ``setk_tpu/parallel/enhance_step.enhance_batch``
-(enhance_step.py:30-121), offline form.  On a CUDA device the whole
-step runs through the fused kernels (enhance/pipeline.enhance_fused);
-on the CPU it runs the spectrum-domain plain path (STFT -> masked PSDs
--> MVDR -> beamform -> iSTFT), as the JAX package does off the TPU.
-The sharded multi-device step comes with ROADMAP queue 1 item 12.
+(enhance_step.py:30-121).  On a CUDA device the whole step runs
+through the fused kernels (enhance/pipeline.enhance_fused) for every
+beamformer in ``FUSED_BEAMFORMERS``; on the CPU it runs the
+spectrum-domain plain path (STFT -> masked PSDs -> weights -> beamform
+-> iSTFT), one-shot or online (chunked EMA), as the JAX package does
+off the TPU.  The online kernels come with ROADMAP queue 2 items 7-8,
+the sharded multi-device step with queue 1 item 12.
 """
 
 import numpy as np
@@ -13,7 +15,8 @@ import torch
 
 from setk_tpu_torch.dsp.stft import StftConfig, forward_stft, inverse_stft
 from setk_tpu_torch.enhance import beamformer as bf
-from setk_tpu_torch.enhance.pipeline import enhance_fused, fused_supported
+from setk_tpu_torch.enhance.pipeline import (check_fused_options,
+                                             enhance_fused, fused_supported)
 from setk_tpu_torch.utils.device import resolve_device
 
 __all__ = ["enhance_batch"]
@@ -41,26 +44,32 @@ def enhance_batch(wav,
     device and a numpy ``wav`` goes to ``cuda`` (``RuntimeError`` when
     there is none; pass ``device="cpu"`` for the plain path).
     ``steer="auto"`` is the power iteration on CUDA and the full
-    eigendecomposition on the CPU.  On CUDA, what the kernels do not
-    cover raises ``NotImplementedError`` naming the ROADMAP item that
-    brings it; nothing falls back to a plain path on the card.
+    eigendecomposition on the CPU (mvdr only; the online path uses each
+    beamformer's default weights, as the JAX package does).
+    ``chunk_size > 0`` runs the online (chunked EMA) variant.  On CUDA,
+    what the kernels do not cover raises ``NotImplementedError`` naming
+    the ROADMAP item that brings it; nothing falls back to a plain path
+    on the card.
     """
     dev = resolve_device(device, like=wav)
-    wav = _as_tensor(wav, dev)
-    mask_s = _as_tensor(mask_s, dev).to(torch.float32)
     on_cuda = dev.type == "cuda"
     steer_r = ("power" if on_cuda else "eigh") if steer == "auto" else steer
     out_samps = nsamps if nsamps is not None else wav.shape[-1]
-    if chunk_size > 0:
-        raise NotImplementedError(
-            "online (chunked EMA) enhancement arrives with ROADMAP queue 1 "
-            "item 2 (plain path) and queue 2 items 7-8 (kernels)")
     if on_cuda:
+        # refuse before anything is copied to the card
+        if chunk_size > 0:
+            raise NotImplementedError(
+                "online (chunked EMA) enhancement on a CUDA device arrives "
+                "with the online kernels, ROADMAP queue 2 items 7-8")
+        check_fused_options(beamformer, steer_r)
         if not fused_supported(cfg, wav.shape[-2], wav.shape[-1], out_samps):
             raise NotImplementedError(
                 f"STFT geometry {cfg} with wav {tuple(wav.shape)} and "
                 f"nsamps {out_samps} is outside the fused kernels' gate; "
                 f"the planar path arrives with ROADMAP queue 2 items 9-11")
+    wav = _as_tensor(wav, dev)
+    mask_s = _as_tensor(mask_s, dev).to(torch.float32)
+    if on_cuda:
         return enhance_fused(wav.contiguous(), mask_s, cfg,
                              beamformer=beamformer, ban=ban, steer=steer_r,
                              nsamps=nsamps)
@@ -69,6 +78,19 @@ def enhance_batch(wav,
     spec = forward_stft(wav, cfg)                    # (B, N, T, F)
     obs = spec.permute(0, 3, 1, 2)                   # (B, F, N, T)
     mask = mask_s.transpose(1, 2)                    # (B, F, T)
-    kw = {"steer": steer_r} if beamformer == "mvdr" else {}
-    enh = bf.supervised_run(beamformer, obs, mask, ban=ban, **kw)
+    if chunk_size > 0:
+        t = obs.shape[-1]
+        # the noise mask is made before padding, so pad frames carry
+        # mask_n = 0 and drop out of both covariance denominators
+        mask_n = torch.clamp(1.0 - mask, min=0.0)
+        pad = (-t) % chunk_size
+        obs = torch.nn.functional.pad(obs, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+        mask_n = torch.nn.functional.pad(mask_n, (0, pad))
+        enh = bf.online_supervised_run(beamformer, obs, mask, mask_n=mask_n,
+                                       chunk_size=chunk_size, alpha=alpha,
+                                       ban=ban)[..., :t]
+    else:
+        kw = {"steer": steer_r} if beamformer == "mvdr" else {}
+        enh = bf.supervised_run(beamformer, obs, mask, ban=ban, **kw)
     return inverse_stft(enh.transpose(-1, -2), cfg, nsamps=out_samps)

@@ -120,11 +120,24 @@ def test_supervised_run_matches(steer, ban):
 
 
 def test_other_beamformers_raise():
+    """The whole family runs on CPU tensors, one-shot and online; only
+    unknown names and chunks that do not divide T still raise."""
     obs, mask = _obs(6, b=1, f=4, n=2, t=16)
-    for name in ("gevd", "pmwf-0", "mpdr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbf.supervised_run(name, torch.from_numpy(obs),
-                               torch.from_numpy(mask))
+    to, tm = torch.from_numpy(obs), torch.from_numpy(mask)
+    for name in ("gevd", "pmwf-0", "pmwf-1", "mpdr", "mpdr-whiten"):
+        out = tbf.supervised_run(name, to, tm, ban=name == "gevd")
+        assert out.shape == (1, 4, 16)
+        assert torch.isfinite(torch.view_as_real(out)).all()
+    for name in ("mvdr", "gevd", "pmwf-0", "pmwf-1"):
+        out = tbf.online_supervised_run(name, to, tm, chunk_size=8)
+        assert out.shape == (1, 4, 16)
+        assert torch.isfinite(torch.view_as_real(out)).all()
+    with pytest.raises(ValueError, match="Unknown beamformer"):
+        tbf.supervised_run("ds", to, tm)
+    with pytest.raises(ValueError, match="Unknown online beamformer"):
+        tbf.online_supervised_run("mpdr", to, tm, chunk_size=8)
+    with pytest.raises(ValueError, match="multiple"):
+        tbf.online_supervised_run("mvdr", to, tm, chunk_size=5)
 
 
 def test_mvdr_power_plain_matches_pallas_kernel():

@@ -4,8 +4,8 @@ The sources under setk_tpu_torch/csrc compile with the host C++ compiler
 against tests/cuda_emu/cuda_runtime.h, a CPU stand-in for the CUDA
 runtime (blocks in order, a block's threads as std::threads with a
 barrier), and run through their C entry points on CPU tensors.  This
-checks the kernels' index arithmetic, FFT, reductions and overlap-add
-against their plain PyTorch versions without a card; it says nothing of
+checks the kernels' index arithmetic, FFT, reductions, overlap-add and
+per-bin solves against their plain PyTorch versions without a card; it says nothing of
 speed, and the card's own compiler is checked by chip_smoke.py.  Skips
 when no g++ with C++20 is present (decided inside the fixture).
 """
@@ -28,6 +28,10 @@ from setk_tpu_torch.ops.cuda import mvdr as mv
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 TOL = 1e-5   # f32 radix-2 FFT against pocketfft, f32 sums in another order
+# the family's solves: 30 power iterations or N right-hand sides through an
+# N = 8 Cholesky, each sum in another order than torch's; the bar the
+# kernels are held to on the card
+SOLVE_TOL = 1e-4
 _LAUNCH = re.compile(r"(\w+<[^;]*?>)<<<(.*?)>>>\(", re.S)
 
 
@@ -130,6 +134,64 @@ def test_mvdr_power_source_matches_plain(libs, n):
     assert _rel(w, mv.mvdr_power_plain(rs, rn)) < TOL
 
 
+def _family_covars(n, bins=70, seed=0):
+    """Masked covariances of a source with a per-bin steer plus noise;
+    70 bins are three blocks of 32, the last one partial."""
+    rng = np.random.default_rng(seed + n)
+    t = 48
+    d = rng.standard_normal((bins, n, 1)) + 1j * rng.standard_normal(
+        (bins, n, 1))
+    src = rng.standard_normal((bins, 1, t)) + 1j * rng.standard_normal(
+        (bins, 1, t))
+    y = d * src + 0.3 * (rng.standard_normal((bins, n, t)) + 1j *
+                         rng.standard_normal((bins, n, t)))
+    m = np.where(np.abs(src) > 1.0, 0.95, 0.05)
+    rs = (y * m) @ y.conj().transpose(0, 2, 1) / t
+    rn = (y * (1 - m)) @ y.conj().transpose(0, 2, 1) / t
+    return (torch.from_numpy(rs.astype(np.complex64)),
+            torch.from_numpy(rn.astype(np.complex64)),
+            torch.from_numpy(d[..., 0].astype(np.complex64)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 8])
+def test_gevd_power_source_matches_plain(libs, n):
+    rs, rn, _ = _family_covars(n)
+    v = torch.empty((rs.shape[0], n), dtype=torch.complex64)
+    err = libs["mvdr_power"].gevd_power_launch(
+        rs.data_ptr(), rn.data_ptr(), v.data_ptr(), rs.shape[0], n, 30, 1e-6,
+        None)
+    assert err == 0
+    assert _rel(v, mv.gevd_power_plain(rs, rn, 30)) < SOLVE_TOL
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 8])
+@pytest.mark.parametrize("beta,powers", [(0.0, True), (1.0, False)])
+def test_pmwf_solve_source_matches_plain(libs, n, beta, powers):
+    rs, rn, _ = _family_covars(n, seed=1)
+    bins = rs.shape[0]
+    w = torch.empty((bins, n, n), dtype=torch.complex64)
+    ps, pn = torch.empty((bins, n)), torch.empty((bins, n))
+    err = libs["mvdr_power"].pmwf_solve_launch(
+        rs.data_ptr(), rn.data_ptr(), w.data_ptr(),
+        ps.data_ptr() if powers else None, pn.data_ptr() if powers else None,
+        bins, n, beta, 1e-6, None)
+    assert err == 0
+    ref = mv.pmwf_solve_plain(rs, rn, beta, return_powers=True)
+    assert _rel(w, ref[0]) < SOLVE_TOL
+    if powers:
+        assert _rel(ps, ref[1]) < SOLVE_TOL and _rel(pn, ref[2]) < SOLVE_TOL
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 8])
+def test_capon_source_matches_plain(libs, n):
+    _, rn, d = _family_covars(n, bins=130, seed=2)
+    w = torch.empty_like(d)
+    err = libs["mvdr_power"].capon_launch(
+        d.data_ptr(), rn.data_ptr(), w.data_ptr(), d.shape[0], n, 1e-6, None)
+    assert err == 0
+    assert _rel(w, mv.capon_plain(d, rn)) < SOLVE_TOL
+
+
 def test_entry_points_reject_bad_geometry(libs):
     z = torch.zeros(8)
     lib = libs["fused_mvdr"]
@@ -142,5 +204,15 @@ def test_entry_points_reject_bad_geometry(libs):
     assert lib.beamform_istft_launch(z.data_ptr(), z.data_ptr(), z.data_ptr(),
                                      z.data_ptr(), z.data_ptr(), z.data_ptr(),
                                      1, 9, 4096, 0, None) != 0
-    assert libs["mvdr_power"].mvdr_power_launch(
+    lib = libs["mvdr_power"]
+    assert lib.mvdr_power_launch(
         z.data_ptr(), z.data_ptr(), z.data_ptr(), 4, 9, 15, 1e-6, None) != 0
+    p = z.data_ptr()
+    for nbins, n in ((4, 9), (0, 2), (-1, 2)):
+        assert lib.gevd_power_launch(p, p, p, nbins, n, 30, 1e-6, None) != 0
+        assert lib.pmwf_solve_launch(p, p, p, p, p, nbins, n, 0.0, 1e-6,
+                                     None) != 0
+        assert lib.capon_launch(p, p, p, nbins, n, 1e-6, None) != 0
+    # powers come as a pair or not at all
+    assert lib.pmwf_solve_launch(p, p, p, p, None, 1, 2, 0.0, 1e-6,
+                                 None) != 0

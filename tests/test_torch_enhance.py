@@ -210,19 +210,37 @@ def test_fused_gate_is_the_ports_own():
                                CFG, nsamps=4000)
 
 
-def test_uncovered_options_raise():
+def test_uncovered_options_raise(monkeypatch):
+    """What still raises names its ROADMAP item; the family does not."""
     wav, mask = _scene(7, 1, 2, 4096)
     wt, mt = torch.from_numpy(wav), torch.from_numpy(mask)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enhance_batch(wt, mt, CFG, chunk_size=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enhance_batch(wt, mt, CFG, beamformer="gevd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.enhance_fused(wt, mt, CFG, beamformer="pmwf-0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the family runs through the fused pipeline (plain versions on the
+    # CPU) and through the CPU entry, one-shot and online
+    for name in pipeline.FUSED_BEAMFORMERS:
+        pipeline.check_fused_options(name, "power")
+        if name != "mvdr":
+            pipeline.check_fused_options(name, "eigh")  # steer is mvdr's
+        out = pipeline.enhance_fused(wt, mt, CFG, beamformer=name)
+        assert out.shape == (1, 4096) and torch.isfinite(out).all()
+        assert torch.isfinite(enhance_batch(wt, mt, CFG, beamformer=name,
+                                            ban=True)).all()
+    assert torch.isfinite(enhance_batch(wt, mt, CFG, chunk_size=32)).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 14"):
         pipeline.enhance_fused(wt, mt, CFG, steer="eigh")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Unsupported fused beamformer"):
+        pipeline.enhance_fused(wt, mt, CFG, beamformer="ds")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tex.BatchEnhancer(CFG, mesh=object(), device="cpu")
+    # on a CUDA device (the device check monkeypatched, as below): the
+    # entry refuses before it copies anything to the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for kw, item in (({"chunk_size": 32}, "queue 2 items 7-8"),
+                     ({"steer": "eigh"}, "queue 2 item 14"),
+                     ({"nsamps": 4000}, "queue 2 items 9-11")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            enhance_batch(wav, mask, CFG, device="cuda", **kw)
+    with pytest.raises(ValueError, match="Unsupported fused beamformer"):
+        enhance_batch(wav, mask, CFG, beamformer="ds", device="cuda")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -83,12 +83,55 @@ def test_enhance_batch_runs_kernels_only():
     assert torch.isfinite(out).all() and _rel(out, ref) < TOL
 
 
+@pytest.mark.parametrize("name,ban,solves", [
+    ("gevd", False, ("gevd_power",)), ("gevd", True, ("gevd_power",)),
+    ("pmwf-0", False, ("pmwf_solve",)), ("pmwf-1", True, ("pmwf_solve",)),
+    ("mpdr", False, ("mvdr_power",)),
+    ("mpdr-whiten", False, ("gevd_power", "capon"))])
+def test_family_runs_kernels_only(name, ban, solves):
+    dev = _card()
+    cfg, wav, mask = _inputs(2, 4, 16384, True, seed=2)
+    counted = (fm.stft_covar, mv.mvdr_power, mv.gevd_power, mv.pmwf_solve,
+               mv.capon, fm.beamform_istft)
+    for fn in counted:
+        fn.launches = 0
+    wav_d = torch.from_numpy(wav).to(dev)
+    mask_d = torch.from_numpy(mask).to(dev)
+    out = enhance_batch(wav_d, mask_d, cfg, beamformer=name, ban=ban)
+    want = {fn.__name__: int(fn.__name__ in solves + ("stft_covar",
+                                                      "beamform_istft"))
+            for fn in counted}
+    assert {fn.__name__: fn.launches for fn in counted} == want
+    ref = enhance_plain(wav_d, mask_d, cfg, beamformer=name, ban=ban)
+    assert torch.isfinite(out).all() and _rel(out, ref) < TOL
+
+
+@pytest.mark.parametrize("n", [1, 6, 8])
+def test_family_kernels_match_plain(n):
+    dev = _card()
+    rng = np.random.default_rng(n)
+    bins, t = 300, 64
+    y = torch.from_numpy((rng.standard_normal((bins, n, t)) + 1j *
+                          rng.standard_normal((bins, n, t))).astype(
+                              np.complex64)).to(dev)
+    m = torch.from_numpy(rng.random((bins, 1, t)).astype(np.float32)).to(dev)
+    rs = ((y * m) @ y.conj().transpose(-1, -2) / t).contiguous()
+    rn = ((y * (1 - m)) @ y.conj().transpose(-1, -2) / t).contiguous()
+    d = y[..., 0].contiguous()
+    for got, ref in zip(mv.pmwf_solve(rs, rn, 1.0, return_powers=True),
+                        mv.pmwf_solve_plain(rs, rn, 1.0, return_powers=True)):
+        assert _rel(got, ref) < TOL
+    assert _rel(mv.capon(d, rn), mv.capon_plain(d, rn)) < TOL
+    assert torch.isfinite(torch.view_as_real(mv.gevd_power(rs, rn, 30))).all()
+
+
 def test_uncovered_cases_raise_on_the_card():
     dev = _card()
     cfg, wav, mask = _inputs(1, 2, 4096, False)
     wav_d = torch.from_numpy(wav).to(dev)
     mask_d = torch.from_numpy(mask).to(dev)
-    for kw in ({"beamformer": "gevd"}, {"chunk_size": 32},
-               {"steer": "eigh"}, {"nsamps": 4000}):
+    for kw in ({"chunk_size": 32}, {"steer": "eigh"}, {"nsamps": 4000}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             enhance_batch(wav_d, mask_d, cfg, **kw)
+    with pytest.raises(ValueError):
+        enhance_batch(wav_d, mask_d, cfg, beamformer="ds")
