@@ -35,11 +35,27 @@ the CUDA toolkit.  In order it:
      within 1e-4 of enhance_plain(beamformer=X) on the card and, for the
      distortionless names, correlating >= 0.9 with the source as mic 0
      sees it;
-  7. times each kernel (20 launches replayed from one CUDA graph, so the
+  7. online (chunked EMA) MVDR at the bench shape with chunk 32 and
+     alpha 0.8: holds kernel A's per-chunk sums, covar_ema and
+     beamform_istft_online against their plain versions (1e-4 of the
+     peak); runs BatchEnhancer(chunk_size=32) over step 4's utterances
+     (T = 513/449/193) and BatchEnhancer(chunk_size=24) over its extra
+     lengths, counts reset before and read after each: exactly
+     stft_covar, covar_ema, mvdr_power and beamform_istft_online
+     launched, outputs finite, within 1e-4 of enhance_plain_online on the
+     card and correlating >= 0.9 with the clean source; times streaming
+     enhancement of one 4 s utterance (chunk 32), per call and per chunk;
+  8. runs the CLI (apply_adaptive_beamformer --batch-size 4) on the card
+     over 6 utterances (6 ch, 3-8 s, int16 wav files, numpy masks) in a
+     temporary directory under setk_tpu_torch/_build, offline mvdr and
+     with --chunk-size 32: every key written and finite, and each file
+     within 2 int16 steps of the same CLI run with --device cpu;
+  9. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
-     it), its plain version and enhance_batch for every name with CUDA
-     events (warm-up, then 20 calls) and prints the kernels line;
-  8. prints {"ok": true, "device": {...}} as the last line.
+     it), its plain version and enhance_batch for every name and for the
+     online path with CUDA events (warm-up, then 20 calls) and prints the
+     kernels line;
+  10. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2 and
 prints no result.
@@ -49,6 +65,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -155,6 +172,12 @@ def _flops_capon(bins, n):
     return bins * (_chol_flops(n) + _solve_flops(n) + 16 * n)
 
 
+def _flops_covar_ema(b, n, t, chunks):
+    """Per (utterance, bin): the mask sums over every frame, then per
+    chunk 2 N (N+1) real numerators divided and blended (4 FLOP each)."""
+    return b * 257 * (3 * t + chunks * 2 * n * (n + 1) * 5)
+
+
 def _flops_beamform_istft(b, n, t):
     pairs = (n + 1) // 2
     fwd = n * 512 + pairs * FFT512_FLOP + 257 * (pairs * 8 + n * 8)
@@ -168,7 +191,8 @@ def _ptxas_summary(log: str) -> dict:
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
-                      r"|beamform_istft)_kernelILi(\d)E([fs]?)E", line)
+                      r"|covar_ema|beamform_istft_online|beamform_istft)"
+                      r"_kernelILi(\d)E([fs]?)E", line)
         if "Compiling entry function" in line and m:
             dtype = {"f": ",f32", "s": ",int16"}.get(m.group(3), "")
             key = f"{m.group(1)}<{m.group(2)}{dtype}>"
@@ -214,6 +238,32 @@ FAMILY = [(("gevd", False), ("gevd_power",)),
           (("pmwf-1", False), ("pmwf_solve",)),
           (("mpdr", False), ("mvdr_power",)),
           (("mpdr-whiten", False), ("gevd_power", "capon"))]
+
+
+CHUNK, ALPHA = 32, 0.8
+
+
+def _write_corpus(root, seed):
+    """Six 6-channel int16 wav files of 3-8 s (a clean source on every
+    mic plus noise) with uniform [0, 1) masks as .npy, and their scps."""
+    import numpy as np
+    from setk_tpu_torch.dsp.stft import StftConfig
+    from setk_tpu_torch.io.wave import write_wav
+    cfg = StftConfig()
+    rng = np.random.default_rng(seed)
+    wav_lines, mask_lines = [], []
+    for i, secs in enumerate((3, 4, 5, 6, 7, 8)):
+        s = secs * SR + 37 * i
+        clean = rng.standard_normal(s).astype(np.float32) * 0.2
+        x = clean + rng.standard_normal((N, s)).astype(np.float32) * 0.05
+        write_wav(root / f"c{i}.wav", x, sr=SR)
+        np.save(root / f"c{i}.npy", rng.random(
+            (cfg.num_frames(s), cfg.num_bins)).astype(np.float32))
+        wav_lines.append(f"c{i} {root}/c{i}.wav")
+        mask_lines.append(f"c{i} {root}/c{i}.npy")
+    (root / "wav.scp").write_text("\n".join(wav_lines) + "\n")
+    (root / "mask.scp").write_text("\n".join(mask_lines) + "\n")
+    return [f"c{i}" for i in range(6)]
 
 
 def main() -> int:
@@ -489,7 +539,150 @@ def main() -> int:
                       "min_corr_with_source_at_mic0": fam_corr, "tol": TOL,
                       "corr_bar": "0.9 for all but gevd (printed only)"}))
 
-    # ---- 7. timing at the bench shape ----
+    # ---- 7. online MVDR: kernels, BatchEnhancer, streaming ----
+    from setk_tpu_torch.enhance.pipeline import enhance_plain_online
+    part_k = fm.stft_covar_chunks(wav_d, mask_d, window, CHUNK)
+    part_p = fm.stft_covar_chunks_plain(wav_d, mask_d, window, CHUNK)
+    es_k, en_k = fm.covar_ema(part_p, mask_d, CHUNK, ALPHA)
+    es_p, en_p = fm.covar_ema_plain(part_p, mask_d, CHUNK, ALPHA)
+    w_on = mv.mvdr_power(es_p, en_p)
+    on_k = fm.beamform_istft_online(wav_d, w_on, wss_inv, window, CHUNK)
+    on_p = fm.beamform_istft_online_plain(wav_d, w_on, wss_inv, window,
+                                          CHUNK)
+    torch.cuda.synchronize()
+    on_errs = {"stft_covar_chunks": _rel(part_k, part_p),
+               "covar_ema": max(_rel(es_k, es_p), _rel(en_k, en_p)),
+               "beamform_istft_online": _rel(on_k, on_p)}
+    on_abs = {"stft_covar_chunks": _abs(part_k, part_p),
+              "covar_ema": max(_abs(es_k, es_p), _abs(en_k, en_p)),
+              "beamform_istft_online": _abs(on_k, on_p)}
+    print(json.dumps({"online_kernel_vs_plain_max_rel_err": on_errs,
+                      "chunk": CHUNK, "alpha": ALPHA, "tol": TOL}))
+    for name, err in on_errs.items():
+        if not err <= TOL:
+            raise AssertionError(f"{name}: kernel vs plain {err} > {TOL}")
+
+    on_counted = (fm.stft_covar, fm.covar_ema, mv.mvdr_power,
+                  fm.beamform_istft_online, fm.beamform_istft,
+                  mv.gevd_power, mv.pmwf_solve, mv.capon)
+    on_want = {"stft_covar", "covar_ema", "mvdr_power",
+               "beamform_istft_online"}
+    on_launches, on_worst, on_corr = {}, {}, {}
+    for chunk, keys in ((CHUNK, list(utts)),
+                        (24, [k for k in utts if k.startswith("x")])):
+        enhancer = BatchEnhancer(cfg, batch_size=B, chunk_size=chunk,
+                                 alpha=ALPHA, device="cuda")
+        for fn in on_counted:
+            fn.launches = 0
+        results = {}
+        for key in keys:
+            x, m, _ = utts[key]
+            results.update(enhancer.add(key, x, m))
+        results.update(enhancer.flush())
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in on_counted}
+        on_launches[chunk] = counts
+        if {k for k, c in counts.items() if c} != on_want:
+            raise AssertionError(f"online chunk {chunk}: launched {counts}, "
+                                 f"needs exactly {sorted(on_want)}")
+        if set(results) != set(keys):
+            raise AssertionError("online BatchEnhancer lost utterances")
+        buckets = {}
+        for key in keys:
+            buckets.setdefault(bucketer.bucket(utts[key][0].shape[-1]),
+                               []).append(key)
+        worst, corr_min, frames_on = 0.0, 1.0, []
+        for bucket, bkeys in buckets.items():
+            t_pad = cfg.num_frames(bucket)
+            frames_on.append(t_pad)
+            wv = np.zeros((len(bkeys), N, bucket), np.int16)
+            mk = np.zeros((len(bkeys), t_pad, cfg.num_bins), np.float32)
+            for i, key in enumerate(bkeys):
+                x, m, _ = utts[key]
+                wv[i, :, :x.shape[-1]] = x
+                mk[i, :m.shape[0]] = m[:t_pad]
+            ref = enhance_plain_online(
+                torch.from_numpy(wv).to(dev), torch.from_numpy(mk).to(dev),
+                cfg, chunk_size=chunk, alpha=ALPHA,
+                nsamps=bucket).cpu().numpy()
+            for i, key in enumerate(bkeys):
+                got, (x, _, c) = results[key], utts[key]
+                if got.shape != (x.shape[-1],) or not np.isfinite(got).all():
+                    raise AssertionError(f"online {key}: bad output")
+                r = ref[i, :x.shape[-1]]
+                worst = max(worst,
+                            float(np.abs(got - r).max() / np.abs(r).max()))
+                corr_min = min(corr_min, float(np.corrcoef(got, c)[0, 1]))
+        on_worst[chunk], on_corr[chunk] = worst, corr_min
+        print(json.dumps({"online_chunk": chunk, "launches": counts,
+                          "bucket_frames": sorted(frames_on),
+                          "vs_plain_max_rel_err": worst,
+                          "min_corr_with_clean": corr_min, "tol": TOL}))
+        if not worst <= TOL:
+            raise AssertionError(f"online chunk {chunk}: path vs plain "
+                                 f"{worst} > {TOL}")
+        if not corr_min >= 0.9:
+            raise AssertionError(f"online chunk {chunk}: correlation with "
+                                 f"the clean source {corr_min} < 0.9")
+
+    # streaming: one 4 s utterance at a time, chunk 32 (the JAX package's
+    # latency row, benchmarks/bench_latency.py:106-126)
+    st_s = 4 * SR
+    st_wav = wav_d[:1, :, :st_s].contiguous()
+    st_mask = mask_d[:1, :cfg.num_frames(st_s)].contiguous()
+    st_ref = enhance_plain_online(st_wav, st_mask, cfg, chunk_size=CHUNK,
+                                  alpha=ALPHA)
+    st_out = enhance_batch(st_wav, st_mask, cfg, chunk_size=CHUNK,
+                           alpha=ALPHA)
+    st_err = _rel(st_out, st_ref)
+    if not st_err <= TOL:
+        raise AssertionError(f"streaming vs plain {st_err} > {TOL}")
+    st_ms = _time_ms(torch, lambda: enhance_batch(
+        st_wav, st_mask, cfg, chunk_size=CHUNK, alpha=ALPHA))
+    st_chunks = fm.num_chunks(cfg.num_frames(st_s), CHUNK)
+    streaming = {"B": 1, "seconds": 4, "chunk": CHUNK, "chunks": st_chunks,
+                 "ms_per_call": st_ms, "ms_per_chunk": st_ms / st_chunks,
+                 "vs_plain_max_rel_err": st_err}
+    print(json.dumps({"streaming": streaming}))
+
+    # ---- 8. the CLI on the card against the CLI on the CPU ----
+    from setk_tpu_torch.cli import apply_adaptive_beamformer as cli
+    from setk_tpu_torch.io.wave import read_wav
+    cli_worst = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        keys = _write_corpus(tmp, seed=3)
+        for label, extra in (("offline", []),
+                             ("online", ["--chunk-size", str(CHUNK)])):
+            outs = {}
+            for device in ("cuda", "cpu"):
+                out_dir = tmp / f"{label}-{device}"
+                cli.run(cli.make_parser().parse_args(
+                    [str(tmp / "wav.scp"), str(tmp / "mask.scp"),
+                     str(out_dir), "--batch-size", "4", "--device", device]
+                    + extra))
+                outs[device] = {}
+                for key in keys:
+                    path = out_dir / f"{key}.wav"
+                    if not path.exists():
+                        raise AssertionError(f"CLI {label} {device}: {key} "
+                                             f"not written")
+                    samps = read_wav(path, normalize=False)
+                    if not np.isfinite(samps).all():
+                        raise AssertionError(f"CLI {label}: {key} "
+                                             f"not finite")
+                    outs[device][key] = samps
+            cli_worst[label] = max(
+                float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max())
+                for k in keys)
+    print(json.dumps({"cli_card_vs_cpu_max_int16_steps": cli_worst,
+                      "utterances": 6, "tol_steps": 2}))
+    for label, worst in cli_worst.items():
+        if not worst <= 2:
+            raise AssertionError(f"CLI {label}: card vs CPU {worst} int16 "
+                                 f"steps > 2")
+
+    # ---- 9. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -532,8 +725,39 @@ def main() -> int:
          _bound(gsteer.nbytes + gry.nbytes + g_w.nbytes,
                 _flops_capon(bins, N))),
     ]
+    n_chunks = fm.num_chunks(t_frames, CHUNK)
+    rows += [
+        ("stft_covar_chunks", "setk_tpu/ops/pallas/fused_mvdr.py:651",
+         lambda: fm.stft_covar_chunks(wav_d, mask_d, window, CHUNK),
+         lambda: fm.stft_covar_chunks_plain(wav_d, mask_d, window, CHUNK),
+         _bound(wav_d.nbytes + mask_d.nbytes + part_k.nbytes,
+                _flops_stft_covar(B, N, t_frames))),
+        ("covar_ema", "setk_tpu/ops/pallas/fused_mvdr.py:651",
+         lambda: fm.covar_ema(part_p, mask_d, CHUNK, ALPHA),
+         lambda: fm.covar_ema_plain(part_p, mask_d, CHUNK, ALPHA),
+         _bound(part_p.nbytes + mask_d.nbytes + es_k.nbytes + en_k.nbytes,
+                _flops_covar_ema(B, N, t_frames, n_chunks))),
+        ("beamform_istft_online", "setk_tpu/ops/pallas/fused_mvdr.py:771",
+         lambda: fm.beamform_istft_online(wav_d, w_on, wss_inv, window,
+                                          CHUNK),
+         lambda: fm.beamform_istft_online_plain(wav_d, w_on, wss_inv,
+                                                window, CHUNK),
+         _bound(wav_d.nbytes + w_on.nbytes + wss_inv.nbytes + on_k.nbytes,
+                _flops_beamform_istft(B, N, t_frames))),
+    ]
+    # the online path's launch counts (chunk 32 run of step 7); kernel A's
+    # per-chunk launches count in stft_covar.launches
+    launches.update(stft_covar_chunks=on_launches[CHUNK]["stft_covar"],
+                    covar_ema=on_launches[CHUNK]["covar_ema"],
+                    beamform_istft_online=on_launches[CHUNK][
+                        "beamform_istft_online"])
+    errs.update(on_errs)
+    abs_errs.update(on_abs)
     source = {"stft_covar": "setk_tpu_torch/csrc/fused_mvdr.cu",
-              "beamform_istft": "setk_tpu_torch/csrc/fused_mvdr.cu"}
+              "beamform_istft": "setk_tpu_torch/csrc/fused_mvdr.cu",
+              "stft_covar_chunks": "setk_tpu_torch/csrc/fused_mvdr.cu",
+              "covar_ema": "setk_tpu_torch/csrc/fused_mvdr.cu",
+              "beamform_istft_online": "setk_tpu_torch/csrc/fused_mvdr.cu"}
     # the family's kernels: launches summed over the six runs of step 6
     launches.update({k: sum(c[k] for c in fam_launches.values())
                      for k in ("gevd_power", "pmwf_solve", "capon")})
@@ -571,6 +795,13 @@ def main() -> int:
         wav_d, mask_d, cfg, beamformer="mvdr"))
     plain_step_ms = _time_ms(torch, lambda: enhance_plain(
         wav_d, mask_d, cfg), iters=5, warmup=1)
+    # the MVDR solve on the online batch of states (B x C x 257 bins)
+    mvdr_online_ms = _graph_ms(torch, lambda: mv.mvdr_power(es_p, en_p))
+    online_ms = _time_ms(torch, lambda: enhance_batch(
+        wav_d, mask_d, cfg, chunk_size=CHUNK, alpha=ALPHA))
+    online_plain_ms = _time_ms(torch, lambda: enhance_plain_online(
+        wav_d, mask_d, cfg, chunk_size=CHUNK, alpha=ALPHA), iters=5,
+        warmup=1)
     fam_ms = {}
     for (name, ban), _ in FAMILY:
         label = name + ("+ban" if ban else "")
@@ -582,6 +813,10 @@ def main() -> int:
         "audio_s_per_s": B * SECS / (step_ms / 1e3),
         "plain_path_ms": plain_step_ms, "rfft_frames_ms_info": rfft_ms,
         "family_enhance_batch_gated_scene": fam_ms,
+        "online_enhance_batch_ms": online_ms,
+        "online_mvdr_power_ms": mvdr_online_ms,
+        "online_audio_s_per_s": B * SECS / (online_ms / 1e3),
+        "online_plain_path_ms": online_plain_ms, "streaming": streaming,
         "gevd_power_50_iters_ms": gevd50_ms,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     print(json.dumps({"kernels": kernels}))

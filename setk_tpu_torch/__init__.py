@@ -3,7 +3,9 @@
 The JAX package ``setk_tpu`` is the reference; this package imports
 neither it nor ``jax``.  It covers batched mask-based enhancement with
 the supervised beamformer family (mvdr, gevd, pmwf-0/1, mpdr,
-mpdr-whiten): ``parallel.executor.BatchEnhancer`` ->
+mpdr-whiten) and online (chunked EMA) mvdr:
+``parallel.executor.BatchEnhancer`` ->
 ``parallel.enhance_step.enhance_batch`` -> the fused CUDA kernels under
-``ops/cuda`` (sources in ``csrc/``).
+``ops/cuda`` (sources in ``csrc/``), and the adaptive-beamformer CLI
+over it (``python -m setk_tpu_torch.cli``, I/O in ``io/``).
 """

@@ -33,6 +33,27 @@
 //   the one extra frame its overlap-add needs itself.  Both kernels
 //   transform two frames per pass of the FFT's chain of block barriers,
 //   which sets their time more than bytes or FLOP do.
+//
+// The online (chunked EMA) pair replaces stft_covar_online_pallas (:651,
+// body _stft_covar_online_kernel :530) and beamform_istft_online_pallas
+// (:771, body :712).  The TPU kernel's EMA-mixing matmuls with hi/lo
+// K-stacks, its lane permutation and its 128-frame quarters are TPU
+// devices and have no counterpart here.  Instead:
+//   - kernel A runs with one block per (utterance, chunk of frames), so
+//     its partial runs are exactly the per-chunk numerators
+//     (stft_covar_chunks_launch, no reduce);
+//   - covar_ema_kernel walks the chunks in order, one thread per output
+//     entry of a bin's E_s or E_n: it normalizes by the chunk's mask sums
+//     (formed in the block from the mask), carries the EMA
+//     E <- a E + (1 - a) R_c in an f32 register (the first chunk
+//     initializes) and writes the full Hermitian E_s, E_n per chunk for
+//     the mvdr_power kernel;
+//   - beamform_istft_online_kernel is kernel B with one weight row per
+//     chunk: each thread reloads its bin's weights when a frame crosses
+//     into another chunk, so the extra frame a block computes for its
+//     overlap-add takes its own chunk's weights.
+// covar_ema is bound by bytes: at B=128, N=6, T=501, chunk 32 it reads
+// 177 MB of sums and 66 MB of mask and writes 303 MB (~0.16 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -249,6 +270,88 @@ __global__ void covar_reduce_kernel(const float2* __restrict__ part,
   }
 }
 
+// Online state per chunk: E_c = R_c (c = 0), E_c = a E_{c-1} + (1 - a) R_c,
+// R_c = numerator_c / max(sum_{t in c} m, 1e-6) with m = mask for Rs and
+// max(1 - mask, 0) for Rn.  part (B, C, 257, 2 NP) from kernel A with one
+// run per chunk; es, en (B, C, 257, N, N).  Every entry of E evolves on
+// its own, so each thread carries one output entry (Rs or Rn, row a,
+// column c) of one bin through the chunks, and a block covers kEmaBins
+// consecutive bins: its stores per chunk are contiguous.  The block first
+// forms the mask sums of a tile of up to kEmaTile chunks, one thread per
+// (chunk, kind, bin), so the walk over the tile's chunks has no barrier
+// and no chain of mask loads in it (PERF.md: forming them chunk by chunk
+// made the kernel latency-bound).
+constexpr int kEmaBins = 4;
+constexpr int kEmaTile = 64;
+
+template <int N>
+__global__ void covar_ema_kernel(const float2* __restrict__ part,
+                                 const float* __restrict__ mask,
+                                 float2* __restrict__ es,
+                                 float2* __restrict__ en, int B,
+                                 int n_frames, int chunk, int n_chunks,
+                                 float alpha) {
+  constexpr int NP = N * (N + 1) / 2;
+  constexpr int E = N * N;
+  __shared__ float den[kEmaTile][2][kEmaBins];
+  const int rows = B * kBins;              // (utterance, bin) rows
+  const int row0 = blockIdx.x * kEmaBins;
+  const int g = threadIdx.x / (2 * E);     // this thread's bin in the block
+  const int e = threadIdx.x - g * 2 * E;
+  const int which = e / E;                 // 0: Rs, 1: Rn
+  const int a = (e - which * E) / N;
+  const int c = (e - which * E) - a * N;
+  const int lo = min(a, c), hi = max(a, c);
+  // pairs of the upper triangle in row order; the lower is the conjugate
+  const int pidx = which * NP + lo * N - lo * (lo - 1) / 2 + (hi - lo);
+  const float sgn = a > c ? -1.0f : 1.0f;
+  const int row = row0 + g;
+  const bool live = row < rows;
+  const int b = row / kBins;
+  const int k = row - b * kBins;
+  const float beta = 1.0f - alpha;
+  cpx acc = {0.0f, 0.0f};
+  for (int c0 = 0; c0 < n_chunks; c0 += kEmaTile) {
+    const int nc = min(kEmaTile, n_chunks - c0);
+    __syncthreads();  // the previous tile's sums are consumed
+    for (int i = threadIdx.x; i < nc * 2 * kEmaBins; i += blockDim.x) {
+      const int gw = i % kEmaBins;
+      const int wh = (i / kEmaBins) % 2;
+      const int cc = i / (2 * kEmaBins);
+      const int r = row0 + gw;
+      float d = 0.0f;
+      if (r < rows) {
+        const int bb = r / kBins;
+        const float* mcol =
+            mask + (size_t)bb * n_frames * kBins + (r - bb * kBins);
+        const int t0 = (c0 + cc) * chunk;
+        const int t1 = min(n_frames, t0 + chunk);
+        for (int t = t0; t < t1; ++t) {
+          const float m = mcol[(size_t)t * kBins];
+          d += wh ? fmaxf(1.0f - m, 0.0f) : m;
+        }
+      }
+      den[cc][wh][gw] = fmaxf(d, 1e-6f);
+    }
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll 4
+    for (int cc = 0; cc < nc; ++cc) {
+      const size_t out_row = ((size_t)b * n_chunks + c0 + cc) * kBins + k;
+      const float d = den[cc][which][g];
+      const float2 v = part[out_row * 2 * NP + pidx];
+      const cpx r = {v.x / d, (sgn * v.y) / d};
+      if (c0 + cc == 0) {
+        acc = r;
+      } else {
+        acc = {alpha * acc.re + beta * r.re, alpha * acc.im + beta * r.im};
+      }
+      (which ? en : es)[out_row * E + a * N + c] = make_float2(acc.re,
+                                                               acc.im);
+    }
+  }
+}
+
 // enh = sum_m conj(w_m) X_m at bin k; only the real part of bins 0 and
 // 256 enters the inverse real DFT.
 template <int N>
@@ -272,15 +375,26 @@ __host__ __device__ constexpr int chunk_blocks(int n) {
   return n <= 6 ? 16 : 8;
 }
 
-// At most 56 registers a thread, so four blocks share an SM (measured
-// faster than three blocks without spills, PERF.md).
-template <int N, typename T>
-__global__ void __launch_bounds__(kThreads, 4)
-beamform_istft_kernel(const T* __restrict__ wav, const float2* __restrict__ w,
-                      const float* __restrict__ wss_inv,
-                      const float* __restrict__ window,
-                      const float* __restrict__ synth, float* __restrict__ out,
-                      int S, int nblk_out) {
+// Bin k's weights of one chunk: w[row * N .. row * N + N).
+template <int N>
+__device__ __forceinline__ void load_weights(const float2* __restrict__ w,
+                                             size_t row, cpx (&wk)[N]) {
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    const float2 v = w[row * N + m];
+    wk[m] = {v.x, v.y};
+  }
+}
+
+// The body of kernel B.  Offline (kOnline false) one weight row per
+// utterance, w (B, 257, N); online, w (B, n_chunks, 257, N) and frame f
+// takes chunk f / chunk's row.
+template <int N, typename T, bool kOnline>
+__device__ __forceinline__ void beamform_istft_body(
+    const T* __restrict__ wav, const float2* __restrict__ w,
+    const float* __restrict__ wss_inv, const float* __restrict__ window,
+    const float* __restrict__ synth, float* __restrict__ out, int S,
+    int nblk_out, int chunk, int n_chunks) {
   constexpr int P = (N + 1) / 2;
   constexpr int CH = chunk_blocks(N);
   __shared__ float2 buf[2 * P * kStride];
@@ -299,13 +413,18 @@ beamform_istft_kernel(const T* __restrict__ wav, const float2* __restrict__ w,
   const T* x = wav + (size_t)b * N * S;
 
   cpx wk[N];
-  if (k < kBins) {
-#pragma unroll
-    for (int m = 0; m < N; ++m) {
-      const float2 v = w[((size_t)b * kBins + k) * N + m];
-      wk[m] = {v.x, v.y};
+  int cur = 0;  // the chunk whose weights wk holds
+  if (k < kBins) load_weights<N>(w, ((size_t)b * n_chunks) * kBins + k, wk);
+  // before beamforming frame f: its chunk's weights (online only; frames
+  // only increase within a block)
+  auto weights_for = [&](int f) {
+    if (!kOnline) return;
+    const int c = f / chunk;
+    if (c != cur) {
+      load_weights<N>(w, ((size_t)b * n_chunks + c) * kBins + k, wk);
+      cur = c;
     }
-  }
+  };
 
   // frames j0 .. j0 + nj feed output blocks j0 .. j0 + nj - 1; they run
   // in pairs (fa, fb): one chain of FFT barriers transforms both, and one
@@ -319,8 +438,12 @@ beamform_istft_kernel(const T* __restrict__ wav, const float2* __restrict__ w,
     fft512<2 * P, false>(buf, tw);
     cpx e[2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
     if (k < kBins) {
+      weights_for(fa);
       e[0] = beamform_bin<N>(buf, k, wk);
-      if (has_b) e[1] = beamform_bin<N>(buf + P * kStride, k, wk);
+      if (has_b) {
+        weights_for(fb);
+        e[1] = beamform_bin<N>(buf + P * kStride, k, wk);
+      }
     }
     __syncthreads();  // spectra consumed: zbuf (= buf) is free
     if (k < kBins) {
@@ -355,6 +478,32 @@ beamform_istft_kernel(const T* __restrict__ wav, const float2* __restrict__ w,
     out[obase + i] = acc[i] * wss_inv[(size_t)j0 * kHop + i];
 }
 
+// At most 56 registers a thread, so four blocks share an SM (measured
+// faster than three blocks without spills, PERF.md).
+template <int N, typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+beamform_istft_kernel(const T* __restrict__ wav, const float2* __restrict__ w,
+                      const float* __restrict__ wss_inv,
+                      const float* __restrict__ window,
+                      const float* __restrict__ synth, float* __restrict__ out,
+                      int S, int nblk_out) {
+  beamform_istft_body<N, T, false>(wav, w, wss_inv, window, synth, out, S,
+                                   nblk_out, 1, 1);
+}
+
+template <int N, typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+beamform_istft_online_kernel(const T* __restrict__ wav,
+                             const float2* __restrict__ w,
+                             const float* __restrict__ wss_inv,
+                             const float* __restrict__ window,
+                             const float* __restrict__ synth,
+                             float* __restrict__ out, int S, int nblk_out,
+                             int chunk, int n_chunks) {
+  beamform_istft_body<N, T, true>(wav, w, wss_inv, window, synth, out, S,
+                                  nblk_out, chunk, n_chunks);
+}
+
 template <typename T>
 int launch_a(const void* wav, const float* mask, const float* window,
              float2* part, float2* rs, float2* rn, int B, int N, int S,
@@ -378,18 +527,48 @@ int launch_a(const void* wav, const float* mask, const float* window,
   return cudaGetLastError();
 }
 
+// Kernel A alone with one run of `chunk` frames per block: part holds the
+// per-chunk numerators, nothing is reduced.
+template <typename T>
+int launch_a_chunks(const void* wav, const float* mask, const float* window,
+                    float2* part, int B, int N, int S, int chunk,
+                    cudaStream_t st) {
+  const int nf = S / kHop + 1;
+  const T* x = static_cast<const T*>(wav);
+  dim3 grid(B, (nf + chunk - 1) / chunk);
+  switch (N) {
+#define CASE(n)                                                              \
+  case n:                                                                    \
+    stft_covar_kernel<n, T><<<grid, kThreads, 0, st>>>(x, mask, window,     \
+                                                       part, S, nf, chunk);  \
+    break;
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// chunk <= 0: offline kernel B; else the online kernel with one weight row
+// per chunk of frames.
 template <typename T>
 int launch_b(const void* wav, const float2* w, const float* wss_inv,
              const float* window, const float* synth, float* out, int B, int N,
-             int S, cudaStream_t st) {
+             int S, int chunk, cudaStream_t st) {
   const int nblk_out = S / kHop;
+  const int n_chunks = chunk > 0 ? (nblk_out + chunk) / chunk : 1;
   const T* x = static_cast<const T*>(wav);
   dim3 grid((nblk_out + chunk_blocks(N) - 1) / chunk_blocks(N), B);
   switch (N) {
 #define CASE(n)                                                          \
   case n:                                                                \
-    beamform_istft_kernel<n, T><<<grid, kThreads, 0, st>>>(             \
-        x, w, wss_inv, window, synth, out, S, nblk_out);                 \
+    if (chunk > 0)                                                       \
+      beamform_istft_online_kernel<n, T><<<grid, kThreads, 0, st>>>(    \
+          x, w, wss_inv, window, synth, out, S, nblk_out, chunk,         \
+          n_chunks);                                                     \
+    else                                                                 \
+      beamform_istft_kernel<n, T><<<grid, kThreads, 0, st>>>(           \
+          x, w, wss_inv, window, synth, out, S, nblk_out);               \
     break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
@@ -439,6 +618,73 @@ extern "C" int beamform_istft_launch(const void* wav, const void* w,
   auto syn = static_cast<const float*>(synth);
   auto o = static_cast<float*>(out);
   return is_int16
-             ? launch_b<int16_t>(wav, wt, wi, win, syn, o, B, N, S, st)
-             : launch_b<float>(wav, wt, wi, win, syn, o, B, N, S, st);
+             ? launch_b<int16_t>(wav, wt, wi, win, syn, o, B, N, S, 0, st)
+             : launch_b<float>(wav, wt, wi, win, syn, o, B, N, S, 0, st);
+}
+
+// Online pair.  C = ceil(T / chunk) chunks of frames, T = S/256 + 1;
+// chunk c covers frames [c chunk, min(T, (c + 1) chunk)).
+// Kernel A per chunk: wav, mask, window as stft_covar_launch; part
+// (B, C, 257, N (N+1)) complex64, the per-chunk numerators.
+extern "C" int stft_covar_chunks_launch(const void* wav, const void* mask,
+                                        const void* window, void* part,
+                                        int B, int N, int S, int chunk,
+                                        int is_int16, void* stream) {
+  if (!geometry_ok(B, N, S) || chunk < 1) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto m = static_cast<const float*>(mask);
+  auto win = static_cast<const float*>(window);
+  auto pt = static_cast<float2*>(part);
+  return is_int16
+             ? launch_a_chunks<int16_t>(wav, m, win, pt, B, N, S, chunk, st)
+             : launch_a_chunks<float>(wav, m, win, pt, B, N, S, chunk, st);
+}
+
+// part as above for T frames, mask (B, T, 257) f32 -> es, en
+// (B, C, 257, N, N) complex64, the EMA state after each chunk.
+extern "C" int covar_ema_launch(const void* part, const void* mask, void* es,
+                                void* en, int B, int N, int T, int chunk,
+                                float alpha, void* stream) {
+  if (B < 1 || N < 1 || N > 8 || T < 1 || chunk < 1)
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pt = static_cast<const float2*>(part);
+  auto m = static_cast<const float*>(mask);
+  auto s = static_cast<float2*>(es);
+  auto n = static_cast<float2*>(en);
+  const int n_chunks = (T + chunk - 1) / chunk;
+  const int blocks = (B * kBins + kEmaBins - 1) / kEmaBins;
+  const int threads = 2 * N * N * kEmaBins;
+  switch (N) {
+#define CASE(k)                                                          \
+  case k:                                                                \
+    covar_ema_kernel<k><<<blocks, threads, 0, st>>>(pt, m, s, n, B, T,   \
+                                                    chunk, n_chunks,     \
+                                                    alpha);              \
+    break;
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// wav, wss_inv, window, synth, out as beamform_istft_launch; w
+// (B, C, 257, N) complex64, one weight row per chunk.
+extern "C" int beamform_istft_online_launch(const void* wav, const void* w,
+                                            const void* wss_inv,
+                                            const void* window,
+                                            const void* synth, void* out,
+                                            int B, int N, int S, int chunk,
+                                            int is_int16, void* stream) {
+  if (!geometry_ok(B, N, S) || chunk < 1) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto wt = static_cast<const float2*>(w);
+  auto wi = static_cast<const float*>(wss_inv);
+  auto win = static_cast<const float*>(window);
+  auto syn = static_cast<const float*>(synth);
+  auto o = static_cast<float*>(out);
+  return is_int16
+             ? launch_b<int16_t>(wav, wt, wi, win, syn, o, B, N, S, chunk, st)
+             : launch_b<float>(wav, wt, wi, win, syn, o, B, N, S, chunk, st);
 }

@@ -245,15 +245,18 @@ def online_supervised_run(beamformer: str,
     each chunk is beamformed with the weights of the state after it.  BAN
     normalizes against the chunk's own Rn, as the JAX package does.  T
     must be a multiple of ``chunk_size`` (pad upstream; masks zero the
-    pad frames).  The plain path: on a CUDA tensor it raises until the
-    online kernels land (ROADMAP queue 2 items 7-8).
+    pad frames).  The plain path: on a CUDA tensor it raises; the card
+    runs online mvdr through the online kernels
+    (enhance/pipeline.mvdr_enhance_fused_online) and the rest of the
+    online family arrives with ROADMAP queue 1 item 13.
     """
     if beamformer not in WEIGHT_FNS:
         raise ValueError(f"Unknown online beamformer: {beamformer}")
     if obs.device.type == "cuda":
         raise NotImplementedError(
-            "online (chunked EMA) enhancement on a CUDA device arrives with "
-            "the online kernels, ROADMAP queue 2 items 7-8")
+            "the spectrum-domain online run on a CUDA device arrives with "
+            "the batched small-matrix EVD kernel, ROADMAP queue 1 item 13; "
+            "enhance_batch runs online mvdr through the online kernels")
     t_frames = obs.shape[-1]
     if t_frames % chunk_size:
         raise ValueError(f"T={t_frames} not a multiple of {chunk_size}")

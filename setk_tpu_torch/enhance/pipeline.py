@@ -10,6 +10,11 @@ to beamform and resynthesize.  Kernels A and B do not depend on the
 weights.  Bins stay in natural order.  ``enhance_plain`` runs the same
 steps through the kernels' plain versions on any device; it is what the
 kernels are held against.
+
+``mvdr_enhance_fused_online`` is the online (chunked EMA) MVDR,
+counterpart of setk_tpu/enhance/pipeline.py:293-348: kernel A per chunk,
+the EMA kernel, ``mvdr_power`` on every chunk's state and the online
+kernel B; ``enhance_plain_online`` is its plain twin.
 """
 
 import functools
@@ -25,7 +30,8 @@ from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.utils.device import full_f32_matmuls
 
 __all__ = ["FUSED_BEAMFORMERS", "fused_supported", "check_fused_options",
-           "enhance_fused", "enhance_plain"]
+           "enhance_fused", "enhance_plain", "fused_online_supported",
+           "mvdr_enhance_fused_online", "enhance_plain_online"]
 
 # the beamformers the fused kernel pair serves: only the small per-bin
 # weight solve differs between them
@@ -42,6 +48,13 @@ def fused_supported(cfg: StftConfig, num_mics: int, nsamps: int,
             and fm.fused_geometry_ok(num_mics, nsamps)):
         return False
     return out_samps == (cfg.num_frames(nsamps) - 1) * fm.HOP
+
+
+def fused_online_supported(cfg: StftConfig, num_mics: int, nsamps: int,
+                           out_samps: int, chunk: int) -> bool:
+    """The online kernels' gate: the fused geometry and any chunk >= 1
+    (the TPU's 8 <= chunk, 128 % chunk == 0 and T <= 512 do not apply)."""
+    return chunk >= 1 and fused_supported(cfg, num_mics, nsamps, out_samps)
 
 
 @functools.lru_cache(maxsize=64)
@@ -69,12 +82,18 @@ class _Ops(typing.NamedTuple):
     pmwf_solve: typing.Callable
     capon: typing.Callable
     beamform_istft: typing.Callable
+    stft_covar_chunks: typing.Callable
+    covar_ema: typing.Callable
+    beamform_istft_online: typing.Callable
 
 
 _KERNELS = _Ops(fm.stft_covar, mv.mvdr_power, mv.gevd_power, mv.pmwf_solve,
-                mv.capon, fm.beamform_istft)
+                mv.capon, fm.beamform_istft, fm.stft_covar_chunks,
+                fm.covar_ema, fm.beamform_istft_online)
 _PLAIN = _Ops(fm.stft_covar_plain, mv.mvdr_power_plain, mv.gevd_power_plain,
-              mv.pmwf_solve_plain, mv.capon_plain, fm.beamform_istft_plain)
+              mv.pmwf_solve_plain, mv.capon_plain, fm.beamform_istft_plain,
+              fm.stft_covar_chunks_plain, fm.covar_ema_plain,
+              fm.beamform_istft_online_plain)
 
 
 def _weights(ops: _Ops, beamformer, rs, rn, ry, power_iters):
@@ -100,8 +119,8 @@ def _weights(ops: _Ops, beamformer, rs, rn, ry, power_iters):
     return ops.capon(steer.contiguous(), ry())
 
 
-def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
-         ops: _Ops):
+def _prepare(wav, mask_s, cfg, nsamps):
+    """Gate check, then (T, window, wss_inv, contiguous f32 mask)."""
     b, n, s = wav.shape
     out_samps = nsamps if nsamps is not None else s
     if not fused_supported(cfg, n, s, out_samps):
@@ -109,7 +128,12 @@ def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
                          f"{out_samps} is outside the fused kernels' gate")
     t = cfg.num_frames(s)
     window, wss_inv = _constants(cfg, t, out_samps, wav.device)
-    mask = mask_s.to(torch.float32).contiguous()
+    return t, window, wss_inv, mask_s.to(torch.float32).contiguous()
+
+
+def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
+         ops: _Ops):
+    t, window, wss_inv, mask = _prepare(wav, mask_s, cfg, nsamps)
     rs_num, rn_num = ops.stft_covar(wav, mask, window)   # (B, F, N, N)
     den_s = mask.sum(dim=1)                              # (B, F)
     den_n = t - den_s
@@ -167,3 +191,49 @@ def enhance_plain(wav: torch.Tensor,
     full_f32_matmuls(wav.device)
     return _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
                 _PLAIN)
+
+
+def _run_online(wav, mask_s, cfg, chunk_size, alpha, power_iters, nsamps,
+                ops: _Ops):
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    _, window, wss_inv, mask = _prepare(wav, mask_s, cfg, nsamps)
+    part = ops.stft_covar_chunks(wav, mask, window, chunk_size)
+    es, en = ops.covar_ema(part, mask, chunk_size, alpha)  # (B, C, F, N, N)
+    w = ops.mvdr_power(es, en, power_iters=power_iters)    # (B, C, F, N)
+    return ops.beamform_istft_online(wav, w, wss_inv, window, chunk_size)
+
+
+def mvdr_enhance_fused_online(wav: torch.Tensor,
+                              mask_s: torch.Tensor,
+                              cfg: StftConfig,
+                              chunk_size: int,
+                              alpha: float = 0.8,
+                              power_iters: int = 15,
+                              nsamps: int | None = None) -> torch.Tensor:
+    """Online (chunked EMA) MVDR: (B, N, S) wav + (B, T, F) mask ->
+    (B, S) enhanced wav.
+
+    Semantics of ``beamformer.online_supervised_run`` with the power
+    steer (the reference's --update-periods streaming): chunk c covers
+    frames [c chunk, min(T, (c+1) chunk)); its masked covariances,
+    normalized by the chunk's own mask sums, blend as
+    R <- alpha R + (1 - alpha) R_c (the first chunk initializes); each
+    chunk is beamformed with the MVDR weights of the state after it.
+    """
+    return _run_online(wav, mask_s, cfg, chunk_size, alpha, power_iters,
+                       nsamps, _KERNELS)
+
+
+def enhance_plain_online(wav: torch.Tensor,
+                         mask_s: torch.Tensor,
+                         cfg: StftConfig,
+                         chunk_size: int,
+                         alpha: float = 0.8,
+                         power_iters: int = 15,
+                         nsamps: int | None = None) -> torch.Tensor:
+    """``mvdr_enhance_fused_online`` through the kernels' plain versions,
+    on the tensors' own device."""
+    full_f32_matmuls(wav.device)
+    return _run_online(wav, mask_s, cfg, chunk_size, alpha, power_iters,
+                       nsamps, _PLAIN)

@@ -40,6 +40,11 @@ _SIGNATURES = {
                               _P],
         "beamform_istft_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _P],
+        "stft_covar_chunks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P],
+        "covar_ema_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "beamform_istft_online_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _I, _P],
     },
 }
 

@@ -2,12 +2,14 @@
 
 Counterpart of ``setk_tpu/parallel/enhance_step.enhance_batch``
 (enhance_step.py:30-121).  On a CUDA device the whole step runs
-through the fused kernels (enhance/pipeline.enhance_fused) for every
-beamformer in ``FUSED_BEAMFORMERS``; on the CPU it runs the
-spectrum-domain plain path (STFT -> masked PSDs -> weights -> beamform
--> iSTFT), one-shot or online (chunked EMA), as the JAX package does
-off the TPU.  The online kernels come with ROADMAP queue 2 items 7-8,
-the sharded multi-device step with queue 1 item 12.
+through the fused kernels: enhance/pipeline.enhance_fused for every
+beamformer in ``FUSED_BEAMFORMERS``, and for ``chunk_size > 0``
+enhance/pipeline.mvdr_enhance_fused_online (mvdr, power steer, no BAN).
+On the CPU it runs the spectrum-domain plain path (STFT -> masked PSDs
+-> weights -> beamform -> iSTFT), one-shot or online (chunked EMA), as
+the JAX package does off the TPU.  The other online cases on the card
+come with ROADMAP queue 1 item 13, the sharded multi-device step with
+queue 1 item 12.
 """
 
 import numpy as np
@@ -16,16 +18,39 @@ import torch
 from setk_tpu_torch.dsp.stft import StftConfig, forward_stft, inverse_stft
 from setk_tpu_torch.enhance import beamformer as bf
 from setk_tpu_torch.enhance.pipeline import (check_fused_options,
-                                             enhance_fused, fused_supported)
+                                             enhance_fused,
+                                             fused_online_supported,
+                                             fused_supported,
+                                             mvdr_enhance_fused_online)
 from setk_tpu_torch.utils.device import resolve_device
 
-__all__ = ["enhance_batch"]
+__all__ = ["enhance_batch", "check_cuda_options"]
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device)
+
+
+def check_cuda_options(beamformer: str, ban: bool, steer: str,
+                       chunk_size: int) -> None:
+    """Raise on options the kernels on a CUDA device do not run (the
+    shape gate aside): offline, ``check_fused_options``; online, all but
+    mvdr with the power steer and no BAN."""
+    if chunk_size <= 0:
+        check_fused_options(beamformer, steer)
+        return
+    if beamformer not in bf.WEIGHT_FNS:
+        raise ValueError(f"Unknown online beamformer: {beamformer}")
+    if beamformer != "mvdr" or ban or steer != "power":
+        what = beamformer + ("+BAN" if ban else "") + (
+            f" with the {steer} steer" if beamformer == "mvdr" else "")
+        raise NotImplementedError(
+            f"online (chunked EMA) {what} on a CUDA device arrives with "
+            f"the batched small-matrix EVD kernel (queue 2 item 14), "
+            f"ROADMAP queue 1 item 13; the online kernels run mvdr with the "
+            f"power steer and no BAN")
 
 
 def enhance_batch(wav,
@@ -46,10 +71,12 @@ def enhance_batch(wav,
     ``steer="auto"`` is the power iteration on CUDA and the full
     eigendecomposition on the CPU (mvdr only; the online path uses each
     beamformer's default weights, as the JAX package does).
-    ``chunk_size > 0`` runs the online (chunked EMA) variant.  On CUDA,
-    what the kernels do not cover raises ``NotImplementedError`` naming
-    the ROADMAP item that brings it; nothing falls back to a plain path
-    on the card.
+    ``chunk_size > 0`` runs the online (chunked EMA) variant with EMA
+    factor ``alpha``; on CUDA it runs the online kernels for mvdr with
+    the power steer and no BAN, for any chunk size.  On CUDA, what the
+    kernels do not cover raises ``NotImplementedError`` naming the
+    ROADMAP item that brings it, before anything is copied to the card;
+    nothing falls back to a plain path on the card.
     """
     dev = resolve_device(device, like=wav)
     on_cuda = dev.type == "cuda"
@@ -57,18 +84,21 @@ def enhance_batch(wav,
     out_samps = nsamps if nsamps is not None else wav.shape[-1]
     if on_cuda:
         # refuse before anything is copied to the card
-        if chunk_size > 0:
-            raise NotImplementedError(
-                "online (chunked EMA) enhancement on a CUDA device arrives "
-                "with the online kernels, ROADMAP queue 2 items 7-8")
-        check_fused_options(beamformer, steer_r)
-        if not fused_supported(cfg, wav.shape[-2], wav.shape[-1], out_samps):
+        check_cuda_options(beamformer, ban, steer_r, chunk_size)
+        n, s = wav.shape[-2], wav.shape[-1]
+        if not (fused_online_supported(cfg, n, s, out_samps, chunk_size)
+                if chunk_size > 0 else fused_supported(cfg, n, s,
+                                                       out_samps)):
             raise NotImplementedError(
                 f"STFT geometry {cfg} with wav {tuple(wav.shape)} and "
                 f"nsamps {out_samps} is outside the fused kernels' gate; "
                 f"the planar path arrives with ROADMAP queue 2 items 9-11")
     wav = _as_tensor(wav, dev)
     mask_s = _as_tensor(mask_s, dev).to(torch.float32)
+    if on_cuda and chunk_size > 0:
+        return mvdr_enhance_fused_online(wav.contiguous(), mask_s, cfg,
+                                         chunk_size=chunk_size, alpha=alpha,
+                                         nsamps=nsamps)
     if on_cuda:
         return enhance_fused(wav.contiguous(), mask_s, cfg,
                              beamformer=beamformer, ban=ban, steer=steer_r,

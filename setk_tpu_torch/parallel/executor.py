@@ -12,10 +12,10 @@ the clustering and WPE executors with queue 1 items 6 and 7.
 from collections import defaultdict
 
 import numpy as np
-import torch
 
 from setk_tpu_torch.dsp.stft import StftConfig, num_frames
-from setk_tpu_torch.parallel.enhance_step import enhance_batch
+from setk_tpu_torch.parallel.enhance_step import (check_cuda_options,
+                                                  enhance_batch)
 from setk_tpu_torch.utils.device import resolve_device
 from setk_tpu_torch.utils.logger import get_logger
 
@@ -53,9 +53,12 @@ class BatchEnhancer:
     """Mask-based beamforming over batches of utterances.
 
     Feed (key, wav (N, S), mask (T, F)) triples; batches of equal bucket
-    shape run through one ``enhance_batch`` call.  Runs on ``cuda``
-    unless ``device="cpu"`` (``RuntimeError`` at construction when no
-    card is present and no device was asked for).
+    shape run through one ``enhance_batch`` call, one-shot or, with
+    ``chunk_size > 0``, online (chunked EMA with factor ``alpha``).  Runs
+    on ``cuda`` unless ``device="cpu"`` (``RuntimeError`` at construction
+    when no card is present and no device was asked for); on the card,
+    options its kernels do not run raise ``NotImplementedError`` at
+    construction.
     """
 
     def __init__(self,
@@ -78,6 +81,8 @@ class BatchEnhancer:
         self.chunk_size = chunk_size
         self.alpha = alpha
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_cuda_options(beamformer, ban, "power", chunk_size)
         self.bucketer = LengthBucketer(cfg, samples_per_bucket)
         self._pending = defaultdict(list)
 
@@ -122,10 +127,10 @@ class BatchEnhancer:
             masks[i, :t, :] = mask[:t]
             lengths.append((key, s))
         logger.debug("bucket %s: %d utterances", shape, len(items))
-        out = enhance_batch(torch.from_numpy(wavs).to(self.device),
-                            torch.from_numpy(masks).to(self.device),
-                            self.cfg, beamformer=self.beamformer,
-                            ban=self.ban, nsamps=bucket,
-                            chunk_size=self.chunk_size, alpha=self.alpha)
+        # enhance_batch checks the batch before it copies it to the device
+        out = enhance_batch(wavs, masks, self.cfg,
+                            beamformer=self.beamformer, ban=self.ban,
+                            nsamps=bucket, chunk_size=self.chunk_size,
+                            alpha=self.alpha, device=self.device)
         out = out.cpu().numpy()
         return [(key, out[i, :s]) for i, (key, s) in enumerate(lengths)]

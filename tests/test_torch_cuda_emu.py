@@ -4,8 +4,9 @@ The sources under setk_tpu_torch/csrc compile with the host C++ compiler
 against tests/cuda_emu/cuda_runtime.h, a CPU stand-in for the CUDA
 runtime (blocks in order, a block's threads as std::threads with a
 barrier), and run through their C entry points on CPU tensors.  This
-checks the kernels' index arithmetic, FFT, reductions, overlap-add and
-per-bin solves against their plain PyTorch versions without a card; it says nothing of
+checks the kernels' index arithmetic, FFT, reductions, overlap-add,
+the online pair's chunking and EMA, and the per-bin solves against their
+plain PyTorch versions without a card; it says nothing of
 speed, and the card's own compiler is checked by chip_smoke.py.  Skips
 when no g++ with C++20 is present (decided inside the fixture).
 """
@@ -117,6 +118,74 @@ def test_beamform_istft_source_matches_plain(libs, b, n, s, int16, runs):
     assert _rel(out, fm.beamform_istft_plain(wav, w, wss, window)) < TOL
 
 
+# online pair: chunks that do and do not divide kernel B's 16 (8 at N > 6)
+# hop blocks a block, so the extra frame a block computes for its
+# overlap-add falls in the next chunk (16), mid-chunk (5) or both (24,
+# T = 49: block 2's frames 32..47 in chunk 1, its extra frame 48 in
+# chunk 2); chunk 1 is one frame a chunk (at T = 81, two of covar_ema's
+# tiles of 64 chunks), 64 one chunk for every frame
+ONLINE = [(1, 3, 8192, False, 16), (2, 6, 8192, True, 5),
+          (1, 4, 12288, True, 24), (1, 8, 4352, False, 5),
+          (1, 2, 20480, False, 1), (1, 2, 4096, True, 64)]
+
+
+@pytest.mark.parametrize("b,n,s,int16,chunk", ONLINE)
+def test_stft_covar_chunks_source_matches_plain(libs, b, n, s, int16, chunk):
+    cfg, wav, mask = _inputs(b, n, s, int16, seed=s + chunk)
+    window = torch.as_tensor(cfg.padded_window)
+    win = (window * fm.input_scale(wav)).contiguous()
+    t = cfg.num_frames(s)
+    part = torch.empty((b, fm.num_chunks(t, chunk), 257, n * (n + 1)),
+                       dtype=torch.complex64)
+    err = libs["fused_mvdr"].stft_covar_chunks_launch(
+        wav.data_ptr(), mask.data_ptr(), win.data_ptr(), part.data_ptr(), b,
+        n, s, chunk, int(int16), None)
+    assert err == 0
+    ref = fm.stft_covar_chunks_plain(wav, mask, window, chunk)
+    assert _rel(part, ref) < TOL
+
+
+@pytest.mark.parametrize("b,n,s,int16,chunk", ONLINE)
+def test_covar_ema_source_matches_plain(libs, b, n, s, int16, chunk):
+    cfg, _, mask = _inputs(b, n, s, int16, seed=chunk)
+    rng = np.random.default_rng(s + n)
+    c = fm.num_chunks(cfg.num_frames(s), chunk)
+    part = torch.from_numpy((rng.standard_normal((b, c, 257, n * (n + 1)))
+                             + 1j * rng.standard_normal(
+                                 (b, c, 257, n * (n + 1)))).astype(
+                                     np.complex64))
+    es = torch.empty((b, c, 257, n, n), dtype=torch.complex64)
+    en = torch.empty_like(es)
+    err = libs["fused_mvdr"].covar_ema_launch(
+        part.data_ptr(), mask.data_ptr(), es.data_ptr(), en.data_ptr(), b, n,
+        cfg.num_frames(s), chunk, 0.7, None)
+    assert err == 0
+    ref_s, ref_n = fm.covar_ema_plain(part, mask, chunk, 0.7)
+    assert _rel(es, ref_s) < TOL and _rel(en, ref_n) < TOL
+
+
+@pytest.mark.parametrize("b,n,s,int16,chunk", ONLINE)
+def test_beamform_istft_online_source_matches_plain(libs, b, n, s, int16,
+                                                    chunk):
+    cfg, wav, _ = _inputs(b, n, s, int16, seed=s - chunk)
+    rng = np.random.default_rng(chunk)
+    c = fm.num_chunks(cfg.num_frames(s), chunk)
+    w = torch.from_numpy((rng.standard_normal((b, c, 257, n)) + 1j *
+                          rng.standard_normal((b, c, 257, n))).astype(
+                              np.complex64))
+    window = torch.as_tensor(cfg.padded_window)
+    win = (window * fm.input_scale(wav)).contiguous()
+    wss = torch.from_numpy(wss_inverse_blocks(
+        cfg.padded_window, cfg.num_frames(s), 256, 512, s))
+    out = torch.empty((b, s), dtype=torch.float32)
+    err = libs["fused_mvdr"].beamform_istft_online_launch(
+        wav.data_ptr(), w.data_ptr(), wss.data_ptr(), win.data_ptr(),
+        window.data_ptr(), out.data_ptr(), b, n, s, chunk, int(int16), None)
+    assert err == 0
+    ref = fm.beamform_istft_online_plain(wav, w, wss, window, chunk)
+    assert _rel(out, ref) < TOL
+
+
 @pytest.mark.parametrize("n", [1, 2, 6, 8])
 def test_mvdr_power_source_matches_plain(libs, n):
     rng = np.random.default_rng(n)
@@ -204,10 +273,20 @@ def test_entry_points_reject_bad_geometry(libs):
     assert lib.beamform_istft_launch(z.data_ptr(), z.data_ptr(), z.data_ptr(),
                                      z.data_ptr(), z.data_ptr(), z.data_ptr(),
                                      1, 9, 4096, 0, None) != 0
+    p = z.data_ptr()
+    for b, n, s, chunk in ((1, 9, 4096, 4), (1, 2, 4000, 4), (0, 2, 4096, 4),
+                           (1, 2, 4096, 0)):
+        assert lib.stft_covar_chunks_launch(p, p, p, p, b, n, s, chunk, 0,
+                                            None) != 0
+        assert lib.beamform_istft_online_launch(p, p, p, p, p, p, b, n, s,
+                                                chunk, 0, None) != 0
+    for b, n, t, chunk in ((1, 9, 17, 4), (0, 2, 17, 4), (1, 2, 0, 4),
+                           (1, 2, 17, 0)):
+        assert lib.covar_ema_launch(p, p, p, p, b, n, t, chunk, 0.8,
+                                    None) != 0
     lib = libs["mvdr_power"]
     assert lib.mvdr_power_launch(
         z.data_ptr(), z.data_ptr(), z.data_ptr(), 4, 9, 15, 1e-6, None) != 0
-    p = z.data_ptr()
     for nbins, n in ((4, 9), (0, 2), (-1, 2)):
         assert lib.gevd_power_launch(p, p, p, nbins, n, 30, 1e-6, None) != 0
         assert lib.pmwf_solve_launch(p, p, p, p, p, nbins, n, 0.0, 1e-6,

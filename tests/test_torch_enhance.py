@@ -234,7 +234,9 @@ def test_uncovered_options_raise(monkeypatch):
     # on a CUDA device (the device check monkeypatched, as below): the
     # entry refuses before it copies anything to the card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for kw, item in (({"chunk_size": 32}, "queue 2 items 7-8"),
+    for kw, item in (({"chunk_size": 32, "beamformer": "gevd"},
+                      "queue 1 item 13"),
+                     ({"chunk_size": 32, "ban": True}, "queue 1 item 13"),
                      ({"steer": "eigh"}, "queue 2 item 14"),
                      ({"nsamps": 4000}, "queue 2 items 9-11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

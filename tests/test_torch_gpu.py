@@ -13,7 +13,8 @@ import torch
 
 from setk_tpu_torch.dsp.stft import StftConfig
 from setk_tpu_torch.dsp.window import wss_inverse_blocks
-from setk_tpu_torch.enhance.pipeline import enhance_plain
+from setk_tpu_torch.enhance.pipeline import (enhance_plain,
+                                             enhance_plain_online)
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.parallel.enhance_step import enhance_batch
@@ -125,12 +126,58 @@ def test_family_kernels_match_plain(n):
     assert torch.isfinite(torch.view_as_real(mv.gevd_power(rs, rn, 30))).all()
 
 
+@pytest.mark.parametrize("chunk,s", [(32, 131072), (24, 12288), (5, 8192),
+                                     (1, 1024)])
+def test_online_kernels_match_plain(chunk, s):
+    dev = _card()
+    cfg, wav, mask = _inputs(2, 6, s, True, seed=chunk)
+    wav_d = torch.from_numpy(wav).to(dev)
+    mask_d = torch.from_numpy(mask).to(dev)
+    window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
+                             device=dev)
+    part_k = fm.stft_covar_chunks(wav_d, mask_d, window, chunk)
+    part_p = fm.stft_covar_chunks_plain(wav_d, mask_d, window, chunk)
+    assert _rel(part_k, part_p) < TOL
+    es_k, en_k = fm.covar_ema(part_p, mask_d, chunk, 0.8)
+    es_p, en_p = fm.covar_ema_plain(part_p, mask_d, chunk, 0.8)
+    assert _rel(es_k, es_p) < TOL and _rel(en_k, en_p) < TOL
+    w = mv.mvdr_power(es_p, en_p)
+    t = cfg.num_frames(s)
+    wss = torch.as_tensor(wss_inverse_blocks(cfg.padded_window, t, 256, 512,
+                                             s), device=dev)
+    out_k = fm.beamform_istft_online(wav_d, w, wss, window, chunk)
+    out_p = fm.beamform_istft_online_plain(wav_d, w, wss, window, chunk)
+    assert _rel(out_k, out_p) < TOL
+
+
+@pytest.mark.parametrize("b,s,chunk", [(2, 16384, 32), (2, 16384, 24),
+                                       (1, 64000, 32)])
+def test_online_enhance_batch_runs_kernels_only(b, s, chunk):
+    """Online mvdr (and B = 1 streaming of 4 s) through the online
+    kernels only, against the plain online path on the card."""
+    dev = _card()
+    cfg, wav, mask = _inputs(b, 4, s, True, seed=4)
+    counted = (fm.stft_covar, fm.covar_ema, mv.mvdr_power,
+               fm.beamform_istft_online, fm.beamform_istft)
+    for fn in counted:
+        fn.launches = 0
+    wav_d = torch.from_numpy(wav).to(dev)
+    mask_d = torch.from_numpy(mask).to(dev)
+    out = enhance_batch(wav_d, mask_d, cfg, chunk_size=chunk, alpha=0.8)
+    assert [fn.launches for fn in counted] == [1, 1, 1, 1, 0]
+    ref = enhance_plain_online(wav_d, mask_d, cfg, chunk_size=chunk,
+                               alpha=0.8)
+    assert torch.isfinite(out).all() and _rel(out, ref) < TOL
+
+
 def test_uncovered_cases_raise_on_the_card():
     dev = _card()
     cfg, wav, mask = _inputs(1, 2, 4096, False)
     wav_d = torch.from_numpy(wav).to(dev)
     mask_d = torch.from_numpy(mask).to(dev)
-    for kw in ({"chunk_size": 32}, {"steer": "eigh"}, {"nsamps": 4000}):
+    for kw in ({"chunk_size": 32, "beamformer": "gevd"},
+               {"chunk_size": 32, "ban": True}, {"steer": "eigh"},
+               {"nsamps": 4000}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             enhance_batch(wav_d, mask_d, cfg, **kw)
     with pytest.raises(ValueError):
