@@ -50,12 +50,38 @@ the CUDA toolkit.  In order it:
      temporary directory under setk_tpu_torch/_build, offline mvdr and
      with --chunk-size 32: every key written and finite, and each file
      within 2 int16 steps of the same CLI run with --device cpu;
-  9. times each kernel (20 launches replayed from one CUDA graph, so the
+     then the same with --frame-len 1024 --frame-hop 512 (masks of that
+     geometry), which takes the planar kernels on the card;
+  9. P1, the planar geometry (n_fft 1024, hop 512, T = 251, F = 513) on
+     the bench scene with a uniform mask: the planar STFT, the pair
+     covariance with the complement mask and the planar iSTFT against
+     their plain versions (1e-4 of the peak); enhance_batch and
+     BatchEnhancer over step 4's keyed utterances (buckets T = 257, 225
+     and 97) with exactly stft_planar, pair_covar_complement, mvdr_power
+     and istft_planar launched, within 1e-4 of mvdr_enhance_planar_plain
+     on the card and correlating >= 0.9 with the clean source; center
+     off takes the port's inverse_stft instead of istft_planar;
+  10. P2, an unaligned length (512/256, S = 128100, T = 501): the same
+     kernel and enhance_batch checks, the last 100 samples zero (kernel
+     10's tail); BatchEnhancer pads to hop-aligned buckets and takes the
+     fused kernels;
+  11. E, the spectrum-domain geometry (512/128, T = 1001, F = 257): the
+     pair-covariance kernel against its plain version (complement and a
+     random mask_n); mvdr+BAN on the bench scene and pmwf-0 on the gated
+     scene through enhance_batch, launching exactly pair_covar and
+     mvdr_power (mvdr) or pair_covar alone (pmwf-0), within 1e-4 of
+     enhance_batch on the CPU copies of the inputs, correlation >= 0.9;
+  12. refusals at the E geometry: gevd, mpdr and N = 9 raise
+     NotImplementedError with no device memory allocated;
+  13. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
-     it), its plain version and enhance_batch for every name and for the
-     online path with CUDA events (warm-up, then 20 calls) and prints the
-     kernels line;
-  10. prints {"ok": true, "device": {...}} as the last line.
+     it), its plain version, the one PyTorch call that computes the same
+     function where there is one (torch.stft, torch.istft, torch.einsum;
+     never on the port's path), and enhance_batch for every name, for the
+     online path and for P1, P2 and E with CUDA events (warm-up, then 20
+     calls), profiles the fused, P1 and E steps (torch.profiler: device
+     time by kernel, the device's idle share) and prints the kernels line;
+  14. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2 and
 prints no result.
@@ -191,11 +217,13 @@ def _ptxas_summary(log: str) -> dict:
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
-                      r"|covar_ema|beamform_istft_online|beamform_istft)"
-                      r"_kernelILi(\d)E([fs]?)E", line)
+                      r"|covar_ema|beamform_istft_online|beamform_istft"
+                      r"|istft_planar|stft_planar|pair_covar)"
+                      r"_kernelILi(\d+)E(?:Lb([01])E)?([fs]?)E", line)
         if "Compiling entry function" in line and m:
-            dtype = {"f": ",f32", "s": ",int16"}.get(m.group(3), "")
-            key = f"{m.group(1)}<{m.group(2)}{dtype}>"
+            flag = {"0": ",0", "1": ",1"}.get(m.group(3), "")
+            dtype = {"f": ",f32", "s": ",int16"}.get(m.group(4), "")
+            key = f"{m.group(1)}<{m.group(2)}{flag}{dtype}>"
             out[key] = {}
         elif key and "spill stores" in line:
             out[key]["spill_bytes"] = sum(
@@ -208,14 +236,16 @@ def _ptxas_summary(log: str) -> dict:
     return out
 
 
-def _gated_scene(b, n, s, seed):
-    """(wav int16 (B, N, S), mask (B, T, 257), source at mic 0 (B, S)):
+def _gated_scene(b, n, s, seed, cfg=None):
+    """(wav int16 (B, N, S), mask (B, T, F), source at mic 0 (B, S)):
     a source at 0.2 in on/off bursts of 2048 samples, delayed one sample
     and attenuated 1/(1 + k/4) at mic k (nearest mic 0, so PMWF's
     SNR-selected reference is mic 0), noise at 0.05, and a 0.95/0.05 mask
     that follows the bursts per frame, as tests/test_pallas.py:413-424
-    builds it."""
+    builds it; T and F of ``cfg``, by default the 512/256 STFT."""
     import numpy as np
+    from setk_tpu_torch.dsp.stft import StftConfig
+    cfg = cfg or StftConfig()
     rng = np.random.default_rng(seed)
     gate = (np.arange(s) // 2048) % 2 == 0
     src = (rng.standard_normal((b, s)) * 0.2 * gate).astype(np.float32)
@@ -223,10 +253,10 @@ def _gated_scene(b, n, s, seed):
     for k in range(n):
         wav[:, k] += np.roll(src, k, axis=-1) / (1 + k / 4)
     wav16 = np.clip(wav * 32768.0, -32768, 32767).astype(np.int16)
-    t = s // 256 + 1
-    gate_f = gate[np.minimum(np.arange(t) * 256, s - 1)]
+    t = cfg.num_frames(s)
+    gate_f = gate[np.minimum(np.arange(t) * cfg.frame_hop, s - 1)]
     mask = np.ascontiguousarray(np.broadcast_to(
-        np.where(gate_f, 0.95, 0.05)[None, :, None], (b, t, 257)),
+        np.where(gate_f, 0.95, 0.05)[None, :, None], (b, t, cfg.num_bins)),
         dtype=np.float32)
     return wav16, mask, src
 
@@ -243,13 +273,15 @@ FAMILY = [(("gevd", False), ("gevd_power",)),
 CHUNK, ALPHA = 32, 0.8
 
 
-def _write_corpus(root, seed):
+def _write_corpus(root, seed, cfg=None):
     """Six 6-channel int16 wav files of 3-8 s (a clean source on every
-    mic plus noise) with uniform [0, 1) masks as .npy, and their scps."""
+    mic plus noise) with uniform [0, 1) masks of ``cfg``'s geometry (by
+    default the 512/256 STFT) as .npy, and their scps."""
     import numpy as np
     from setk_tpu_torch.dsp.stft import StftConfig
     from setk_tpu_torch.io.wave import write_wav
-    cfg = StftConfig()
+    cfg = cfg or StftConfig()
+    root.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     wav_lines, mask_lines = [], []
     for i, secs in enumerate((3, 4, 5, 6, 7, 8)):
@@ -264,6 +296,194 @@ def _write_corpus(root, seed):
     (root / "wav.scp").write_text("\n".join(wav_lines) + "\n")
     (root / "mask.scp").write_text("\n".join(mask_lines) + "\n")
     return [f"c{i}" for i in range(6)]
+
+
+# ---- the planar and spectrum-domain geometries (kernels 9-12) ----
+P1_FIELDS = {"frame_len": 1024, "frame_hop": 512}
+P2_S = 128100                    # 8 s and 100 samples: off the hop grid
+E_FIELDS = {"frame_len": 512, "frame_hop": 128}
+PLANAR_SET = {"stft_planar", "pair_covar_complement", "mvdr_power",
+              "istft_planar"}
+FUSED_SET = {"stft_covar", "mvdr_power", "beamform_istft"}
+
+
+def _fft_flops(n_fft):
+    """One complex radix-2 FFT of n_fft points (10 FLOP a butterfly)."""
+    return (n_fft // 2) * (n_fft.bit_length() - 1) * 10
+
+
+def _flops_stft_planar(rows, t, n_fft):
+    """Per frame: the window, half a complex FFT (two frames share one)
+    and the Hermitian split of n_fft/2 + 1 bins."""
+    return rows * t * (n_fft + _fft_flops(n_fft) / 2 + 4 * (n_fft // 2 + 1))
+
+
+def _flops_istft_planar(b, t, n_fft):
+    """Per frame: half a complex inverse FFT, the synthesis window, the
+    1/n_fft scale, the overlap-add and the wss_inv multiply."""
+    return b * t * (_fft_flops(n_fft) / 2 + 4 * n_fft)
+
+
+def _flops_pair_covar(b, n, t, f, complement):
+    """Per (frame, bin): the pair products (3 + 3 FLOP off the diagonal,
+    3 on it) and the two masked sums (4 FLOP a complex entry, 2 on the
+    diagonal); the complement mask costs 2 more."""
+    per = 14 * n * (n - 1) // 2 + 7 * n + (2 if complement else 0)
+    return b * t * f * per
+
+
+def _all_counted():
+    from setk_tpu_torch.ops.cuda import covariance_pair as cp
+    from setk_tpu_torch.ops.cuda import fused_mvdr as fm
+    from setk_tpu_torch.ops.cuda import mvdr as mv
+    from setk_tpu_torch.ops.cuda import planar as pl
+    return (fm.stft_covar, fm.beamform_istft, fm.covar_ema,
+            fm.beamform_istft_online, mv.mvdr_power, mv.gevd_power,
+            mv.pmwf_solve, mv.capon, pl.stft_planar, pl.istft_planar,
+            cp.pair_covar_complement, cp.pair_covar)
+
+
+def _launched(torch, run, label, want):
+    """``run()`` with every kernel's launch count set to 0 just before and
+    read just after; exactly the kernels in ``want`` must have launched.
+    Returns run's result and the counts."""
+    counted = _all_counted()
+    for fn in counted:
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counted if fn.launches}
+    if set(counts) != set(want):
+        raise AssertionError(f"{label}: launched {counts}, needs exactly "
+                             f"{sorted(want)}")
+    return out, counts
+
+
+def _pair_errs(torch, got, ref):
+    """(relative, absolute) error of the Rs and Rn numerators given as
+    four planes each."""
+    rel, ab = 0.0, 0.0
+    for k in (0, 2):
+        g = torch.complex(got[k], got[k + 1])
+        r = torch.complex(ref[k], ref[k + 1])
+        rel, ab = max(rel, _rel(g, r)), max(ab, _abs(g, r))
+    return rel, ab
+
+
+def _min_corr(np, got, ref):
+    """Smallest per-row correlation of two (B, S) arrays."""
+    g = got - got.mean(-1, keepdims=True)
+    r = ref - ref.mean(-1, keepdims=True)
+    return float(((g * r).sum(-1) / np.sqrt((g * g).sum(-1) *
+                                            (r * r).sum(-1))).min())
+
+
+def _check_tol(what, errs):
+    for name, err in errs.items():
+        if not err <= TOL:
+            raise AssertionError(f"{what} {name}: kernel vs plain {err} > "
+                                 f"{TOL}")
+
+
+def _planar_kernels(torch, dev, wav_d, mask_d, cfg):
+    """Kernels 9, 11 and 10 against their plain versions on one batch
+    (kernel 10 on mic 0's planes, the shape of a beamformed spectrum).
+    Returns the relative and absolute errors and the tensors the timing
+    reuses."""
+    from setk_tpu_torch.ops.cuda import covariance_pair as cp
+    from setk_tpu_torch.ops.cuda import planar as pl
+    window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
+                             device=dev)
+    s = wav_d.shape[-1]
+    t = cfg.num_frames(s)
+    fh = cfg.n_fft // 2
+    planes = pl.stft_planar(wav_d, window, cfg.center)
+    plain = pl.stft_planar_plain(wav_d, window, cfg.center)
+    peak = float(torch.complex(plain[0], plain[1]).abs().max())
+    err9 = max(_abs(k, p) for k, p in zip(planes, plain))
+    msk = mask_d[..., :fh]
+    nums = cp.pair_covar_complement(plain[0], plain[1], msk, t)
+    err11 = _pair_errs(torch, nums, cp.pair_covar_complement_plain(
+        plain[0], plain[1], msk, t))
+    er, ei, ny = (x[:, 0].contiguous() for x in plain)
+    wss = torch.as_tensor(pl.istft_wss_inverse(cfg.padded_window, t, s),
+                          device=dev)
+    out = pl.istft_planar(er, ei, ny, window, wss, s)
+    out_p = pl.istft_planar_plain(er, ei, ny, window, wss, s)
+    torch.cuda.synchronize()
+    rel = {"stft_planar": err9 / peak, "pair_covar_complement": err11[0],
+           "istft_planar": _rel(out, out_p)}
+    ab = {"stft_planar": err9, "pair_covar_complement": err11[1],
+          "istft_planar": _abs(out, out_p)}
+    return rel, ab, {"window": window, "planes": plain, "mask": msk, "t": t,
+                     "nums": nums, "er": er, "ei": ei, "ny": ny, "wss": wss,
+                     "out": out}
+
+
+def _by_bucket(np, torch, dev, cfg, utts, results, plain):
+    """Each utterance's output against ``plain(wav, mask, nsamps=bucket)``
+    run on the card bucket by bucket, as BatchEnhancer pads: (largest
+    error relative to the peak, smallest correlation with the clean
+    source, bucket frame counts)."""
+    from setk_tpu_torch.parallel.executor import LengthBucketer
+    bucketer = LengthBucketer(cfg)
+    buckets = {}
+    for key, (x, _, _) in utts.items():
+        buckets.setdefault(bucketer.bucket(x.shape[-1]), []).append(key)
+    worst, corr, frames = 0.0, 1.0, []
+    for bucket, keys in buckets.items():
+        t_pad = cfg.num_frames(bucket)
+        frames.append(t_pad)
+        n = utts[keys[0]][0].shape[0]
+        wv = np.zeros((len(keys), n, bucket), np.int16)
+        mk = np.zeros((len(keys), t_pad, cfg.num_bins), np.float32)
+        for i, key in enumerate(keys):
+            x, m, _ = utts[key]
+            wv[i, :, :x.shape[-1]] = x
+            mk[i, :m.shape[0]] = m[:t_pad]
+        ref = plain(torch.from_numpy(wv).to(dev), torch.from_numpy(mk).to(dev),
+                    cfg, nsamps=bucket).cpu().numpy()
+        for i, key in enumerate(keys):
+            got, (x, _, c) = results[key], utts[key]
+            if got.shape != (x.shape[-1],) or not np.isfinite(got).all():
+                raise AssertionError(f"{key}: bad output {got.shape}")
+            r = ref[i, :x.shape[-1]]
+            worst = max(worst, float(np.abs(got - r).max() / np.abs(r).max()))
+            corr = min(corr, float(np.corrcoef(got, c)[0, 1]))
+    return worst, corr, sorted(frames)
+
+
+def _device_profile(torch, run, step_ms, iters=5, top=8):
+    """torch.profiler over ``iters`` calls of ``run`` after a warm-up: ms
+    a call of device time by kernel (the ``top`` largest) and their sum;
+    the idle share is the part of the unprofiled step time ``step_ms``
+    (CUDA events, free of the profiler's host overhead) with no kernel
+    running."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        ((ev.self_device_time_total / 1e3 / iters, ev.key[:70])
+         for ev in prof.key_averages()
+         if ev.device_type == torch.autograd.DeviceType.CUDA),
+        reverse=True)
+    busy_ms = sum(ms for ms, _ in kernels)
+    return {"step_ms": step_ms, "device_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / step_ms,
+            "top": [[name, ms] for ms, name in kernels[:top]]}
+
+
+def _run_enhancer(enhancer, utts):
+    results = {}
+    for key, (x, m, _) in utts.items():
+        results.update(enhancer.add(key, x, m))
+    results.update(enhancer.flush())
+    return results
 
 
 def main() -> int:
@@ -286,7 +506,7 @@ def main() -> int:
     from setk_tpu_torch.ops.cuda import fused_mvdr as fm
     from setk_tpu_torch.ops.cuda import mvdr as mv
     from setk_tpu_torch.parallel.enhance_step import enhance_batch
-    from setk_tpu_torch.parallel.executor import BatchEnhancer, LengthBucketer
+    from setk_tpu_torch.parallel.executor import BatchEnhancer
 
     # ---- 1. the card ----
     smi = subprocess.run(
@@ -363,59 +583,26 @@ def main() -> int:
         utts[key] = (np.clip(x * 32768, -32768, 32767).astype(np.int16),
                      rng.random((cfg.num_frames(length), cfg.num_bins)
                                 ).astype(np.float32), c)
-    counted = (fm.stft_covar, mv.mvdr_power, fm.beamform_istft)
     enhancer = BatchEnhancer(cfg, batch_size=B, device="cuda")
-    for fn in counted:
-        fn.launches = 0
     t0 = time.perf_counter()
-    results = {}
-    for key, (x, m, _) in utts.items():
-        results.update(enhancer.add(key, x, m))
-    results.update(enhancer.flush())
-    torch.cuda.synchronize()
+    results, launches = _launched(
+        torch, lambda: _run_enhancer(enhancer, utts), "main path", FUSED_SET)
     e2e_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
     print(json.dumps({"main_path_launches": launches,
                       "utterances": len(results), "seconds": e2e_s}))
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{name} never launched on the main path")
     if set(results) != set(utts):
         raise AssertionError("BatchEnhancer lost utterances")
-
     # the plain path on the card, bucket by bucket as BatchEnhancer pads
-    bucketer = LengthBucketer(cfg)
-    buckets = {}
-    for key, (x, m, _) in utts.items():
-        buckets.setdefault(bucketer.bucket(x.shape[-1]), []).append(key)
-    worst, frames_seen = 0.0, []
-    for bucket, keys in buckets.items():
-        t_pad = cfg.num_frames(bucket)
-        frames_seen.append(t_pad)
-        wv = np.zeros((len(keys), N, bucket), np.int16)
-        mk = np.zeros((len(keys), t_pad, cfg.num_bins), np.float32)
-        for i, key in enumerate(keys):
-            x, m, _ = utts[key]
-            wv[i, :, :x.shape[-1]] = x
-            mk[i, :m.shape[0]] = m[:t_pad]
-        ref = enhance_plain(torch.from_numpy(wv).to(dev),
-                            torch.from_numpy(mk).to(dev), cfg,
-                            nsamps=bucket).cpu().numpy()
-        for i, key in enumerate(keys):
-            got = results[key]
-            x, _, c = utts[key]
-            if got.shape != (x.shape[-1],) or not np.isfinite(got).all():
-                raise AssertionError(f"{key}: bad output {got.shape}")
-            r = ref[i, :x.shape[-1]]
-            worst = max(worst, float(np.abs(got - r).max() / np.abs(r).max()))
-            corr = float(np.corrcoef(got, c)[0, 1])
-            if corr < 0.9:
-                raise AssertionError(f"{key}: correlation with the clean "
-                                     f"source {corr} < 0.9")
+    worst, corr, frames_seen = _by_bucket(np, torch, dev, cfg, utts, results,
+                                          enhance_plain)
     print(json.dumps({"main_path_vs_plain_max_rel_err": worst,
-                      "bucket_frames": sorted(frames_seen), "tol": TOL}))
+                      "min_corr_with_clean": corr,
+                      "bucket_frames": frames_seen, "tol": TOL}))
     if not worst <= TOL:
         raise AssertionError(f"main path vs plain {worst} > {TOL}")
+    if not corr >= 0.9:
+        raise AssertionError(f"main path: correlation with the clean source "
+                             f"{corr} < 0.9")
     if max(frames_seen) <= 512:
         raise AssertionError("no bucket with T > 512 was driven")
 
@@ -484,50 +671,20 @@ def main() -> int:
     swav16, smask, ssrc = _gated_scene(4, N, 48000, seed=2)
     gutts = {f"g{i:03d}": (gwav16[i], gmask[i], gsrc[i]) for i in range(B)}
     gutts.update({f"s{i}": (swav16[i], smask[i], ssrc[i]) for i in range(4)})
-    fam_counted = (fm.stft_covar, mv.mvdr_power, mv.gevd_power,
-                   mv.pmwf_solve, mv.capon, fm.beamform_istft)
     fam_launches, fam_worst, fam_corr = {}, {}, {}
     for (name, ban), solves in FAMILY:
         label = name + ("+ban" if ban else "")
         enhancer = BatchEnhancer(cfg, beamformer=name, batch_size=B,
                                  ban=ban, device="cuda")
-        for fn in fam_counted:
-            fn.launches = 0
-        results = {}
-        for key, (x, m, _) in gutts.items():
-            results.update(enhancer.add(key, x, m))
-        results.update(enhancer.flush())
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in fam_counted}
-        fam_launches[label] = counts
-        want = set(solves) | {"stft_covar", "beamform_istft"}
-        if {k for k, c in counts.items() if c} != want:
-            raise AssertionError(f"{label}: launched {counts}, needs {want}")
+        results, fam_launches[label] = _launched(
+            torch, lambda: _run_enhancer(enhancer, gutts), label,
+            set(solves) | {"stft_covar", "beamform_istft"})
         if set(results) != set(gutts):
             raise AssertionError(f"{label}: BatchEnhancer lost utterances")
-        worst, corr_min = 0.0, 1.0
-        for bucket, keys in (
-                (bucketer.bucket(S), [k for k in gutts if k[0] == "g"]),
-                (bucketer.bucket(48000), [k for k in gutts if k[0] == "s"])):
-            t_pad = cfg.num_frames(bucket)
-            wv = np.zeros((len(keys), N, bucket), np.int16)
-            mk = np.zeros((len(keys), t_pad, cfg.num_bins), np.float32)
-            for i, key in enumerate(keys):
-                x, m, _ = gutts[key]
-                wv[i, :, :x.shape[-1]] = x
-                mk[i, :m.shape[0]] = m[:t_pad]
-            ref = enhance_plain(torch.from_numpy(wv).to(dev),
-                                torch.from_numpy(mk).to(dev), cfg,
-                                beamformer=name, ban=ban,
-                                nsamps=bucket).cpu().numpy()
-            for i, key in enumerate(keys):
-                got, (x, _, c) = results[key], gutts[key]
-                if got.shape != (x.shape[-1],) or not np.isfinite(got).all():
-                    raise AssertionError(f"{label} {key}: bad output")
-                r = ref[i, :x.shape[-1]]
-                worst = max(worst,
-                            float(np.abs(got - r).max() / np.abs(r).max()))
-                corr_min = min(corr_min, float(np.corrcoef(got, c)[0, 1]))
+        worst, corr_min, _ = _by_bucket(
+            np, torch, dev, cfg, gutts, results,
+            lambda w, m, c, nsamps: enhance_plain(w, m, c, beamformer=name,
+                                                  ban=ban, nsamps=nsamps))
         fam_worst[label], fam_corr[label] = worst, corr_min
         if not worst <= TOL:
             raise AssertionError(f"{label}: path vs plain {worst} > {TOL}")
@@ -562,9 +719,6 @@ def main() -> int:
         if not err <= TOL:
             raise AssertionError(f"{name}: kernel vs plain {err} > {TOL}")
 
-    on_counted = (fm.stft_covar, fm.covar_ema, mv.mvdr_power,
-                  fm.beamform_istft_online, fm.beamform_istft,
-                  mv.gevd_power, mv.pmwf_solve, mv.capon)
     on_want = {"stft_covar", "covar_ema", "mvdr_power",
                "beamform_istft_online"}
     on_launches, on_worst, on_corr = {}, {}, {}
@@ -572,50 +726,20 @@ def main() -> int:
                         (24, [k for k in utts if k.startswith("x")])):
         enhancer = BatchEnhancer(cfg, batch_size=B, chunk_size=chunk,
                                  alpha=ALPHA, device="cuda")
-        for fn in on_counted:
-            fn.launches = 0
-        results = {}
-        for key in keys:
-            x, m, _ = utts[key]
-            results.update(enhancer.add(key, x, m))
-        results.update(enhancer.flush())
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in on_counted}
+        sub = {key: utts[key] for key in keys}
+        results, counts = _launched(
+            torch, lambda: _run_enhancer(enhancer, sub),
+            f"online chunk {chunk}", on_want)
         on_launches[chunk] = counts
-        if {k for k, c in counts.items() if c} != on_want:
-            raise AssertionError(f"online chunk {chunk}: launched {counts}, "
-                                 f"needs exactly {sorted(on_want)}")
         if set(results) != set(keys):
             raise AssertionError("online BatchEnhancer lost utterances")
-        buckets = {}
-        for key in keys:
-            buckets.setdefault(bucketer.bucket(utts[key][0].shape[-1]),
-                               []).append(key)
-        worst, corr_min, frames_on = 0.0, 1.0, []
-        for bucket, bkeys in buckets.items():
-            t_pad = cfg.num_frames(bucket)
-            frames_on.append(t_pad)
-            wv = np.zeros((len(bkeys), N, bucket), np.int16)
-            mk = np.zeros((len(bkeys), t_pad, cfg.num_bins), np.float32)
-            for i, key in enumerate(bkeys):
-                x, m, _ = utts[key]
-                wv[i, :, :x.shape[-1]] = x
-                mk[i, :m.shape[0]] = m[:t_pad]
-            ref = enhance_plain_online(
-                torch.from_numpy(wv).to(dev), torch.from_numpy(mk).to(dev),
-                cfg, chunk_size=chunk, alpha=ALPHA,
-                nsamps=bucket).cpu().numpy()
-            for i, key in enumerate(bkeys):
-                got, (x, _, c) = results[key], utts[key]
-                if got.shape != (x.shape[-1],) or not np.isfinite(got).all():
-                    raise AssertionError(f"online {key}: bad output")
-                r = ref[i, :x.shape[-1]]
-                worst = max(worst,
-                            float(np.abs(got - r).max() / np.abs(r).max()))
-                corr_min = min(corr_min, float(np.corrcoef(got, c)[0, 1]))
+        worst, corr_min, frames_on = _by_bucket(
+            np, torch, dev, cfg, sub, results,
+            lambda w, m, c, nsamps: enhance_plain_online(
+                w, m, c, chunk_size=chunk, alpha=ALPHA, nsamps=nsamps))
         on_worst[chunk], on_corr[chunk] = worst, corr_min
         print(json.dumps({"online_chunk": chunk, "launches": counts,
-                          "bucket_frames": sorted(frames_on),
+                          "bucket_frames": frames_on,
                           "vs_plain_max_rel_err": worst,
                           "min_corr_with_clean": corr_min, "tol": TOL}))
         if not worst <= TOL:
@@ -648,19 +772,31 @@ def main() -> int:
     # ---- 8. the CLI on the card against the CLI on the CPU ----
     from setk_tpu_torch.cli import apply_adaptive_beamformer as cli
     from setk_tpu_torch.io.wave import read_wav
-    cli_worst = {}
+    cli_worst, cli_launches = {}, {}
+    cfg1 = StftConfig(**P1_FIELDS)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         tmp = Path(tmp)
         keys = _write_corpus(tmp, seed=3)
-        for label, extra in (("offline", []),
-                             ("online", ["--chunk-size", str(CHUNK)])):
+        _write_corpus(tmp / "wide", seed=3, cfg=cfg1)
+        for label, corpus, extra, want in (
+                ("offline", tmp, [], FUSED_SET),
+                ("online", tmp, ["--chunk-size", str(CHUNK)],
+                 {"stft_covar", "covar_ema", "mvdr_power",
+                  "beamform_istft_online"}),
+                ("offline-1024/512", tmp / "wide",
+                 ["--frame-len", "1024", "--frame-hop", "512"], PLANAR_SET)):
             outs = {}
             for device in ("cuda", "cpu"):
-                out_dir = tmp / f"{label}-{device}"
-                cli.run(cli.make_parser().parse_args(
-                    [str(tmp / "wav.scp"), str(tmp / "mask.scp"),
-                     str(out_dir), "--batch-size", "4", "--device", device]
-                    + extra))
+                out_dir = tmp / f"{label.replace('/', '-')}-{device}"
+                argv = [str(corpus / "wav.scp"), str(corpus / "mask.scp"),
+                        str(out_dir), "--batch-size", "4", "--device",
+                        device] + extra
+                if device == "cuda":
+                    _, cli_launches[label] = _launched(
+                        torch, lambda: cli.run(cli.make_parser().parse_args(
+                            argv)), f"CLI {label}", want)
+                else:
+                    cli.run(cli.make_parser().parse_args(argv))
                 outs[device] = {}
                 for key in keys:
                     path = out_dir / f"{key}.wav"
@@ -676,13 +812,179 @@ def main() -> int:
                 float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max())
                 for k in keys)
     print(json.dumps({"cli_card_vs_cpu_max_int16_steps": cli_worst,
+                      "cli_card_launches": cli_launches,
                       "utterances": 6, "tol_steps": 2}))
     for label, worst in cli_worst.items():
         if not worst <= 2:
             raise AssertionError(f"CLI {label}: card vs CPU {worst} int16 "
                                  f"steps > 2")
 
-    # ---- 9. timing at the bench shape ----
+    # ---- 9. P1: the planar geometry, n_fft 1024, hop 512 ----
+    from setk_tpu_torch.dsp.stft import forward_stft
+    from setk_tpu_torch.enhance.pipeline import mvdr_enhance_planar_plain
+    from setk_tpu_torch.ops.cuda import covariance_pair as cp
+    from setk_tpu_torch.ops.cuda import planar as pl
+    t1 = cfg1.num_frames(S)
+    mask1 = rng.random((B, t1, cfg1.num_bins)).astype(np.float32)
+    mask1_d = torch.from_numpy(mask1).to(dev)
+    p1_errs, p1_abs, p1 = _planar_kernels(torch, dev, wav_d, mask1_d, cfg1)
+    print(json.dumps({"P1_kernel_vs_plain_max_rel_err": p1_errs,
+                      "T": t1, "F": cfg1.num_bins, "tol": TOL}))
+    _check_tol("P1", p1_errs)
+    out1, p1_launches = _launched(
+        torch, lambda: enhance_batch(wav_d, mask1_d, cfg1), "P1 enhance_batch",
+        PLANAR_SET)
+    p1_err = _rel(out1, mvdr_enhance_planar_plain(wav_d, mask1_d, cfg1))
+    p1_corr = _min_corr(np, out1.cpu().numpy(), clean)
+    utts1 = {key: (x, rng.random((cfg1.num_frames(x.shape[-1]),
+                                  cfg1.num_bins)).astype(np.float32), c)
+             for key, (x, _, c) in utts.items()}
+    enhancer = BatchEnhancer(cfg1, batch_size=B, device="cuda")
+    res1, p1_be_launches = _launched(
+        torch, lambda: _run_enhancer(enhancer, utts1), "P1 BatchEnhancer",
+        PLANAR_SET)
+    if set(res1) != set(utts1):
+        raise AssertionError("P1 BatchEnhancer lost utterances")
+    p1_be_err, p1_be_corr, p1_frames = _by_bucket(
+        np, torch, dev, cfg1, utts1, res1, mvdr_enhance_planar_plain)
+    # without center the planar path resynthesizes with dsp.inverse_stft
+    cfg1n = StftConfig(**P1_FIELDS, center=False)
+    mask1n_d = mask1_d[:8, :cfg1n.num_frames(S)].contiguous()
+    out1n, _ = _launched(torch, lambda: enhance_batch(
+        wav_d[:8], mask1n_d, cfg1n), "P1 center off",
+        PLANAR_SET - {"istft_planar"})
+    ref1n = mvdr_enhance_planar_plain(wav_d[:8], mask1n_d, cfg1n)
+    if not torch.isfinite(out1n).all():
+        raise AssertionError("P1 center off: non-finite output")
+    # compared away from the two ends, where the window-sum-square
+    # envelope vanishes and its guarded divide amplifies round-off
+    # (ROADMAP queue 3)
+    edge = cfg1n.n_fft
+    p1n_err = _rel(out1n[:, edge:-edge], ref1n[:, edge:-edge])
+    p1_path = {"enhance_batch": {"launches": p1_launches,
+                                 "vs_plain_max_rel_err": p1_err,
+                                 "min_corr_with_clean": p1_corr},
+               "BatchEnhancer": {"launches": p1_be_launches,
+                                 "bucket_frames": p1_frames,
+                                 "vs_plain_max_rel_err": p1_be_err,
+                                 "min_corr_with_clean": p1_be_corr},
+               "center_off_B8_vs_plain_max_rel_err": p1n_err}
+    print(json.dumps({"P1_path": p1_path, "tol": TOL}))
+    for label, err in (("enhance_batch", p1_err),
+                       ("BatchEnhancer", p1_be_err), ("center off", p1n_err)):
+        if not err <= TOL:
+            raise AssertionError(f"P1 {label}: path vs plain {err} > {TOL}")
+    if not min(p1_corr, p1_be_corr) >= 0.9:
+        raise AssertionError(f"P1: correlation with the clean source "
+                             f"{min(p1_corr, p1_be_corr)} < 0.9")
+
+    # ---- 10. P2: 512/256 at an unaligned length ----
+    t2 = cfg.num_frames(P2_S)
+    clean2 = rng.standard_normal((B, P2_S)).astype(np.float32) * 0.2
+    wav2 = (clean2[:, None] +
+            rng.standard_normal((B, N, P2_S)).astype(np.float32) * 0.05)
+    wav2_16 = np.clip(wav2 * 32768.0, -32768, 32767).astype(np.int16)
+    del wav2
+    mask2 = rng.random((B, t2, cfg.num_bins)).astype(np.float32)
+    wav2_d = torch.from_numpy(wav2_16).to(dev)
+    mask2_d = torch.from_numpy(mask2).to(dev)
+    p2_errs, p2_abs, _ = _planar_kernels(torch, dev, wav2_d, mask2_d, cfg)
+    print(json.dumps({"P2_kernel_vs_plain_max_rel_err": p2_errs, "S": P2_S,
+                      "T": t2, "tol": TOL}))
+    _check_tol("P2", p2_errs)
+    out2, p2_launches = _launched(
+        torch, lambda: enhance_batch(wav2_d, mask2_d, cfg), "P2 enhance_batch",
+        PLANAR_SET)
+    p2_err = _rel(out2, mvdr_enhance_planar_plain(wav2_d, mask2_d, cfg))
+    n_sig = (t2 - 1) * cfg.frame_hop
+    if out2.shape != (B, P2_S) or out2[:, n_sig:].any():
+        raise AssertionError(f"P2: {tuple(out2.shape)} output or a non-zero "
+                             f"tail past sample {n_sig}")
+    p2_corr = _min_corr(np, out2[:, :n_sig].cpu().numpy(), clean2[:, :n_sig])
+    # BatchEnhancer pads to hop-aligned buckets: the fused kernels
+    utts2 = {f"p{i:03d}": (wav2_16[i], mask2[i], clean2[i]) for i in range(B)}
+    enhancer = BatchEnhancer(cfg, batch_size=B, device="cuda")
+    res2, p2_be_launches = _launched(
+        torch, lambda: _run_enhancer(enhancer, utts2), "P2 BatchEnhancer",
+        FUSED_SET)
+    p2_be_corr = min(float(np.corrcoef(res2[k], utts2[k][2])[0, 1])
+                     for k in utts2)
+    print(json.dumps({"P2_path": {
+        "enhance_batch": {"launches": p2_launches,
+                          "vs_plain_max_rel_err": p2_err,
+                          "zero_tail_samples": P2_S - n_sig,
+                          "min_corr_with_clean": p2_corr},
+        "BatchEnhancer_fused_buckets": {"launches": p2_be_launches,
+                                        "min_corr_with_clean": p2_be_corr}},
+        "tol": TOL}))
+    if not p2_err <= TOL:
+        raise AssertionError(f"P2: path vs plain {p2_err} > {TOL}")
+    if not min(p2_corr, p2_be_corr) >= 0.9:
+        raise AssertionError(f"P2: correlation with the clean source "
+                             f"{min(p2_corr, p2_be_corr)} < 0.9")
+
+    # ---- 11. E: the spectrum-domain geometry, 512/128 ----
+    cfg_e = StftConfig(**E_FIELDS)
+    t_e = cfg_e.num_frames(S)
+    mask_e = rng.random((B, t_e, cfg_e.num_bins)).astype(np.float32)
+    mask_e_d = torch.from_numpy(mask_e).to(dev)
+    spec_e = forward_stft(wav_d.float() / 32768.0, cfg_e)  # (B, N, T, F)
+    mn_rand = torch.rand(mask_e_d.shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(5))
+    mn_e = torch.clamp(1.0 - mask_e_d, min=0.0)
+    nums_e = cp.pair_covar(spec_e, mask_e_d, mn_e)
+    e_errs, e_abs = {}, {}
+    for label, mn in (("complement", mn_e), ("random_mask_n", mn_rand)):
+        e_errs[label], e_abs[label] = _pair_errs(
+            torch, cp.pair_covar(spec_e, mask_e_d, mn),
+            cp.pair_covar_plain(spec_e, mask_e_d, mn))
+    print(json.dumps({"E_pair_covar_vs_plain_max_rel_err": e_errs, "T": t_e,
+                      "F": cfg_e.num_bins, "tol": TOL}))
+    _check_tol("E pair_covar", e_errs)
+    gwav_e16, gmask_e, gsrc_e = _gated_scene(B, N, S, seed=1, cfg=cfg_e)
+    gwav_e_d = torch.from_numpy(gwav_e16).to(dev)
+    gmask_e_d = torch.from_numpy(gmask_e).to(dev)
+    e_path = {}
+    for label, (w16, w_d, mk, mk_d, src), kw, want in (
+            ("mvdr+ban", (wav16, wav_d, mask_e, mask_e_d, clean),
+             {"ban": True}, {"pair_covar", "mvdr_power"}),
+            ("pmwf-0", (gwav_e16, gwav_e_d, gmask_e, gmask_e_d, gsrc_e),
+             {"beamformer": "pmwf-0"}, {"pair_covar"})):
+        out_e, counts = _launched(torch, lambda: enhance_batch(
+            w_d, mk_d, cfg_e, **kw), f"E {label}", want)
+        ref_e = enhance_batch(w16, mk, cfg_e, steer="power", device="cpu",
+                              **kw).numpy()
+        got_e = out_e.cpu().numpy()
+        err = float(np.abs(got_e - ref_e).max() / np.abs(ref_e).max())
+        e_path[label] = {"launches": counts, "vs_cpu_max_rel_err": err,
+                         "min_corr_with_source": _min_corr(np, got_e, src)}
+    print(json.dumps({"E_path": e_path, "tol": TOL}))
+    for label, row in e_path.items():
+        if not row["vs_cpu_max_rel_err"] <= TOL:
+            raise AssertionError(f"E {label}: card vs CPU "
+                                 f"{row['vs_cpu_max_rel_err']} > {TOL}")
+        if not row["min_corr_with_source"] >= 0.9:
+            raise AssertionError(f"E {label}: correlation "
+                                 f"{row['min_corr_with_source']} < 0.9")
+
+    # ---- 12. refusals before any device allocation ----
+    refused = {}
+    wav9 = np.zeros((2, 9, S), np.int16)
+    before = torch.cuda.memory_allocated()
+    for label, w, kw in (("gevd", wav16[:2], {"beamformer": "gevd"}),
+                         ("mpdr", wav16[:2], {"beamformer": "mpdr"}),
+                         ("N=9", wav9, {})):
+        try:
+            enhance_batch(w, mask_e[:2], cfg_e, **kw)
+        except NotImplementedError as exc:
+            refused[label] = re.search(r"ROADMAP [^;,]*", str(exc)).group(0)
+        else:
+            raise AssertionError(f"E {label} was not refused")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("a refusal allocated device memory")
+    print(json.dumps({"E_refusals": refused}))
+
+    # ---- 13. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -759,7 +1061,7 @@ def main() -> int:
               "covar_ema": "setk_tpu_torch/csrc/fused_mvdr.cu",
               "beamform_istft_online": "setk_tpu_torch/csrc/fused_mvdr.cu"}
     # the family's kernels: launches summed over the six runs of step 6
-    launches.update({k: sum(c[k] for c in fam_launches.values())
+    launches.update({k: sum(c.get(k, 0) for c in fam_launches.values())
                      for k in ("gevd_power", "pmwf_solve", "capon")})
     abs_errs.update(gevd_power=fam_abs["gevd_power_30"],
                     pmwf_solve=fam_abs["pmwf_solve_beta0"],
@@ -774,6 +1076,70 @@ def main() -> int:
                                                                       grs)),
             "capon": _time_ms(torch, lambda: torch.linalg.solve(
                 gry, gsteer[..., None]))}
+    # the planar and spectrum-domain kernels at P1 (9-11) and E (12)
+    fh1 = cfg1.n_fft // 2
+    re1, im1 = p1["planes"][0], p1["planes"][1]
+    rows += [
+        ("stft_planar", "setk_tpu/ops/pallas/stft.py:126",
+         lambda: pl.stft_planar(wav_d, p1["window"], True),
+         lambda: pl.stft_planar_plain(wav_d, p1["window"], True),
+         _bound(wav_d.nbytes + sum(x.nbytes for x in p1["planes"]),
+                _flops_stft_planar(B * N, t1, cfg1.n_fft))),
+        ("pair_covar_complement", "setk_tpu/ops/pallas/covariance_pair.py:105",
+         lambda: cp.pair_covar_complement(re1, im1, p1["mask"], t1),
+         lambda: cp.pair_covar_complement_plain(re1, im1, p1["mask"], t1),
+         _bound(re1.nbytes + im1.nbytes + B * t1 * fh1 * 4 +
+                sum(x.nbytes for x in p1["nums"]),
+                _flops_pair_covar(B, N, t1, fh1, True))),
+        ("istft_planar", "setk_tpu/ops/pallas/stft.py:300",
+         lambda: pl.istft_planar(p1["er"], p1["ei"], p1["ny"], p1["window"],
+                                 p1["wss"], S),
+         lambda: pl.istft_planar_plain(p1["er"], p1["ei"], p1["ny"],
+                                       p1["window"], p1["wss"], S),
+         _bound(p1["er"].nbytes + p1["ei"].nbytes + p1["ny"].nbytes +
+                p1["wss"].nbytes + p1["out"].nbytes,
+                _flops_istft_planar(B, t1, cfg1.n_fft))),
+        ("pair_covar", "setk_tpu/ops/pallas/covariance_pair.py:139",
+         lambda: cp.pair_covar(spec_e, mask_e_d, mn_e),
+         lambda: cp.pair_covar_plain(spec_e, mask_e_d, mn_e),
+         _bound(spec_e.nbytes + mask_e_d.nbytes + mn_e.nbytes +
+                sum(x.nbytes for x in nums_e),
+                _flops_pair_covar(B, N, t_e, cfg_e.num_bins, False))),
+    ]
+    launches.update(stft_planar=p1_be_launches["stft_planar"],
+                    pair_covar_complement=p1_be_launches[
+                        "pair_covar_complement"],
+                    istft_planar=p1_be_launches["istft_planar"],
+                    pair_covar=e_path["mvdr+ban"]["launches"]["pair_covar"])
+    errs.update(p1_errs, pair_covar=e_errs["random_mask_n"])
+    abs_errs.update(p1_abs, pair_covar=e_abs["random_mask_n"])
+    source.update(stft_planar="setk_tpu_torch/csrc/planar_stft.cu",
+                  istft_planar="setk_tpu_torch/csrc/planar_stft.cu",
+                  pair_covar_complement="setk_tpu_torch/csrc/"
+                                        "covariance_pair.cu",
+                  pair_covar="setk_tpu_torch/csrc/covariance_pair.cu")
+    # the one PyTorch call that computes each function, timed for
+    # comparison only (the port never calls these)
+    wav_rows = (wav_d.float() / 32768.0).reshape(B * N, S)
+    spec1 = torch.complex(torch.cat([p1["er"], p1["ny"][..., None]], -1),
+                          torch.cat([p1["ei"], torch.zeros_like(
+                              p1["ny"][..., None])], -1)).transpose(1, 2)
+    obs1 = torch.complex(re1, im1)
+    masks1 = torch.stack([p1["mask"], torch.clamp(1 - p1["mask"], min=0)])
+    masks_e = torch.stack([mask_e_d, mn_e])
+    library = {
+        "stft_planar": _time_ms(torch, lambda: torch.stft(
+            wav_rows, cfg1.n_fft, cfg1.frame_hop, window=p1["window"],
+            center=True, pad_mode="reflect", return_complex=True)),
+        "istft_planar": _time_ms(torch, lambda: torch.istft(
+            spec1, cfg1.n_fft, cfg1.frame_hop, window=p1["window"],
+            center=True, length=S)),
+        "pair_covar_complement": _time_ms(torch, lambda: torch.einsum(
+            "bntf,bmtf,kbtf->kbnmf", obs1, obs1.conj(), masks1), iters=5),
+        "pair_covar": _time_ms(torch, lambda: torch.einsum(
+            "bntf,bmtf,kbtf->kbnmf", spec_e, spec_e.conj(), masks_e),
+            iters=5),
+    }
     kernels = []
     for name, replaces, run_k, run_p, (bound_ms, bound_by) in rows:
         eager_ms = _time_ms(torch, run_k)
@@ -785,7 +1151,7 @@ def main() -> int:
             "max_abs_err": abs_errs[name], "max_rel_err": errs[name],
             "ms": _graph_ms(torch, run_k), "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": library.get(name)}
         if name in info:
             row["linalg_solve_ms_info"] = info[name]
         kernels.append(row)
@@ -808,8 +1174,37 @@ def main() -> int:
         ms = _time_ms(torch, lambda: enhance_batch(
             gwav_d, gmask_d, cfg, beamformer=name, ban=ban))
         fam_ms[label] = {"ms": ms, "audio_s_per_s": B * SECS / (ms / 1e3)}
+    geo_ms = {}
+    for label, run, secs in (
+            ("P1_1024_512", lambda: enhance_batch(wav_d, mask1_d, cfg1), SECS),
+            ("P2_512_256_S128100", lambda: enhance_batch(wav2_d, mask2_d, cfg),
+             P2_S / SR),
+            ("E_512_128_mvdr", lambda: enhance_batch(wav_d, mask_e_d, cfg_e),
+             SECS),
+            ("E_512_128_mvdr+ban", lambda: enhance_batch(
+                wav_d, mask_e_d, cfg_e, ban=True), SECS),
+            ("E_512_128_pmwf-0", lambda: enhance_batch(
+                gwav_e_d, gmask_e_d, cfg_e, beamformer="pmwf-0"), SECS)):
+        ms = _time_ms(torch, run)
+        geo_ms[label] = {"ms": ms, "audio_s_per_s": B * secs / (ms / 1e3)}
+    geo_ms["P1_plain_ms"] = _time_ms(torch, lambda: mvdr_enhance_planar_plain(
+        wav_d, mask1_d, cfg1), iters=5, warmup=1)
+    # where a step's device time goes, and how long the card waits
+    profiles = {
+        "mvdr_512_256_fused": _device_profile(torch, lambda: enhance_batch(
+            wav_d, mask_d, cfg), step_ms),
+        "P1_1024_512": _device_profile(torch, lambda: enhance_batch(
+            wav_d, mask1_d, cfg1), geo_ms["P1_1024_512"]["ms"]),
+        "E_512_128_mvdr+ban": _device_profile(torch, lambda: enhance_batch(
+            wav_d, mask_e_d, cfg_e, ban=True),
+            geo_ms["E_512_128_mvdr+ban"]["ms"]),
+        "E_512_128_pmwf-0": _device_profile(torch, lambda: enhance_batch(
+            gwav_e_d, gmask_e_d, cfg_e, beamformer="pmwf-0"),
+            geo_ms["E_512_128_pmwf-0"]["ms"])}
+    print(json.dumps({"device_profiles": profiles}))
     print(json.dumps({
         "card": smi, "enhance_batch_ms": step_ms,
+        "planar_and_spectrum_steps": geo_ms,
         "audio_s_per_s": B * SECS / (step_ms / 1e3),
         "plain_path_ms": plain_step_ms, "rfft_frames_ms_info": rfft_ms,
         "family_enhance_batch_gated_scene": fam_ms,

@@ -7,7 +7,15 @@ with the same flags.  It runs the batched path (``--batch-size`` > 1):
 the native prefetching wav loader, the mask reader, ``BatchEnhancer`` on
 ``--device`` (``cuda`` by default; ``cpu`` runs the plain path), offline
 or online (``--chunk-size`` > 0), and the wav writer, with the output
-peak renormalized to the input's and non-finite outputs skipped.  The
+peak renormalized to the input's and non-finite outputs skipped.  On the
+card, ``--frame-len``, ``--frame-hop`` and ``--center`` choose the
+kernels as ``enhance_batch`` does: the fused kernels for the 512/256
+center geometry, the planar kernels for mvdr at other n_fft = 2 hop
+powers of two from 256 to 2048 (with or without center), and the
+spectrum-domain run (the pair-covariance kernel and the per-bin solves)
+for the rest of mvdr, mvdr with BAN and pmwf-0/1; gevd, mpdr and
+mpdr-whiten outside the fused geometry, and online outside it, raise
+naming their ROADMAP item before the batch reaches the card.  The
 per-utterance path (``--batch-size 1`` and its options: interference
 masks, VAD filtering, post-masking, the PMWF reference channel and
 rank-1 approximation) comes with ROADMAP queue 1 item 14.

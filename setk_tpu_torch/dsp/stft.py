@@ -11,7 +11,7 @@ the complex layout is ``(..., T, F)``.  This is the plain path
 """
 
 from dataclasses import dataclass
-from functools import cached_property
+from functools import cached_property, lru_cache
 
 import numpy as np
 import torch
@@ -66,14 +66,24 @@ def num_frames(num_samples: int, cfg: StftConfig) -> int:
     return 1 + (num_samples - n_fft) // hop
 
 
+# The index, window and envelope tensors below are built once per shape
+# and device: on a card a host-to-device copy from pageable memory waits
+# for the work already queued, so building them per call would leave the
+# card idle between batches.  Callers never write to them.
+
+@lru_cache(maxsize=64)
+def _reflect_index(s: int, pad: int, device: torch.device) -> torch.Tensor:
+    idx = np.concatenate([np.arange(pad, 0, -1), np.arange(s),
+                          np.arange(s - 2, s - 2 - pad, -1)])
+    return torch.as_tensor(idx, device=device)
+
+
 def _reflect_pad(samps: torch.Tensor, pad: int) -> torch.Tensor:
     """numpy ``mode="reflect"`` padding of the last axis (edge excluded)."""
     s = samps.shape[-1]
     if pad >= s:
         raise ValueError(f"reflect pad {pad} needs more than {s} samples")
-    idx = np.concatenate([np.arange(pad, 0, -1), np.arange(s),
-                          np.arange(s - 2, s - 2 - pad, -1)])
-    return samps[..., torch.as_tensor(idx, device=samps.device)]
+    return samps[..., _reflect_index(s, pad, samps.device)]
 
 
 def frame_signal(samps: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
@@ -87,9 +97,17 @@ def frame_signal(samps: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     return samps.unfold(-1, n_fft, hop)
 
 
-def _window(cfg: StftConfig, like: torch.Tensor) -> torch.Tensor:
+@lru_cache(maxsize=64)
+def _window(cfg: StftConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(cfg.padded_window, dtype=torch.float32,
-                           device=like.device)
+                           device=device)
+
+
+@lru_cache(maxsize=64)
+def _wss(cfg: StftConfig, n_frames: int, device: torch.device):
+    return torch.as_tensor(window_sumsquare(cfg.padded_window, n_frames,
+                                            cfg.frame_hop, cfg.n_fft),
+                           dtype=torch.float32, device=device)
 
 
 def forward_stft(samps: torch.Tensor,
@@ -100,7 +118,7 @@ def forward_stft(samps: torch.Tensor,
     """STFT of ``(..., S)`` float32 samples -> ``(..., T, F)`` complex64."""
     if apply_log:
         apply_abs = True
-    frames = frame_signal(samps, cfg) * _window(cfg, samps)
+    frames = frame_signal(samps, cfg) * _window(cfg, samps.device)
     spec = torch.fft.rfft(frames, n=cfg.n_fft, dim=-1)
     if apply_abs:
         spec = spec.abs()
@@ -147,12 +165,10 @@ def inverse_stft(stft_mat: torch.Tensor,
     """
     n_fft, hop = cfg.n_fft, cfg.frame_hop
     n_frames = stft_mat.shape[-2]
-    window = cfg.padded_window
     frames = torch.fft.irfft(stft_mat, n=n_fft, dim=-1)
-    frames = frames * _window(cfg, frames)
+    frames = frames * _window(cfg, frames.device)
     samps = overlap_add(frames, hop)
-    wss = torch.as_tensor(window_sumsquare(window, n_frames, hop, n_fft),
-                          dtype=samps.dtype, device=samps.device)
+    wss = _wss(cfg, n_frames, samps.device).to(samps.dtype)
     samps = torch.where(wss > _TINY, samps / torch.clamp(wss, min=_TINY),
                         samps)
     if cfg.center:

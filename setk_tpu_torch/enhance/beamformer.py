@@ -9,16 +9,22 @@ axes, with the same layouts (F: bins, N: mics, T: frames):
     covar   (..., F, N, N)   Hermitian PSDs
     weight  (..., F, N)      beamformer weights
 
-This spectrum-domain path is what ``enhance_batch`` runs on the CPU; on
-a CUDA device the main path runs the fused kernels instead, and the
-parts of this module that have no kernel yet raise there (the EVD
-through ``ops.linalg.eigh``).
+This spectrum-domain path is what ``enhance_batch`` runs on the CPU,
+and on a CUDA device for the geometries neither the fused nor the planar
+kernels cover (mvdr with the power steer, with or without BAN, and
+pmwf-0/1).  There ``compute_covar_pair`` runs the pair-covariance kernel
+(ops/cuda/covariance_pair.pair_covar) for N <= 8, as the JAX package runs
+its Pallas pair kernel on the TPU, and the power-steer MVDR solve runs
+``mvdr_power``.  The parts of this module that have no kernel yet raise
+on a CUDA tensor: the single masked covariance (``covar_stats``,
+``compute_covar``) and the EVD (``ops.linalg.eigh``).
 """
 
 import functools
 
 import torch
 
+from setk_tpu_torch.ops.cuda import covariance_pair as cp
 from setk_tpu_torch.utils.common import EPSILON
 from setk_tpu_torch.ops.linalg import (solve_pevd, hermitianize,
                                        hermitian_solve,
@@ -35,7 +41,15 @@ __all__ = [
 
 
 def covar_stats(obs: torch.Tensor, mask: torch.Tensor):
-    """Unnormalized statistics: num = sum_t m y y^H, den = sum_t m."""
+    """Unnormalized statistics: num = sum_t m y y^H, den = sum_t m.
+
+    CPU tensors only: on a CUDA tensor it raises until the single masked
+    covariance kernel lands (ROADMAP queue 2 item 13).
+    """
+    if obs.device.type == "cuda":
+        raise NotImplementedError(
+            "a single masked covariance on a CUDA device arrives with the "
+            "masked covariance kernel, ROADMAP queue 2 item 13")
     den = mask.sum(-1)
     num = (mask[..., None, :] * obs) @ obs.conj().transpose(-1, -2)
     return num, den
@@ -52,13 +66,45 @@ def compute_covar_pair(obs: torch.Tensor, mask_s: torch.Tensor,
                        mask_n: torch.Tensor | None = None,
                        denom_floor: float = 1e-6):
     """(Rs, Rn) with Rn from the literal sum_t max(1 - m, 0) y y^H (never
-    total minus masked, which goes indefinite for masks near one)."""
-    rs = compute_covar(obs, mask_s, denom_floor)
-    rn = compute_covar(obs,
-                       torch.clamp(1 - mask_s, min=0) if mask_n is None
-                       else mask_n,
-                       denom_floor)
-    return rs, rn
+    total minus masked, which goes indefinite for masks near one).
+
+    For N <= 8 both numerators come from one pass over obs through
+    ``ops.cuda.covariance_pair.pair_covar`` (kernel 12 on a CUDA tensor,
+    its plain version on the CPU), in the (B, N, T, F) layout of the
+    STFT: when obs is a permuted view of a spectrum, as in
+    ``enhance_batch``, nothing is copied.  Each covariance is normalized
+    by max(sum_t mask, ``denom_floor``), as compute_covar_pair_pallas
+    does (setk_tpu/ops/pallas/covariance_pair.py:170-206).
+    """
+    *lead, f, n, t = obs.shape
+    if n > cp.MAX_MICS:
+        rs = compute_covar(obs, mask_s, denom_floor)
+        rn = compute_covar(obs,
+                           torch.clamp(1 - mask_s, min=0) if mask_n is None
+                           else mask_n,
+                           denom_floor)
+        return rs, rn
+    on_cuda = obs.device.type == "cuda"
+    ntf = obs.movedim(-3, -1).reshape(-1, n, t, f)      # (B, N, T, F)
+
+    def frames_by_bins(m):                              # (..., F, T) -> (B, T, F)
+        m = m.to(torch.float32).expand(*lead, f, t).movedim(-1, -2)
+        m = m.reshape(-1, t, f)
+        return m.contiguous() if on_cuda else m
+
+    ms = frames_by_bins(mask_s)
+    mn = (torch.clamp(1.0 - ms, min=0.0) if mask_n is None
+          else frames_by_bins(mask_n))
+    rs_re, rs_im, rn_re, rn_im = cp.pair_covar(
+        ntf.contiguous() if on_cuda else ntf, ms, mn)
+
+    def finish(num_re, num_im, m):
+        num = torch.complex(num_re, num_im).permute(0, 3, 1, 2)
+        den = torch.clamp(m.sum(1), min=denom_floor)    # (B, F)
+        return (num / den[..., None, None]).reshape(*lead, f, n, n).to(
+            obs.dtype)
+
+    return finish(rs_re, rs_im, ms), finish(rn_re, rn_im, mn)
 
 
 def beamform(weight: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
@@ -211,12 +257,12 @@ def supervised_run(beamformer: str,
                    ban: bool = False,
                    **kwargs) -> torch.Tensor:
     """One-shot mask-based beamforming: masks + obs -> enhanced STFT
-    (..., F, T)."""
-    if obs.device.type == "cuda":
-        raise NotImplementedError(
-            "the spectrum-domain supervised run on a CUDA device arrives "
-            "with the planar STFT/iSTFT and pair-covariance kernels, "
-            "ROADMAP queue 2 items 9-11; enhance_batch runs the fused kernels")
+    (..., F, T).
+
+    On a CUDA tensor the covariance pair runs kernel 12 and mvdr's power
+    steer runs ``mvdr_power``; what needs the EVD (the eigh steer, gevd,
+    mpdr, mpdr-whiten) or the single masked covariance (mpdr's Ry) raises.
+    """
     rs, rn = compute_covar_pair(obs, mask_s, mask_n)
     if beamformer in ("mpdr", "mpdr-whiten"):
         ry = compute_covar(obs, torch.ones_like(mask_s))

@@ -15,6 +15,17 @@ kernels are held against.
 counterpart of setk_tpu/enhance/pipeline.py:293-348: kernel A per chunk,
 the EMA kernel, ``mvdr_power`` on every chunk's state and the online
 kernel B; ``enhance_plain_online`` is its plain twin.
+
+``mvdr_enhance_planar`` is MVDR for the STFT geometries outside the
+fused gate (other n_fft, hops and lengths), counterpart of
+setk_tpu/enhance/pipeline.py:199-283: the planar STFT kernel writes the
+spectrum as re/im planes plus the Nyquist bin, the pair-covariance kernel
+forms the Rs/Rn numerators of bins 0 .. n_fft/2 - 1 from them,
+``mvdr_power`` solves every bin, and after a beamform pass the planar
+iSTFT kernel resynthesizes (center framing; without center the port's
+``inverse_stft`` does, as in the JAX package).  The Nyquist bin's
+covariances and the beamform are plain tensor code between the kernels.
+``mvdr_enhance_planar_plain`` is its plain twin.
 """
 
 import functools
@@ -22,16 +33,19 @@ import typing
 
 import torch
 
-from setk_tpu_torch.dsp.stft import StftConfig
-from setk_tpu_torch.dsp.window import wss_inverse_blocks
+from setk_tpu_torch.dsp.stft import StftConfig, inverse_stft
 from setk_tpu_torch.enhance import beamformer as bf
+from setk_tpu_torch.ops.cuda import covariance_pair as cp
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
+from setk_tpu_torch.ops.cuda import planar as pl
 from setk_tpu_torch.utils.device import full_f32_matmuls
 
 __all__ = ["FUSED_BEAMFORMERS", "fused_supported", "check_fused_options",
            "enhance_fused", "enhance_plain", "fused_online_supported",
-           "mvdr_enhance_fused_online", "enhance_plain_online"]
+           "mvdr_enhance_fused_online", "enhance_plain_online",
+           "planar_supported", "mvdr_enhance_planar",
+           "mvdr_enhance_planar_plain"]
 
 # the beamformers the fused kernel pair serves: only the small per-bin
 # weight solve differs between them
@@ -60,16 +74,17 @@ def fused_online_supported(cfg: StftConfig, num_mics: int, nsamps: int,
 @functools.lru_cache(maxsize=64)
 def _constants(cfg: StftConfig, n_frames: int, out_samps: int,
                device: torch.device):
-    """The analysis window and the reciprocal window-sum-square blocks on
-    ``device``, built once per shape: a host-to-device copy from pageable
-    memory waits for the work already queued on the card, so building them
-    per call would serialize consecutive batches.  Callers never write
-    to them."""
+    """The analysis window and the reciprocal window-sum-square of the
+    center-trimmed signal (flat, whole hop blocks of the samples that
+    carry signal; n_fft = 2 hop) on ``device``, built once per shape: a
+    host-to-device copy from pageable memory waits for the work already
+    queued on the card, so building them per call would serialize
+    consecutive batches.  Callers never write to them."""
     window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
                              device=device)
     wss_inv = torch.as_tensor(
-        wss_inverse_blocks(cfg.padded_window, n_frames, cfg.frame_hop,
-                           cfg.n_fft, out_samps), device=device)
+        pl.istft_wss_inverse(cfg.padded_window, n_frames, out_samps),
+        device=device)
     return window, wss_inv
 
 
@@ -85,15 +100,20 @@ class _Ops(typing.NamedTuple):
     stft_covar_chunks: typing.Callable
     covar_ema: typing.Callable
     beamform_istft_online: typing.Callable
+    stft_planar: typing.Callable
+    pair_covar_complement: typing.Callable
+    istft_planar: typing.Callable
 
 
 _KERNELS = _Ops(fm.stft_covar, mv.mvdr_power, mv.gevd_power, mv.pmwf_solve,
                 mv.capon, fm.beamform_istft, fm.stft_covar_chunks,
-                fm.covar_ema, fm.beamform_istft_online)
+                fm.covar_ema, fm.beamform_istft_online, pl.stft_planar,
+                cp.pair_covar_complement, pl.istft_planar)
 _PLAIN = _Ops(fm.stft_covar_plain, mv.mvdr_power_plain, mv.gevd_power_plain,
               mv.pmwf_solve_plain, mv.capon_plain, fm.beamform_istft_plain,
               fm.stft_covar_chunks_plain, fm.covar_ema_plain,
-              fm.beamform_istft_online_plain)
+              fm.beamform_istft_online_plain, pl.stft_planar_plain,
+              cp.pair_covar_complement_plain, pl.istft_planar_plain)
 
 
 def _weights(ops: _Ops, beamformer, rs, rn, ry, power_iters):
@@ -128,7 +148,8 @@ def _prepare(wav, mask_s, cfg, nsamps):
                          f"{out_samps} is outside the fused kernels' gate")
     t = cfg.num_frames(s)
     window, wss_inv = _constants(cfg, t, out_samps, wav.device)
-    return t, window, wss_inv, mask_s.to(torch.float32).contiguous()
+    return (t, window, wss_inv.view(-1, fm.HOP),
+            mask_s.to(torch.float32).contiguous())
 
 
 def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
@@ -237,3 +258,90 @@ def enhance_plain_online(wav: torch.Tensor,
     full_f32_matmuls(wav.device)
     return _run_online(wav, mask_s, cfg, chunk_size, alpha, power_iters,
                        nsamps, _PLAIN)
+
+
+def planar_supported(cfg: StftConfig, num_mics: int,
+                     nsamps: int | None = None) -> bool:
+    """The port's gate for the planar kernels: n_fft == 2 hop, n_fft a
+    power of two in [256, 2048], 1 <= N <= 8 and, when given, S >= n_fft
+    (the JAX gate's n_fft % 256 == 0 admits 768 and the like; on the card
+    those take the spectrum-domain run)."""
+    return (cfg.n_fft in pl.PLANAR_NFFT and cfg.n_fft == 2 * cfg.frame_hop
+            and 1 <= num_mics <= cp.MAX_MICS
+            and (nsamps is None or nsamps >= cfg.n_fft))
+
+
+def _run_planar(wav, mask_s, cfg, power_iters, nsamps, ops: _Ops):
+    b, n, s = wav.shape
+    if not planar_supported(cfg, n, s):
+        raise ValueError(f"wav {tuple(wav.shape)} with {cfg} is outside the "
+                         f"planar kernels' gate")
+    full_f32_matmuls(wav.device)
+    t = cfg.num_frames(s)
+    fh = cfg.n_fft // 2        # bins 0 .. fh-1 in the planes; fh = Nyquist
+    out_samps = nsamps if nsamps is not None else s
+    window, wss_inv = _constants(cfg, t, out_samps, wav.device)
+    mask = mask_s.to(torch.float32).contiguous()          # (B, T, F)
+    re, im, nyq = ops.stft_planar(wav, window, cfg.center)  # (B, N, T, FH)
+    rs_re, rs_im, rn_re, rn_im = ops.pair_covar_complement(
+        re, im, mask[..., :fh], n_valid_t=t)
+    den_s = mask.sum(dim=1)                               # (B, F)
+    den_n = t - den_s                  # sum of (1 - m) over the T frames
+
+    def covar(num_re, num_im, den):
+        num = torch.complex(num_re, num_im).permute(0, 3, 1, 2)
+        return num / torch.clamp(den[:, :fh], min=1e-6)[..., None, None]
+
+    # the Nyquist bin is real: its covariances are plain tensor code
+    m_ny = mask[..., fh]                                  # (B, T)
+    rs_ny = torch.einsum("bt,bxt,byt->bxy", m_ny, nyq, nyq) / torch.clamp(
+        den_s[:, fh], min=1e-6)[:, None, None]
+    rn_ny = torch.einsum("bt,bxt,byt->bxy", torch.clamp(1.0 - m_ny, min=0.0),
+                         nyq, nyq) / torch.clamp(den_n[:, fh],
+                                                 min=1e-6)[:, None, None]
+    rs = torch.cat([covar(rs_re, rs_im, den_s),
+                    rs_ny[:, None].to(torch.complex64)], dim=1)
+    rn = torch.cat([covar(rn_re, rn_im, den_n),
+                    rn_ny[:, None].to(torch.complex64)], dim=1)
+    w = ops.mvdr_power(rs.contiguous(), rn.contiguous(),
+                       power_iters=power_iters)           # (B, F, N)
+    # planar beamform: enh[b,t,f] = sum_n conj(w[b,f,n]) obs[b,n,t,f]
+    wr = w[:, :fh].real.transpose(1, 2)[:, :, None, :]    # (B, N, 1, FH)
+    wi = w[:, :fh].imag.transpose(1, 2)[:, :, None, :]
+    enh_re = (wr * re + wi * im).sum(1)                   # (B, T, FH)
+    enh_im = (wr * im - wi * re).sum(1)
+    w_ny = w[:, fh]                                       # (B, N)
+    ny_re = (w_ny.real[:, :, None] * nyq).sum(1)          # (B, T)
+    if cfg.center:
+        return ops.istft_planar(enh_re.contiguous(), enh_im.contiguous(),
+                                ny_re.contiguous(), window, wss_inv,
+                                out_samps)
+    ny_im = (-w_ny.imag[:, :, None] * nyq).sum(1)
+    enh = torch.complex(torch.cat([enh_re, ny_re[..., None]], dim=-1),
+                        torch.cat([enh_im, ny_im[..., None]], dim=-1))
+    return inverse_stft(enh, cfg, nsamps=out_samps)
+
+
+def mvdr_enhance_planar(wav: torch.Tensor,
+                        mask_s: torch.Tensor,
+                        cfg: StftConfig,
+                        power_iters: int = 15,
+                        nsamps: int | None = None) -> torch.Tensor:
+    """MVDR (power steer) through the planar kernels: (B, N, S) wav +
+    (B, T, F) speech mask -> (B, S') enhanced wav, S' = ``nsamps`` or S.
+
+    ``wav`` may be int16: the STFT kernel converts it with 1/32768 folded
+    into the window, and the output matches running on
+    ``wav.float() / 32768``.
+    """
+    return _run_planar(wav, mask_s, cfg, power_iters, nsamps, _KERNELS)
+
+
+def mvdr_enhance_planar_plain(wav: torch.Tensor,
+                              mask_s: torch.Tensor,
+                              cfg: StftConfig,
+                              power_iters: int = 15,
+                              nsamps: int | None = None) -> torch.Tensor:
+    """``mvdr_enhance_planar`` through the kernels' plain versions, on the
+    tensors' own device: the reference the kernels are held against."""
+    return _run_planar(wav, mask_s, cfg, power_iters, nsamps, _PLAIN)

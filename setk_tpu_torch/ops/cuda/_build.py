@@ -17,12 +17,15 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check",
+           "launch"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"mvdr_power": "mvdr_power.cu", "fused_mvdr": "fused_mvdr.cu"}
+SOURCES = {"mvdr_power": "mvdr_power.cu", "fused_mvdr": "fused_mvdr.cu",
+           "planar_stft": "planar_stft.cu",
+           "covariance_pair": "covariance_pair.cu"}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,6 +48,15 @@ _SIGNATURES = {
         "covar_ema_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
         "beamform_istft_online_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _P],
+    },
+    "planar_stft": {
+        "stft_planar_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "istft_planar_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P],
+    },
+    "covariance_pair": {
+        "pair_covar_launch": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -117,3 +129,13 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call C entry point ``fn`` of library ``name`` on ``device``'s
+    current stream; raise on a non-zero cudaError_t."""
+    import torch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(library(name), fn)(*args, stream)
+    check(err, fn)

@@ -214,12 +214,7 @@ def _check_wav(fn, wav):
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
-    """Call C entry point ``fn`` on ``device``'s current stream; raise on
-    a non-zero cudaError_t."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_build.library("fused_mvdr"), fn)(*args, stream)
-    _build.check(err, fn)
+    _build.launch("fused_mvdr", fn, device, *args)
 
 
 def _frame_runs(batch: int, n_frames: int, device: torch.device) -> int:

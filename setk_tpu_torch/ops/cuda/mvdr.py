@@ -200,10 +200,7 @@ def _check(what: str, mats, vecs=()):
 
 
 def _launch(fn, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_build.library("mvdr_power"), fn)(*args, stream)
-    _build.check(err, fn)
+    _build.launch("mvdr_power", fn, device, *args)
 
 
 def mvdr_power(rs: torch.Tensor, rn: torch.Tensor,

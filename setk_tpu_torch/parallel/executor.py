@@ -56,9 +56,13 @@ class BatchEnhancer:
     shape run through one ``enhance_batch`` call, one-shot or, with
     ``chunk_size > 0``, online (chunked EMA with factor ``alpha``).  Runs
     on ``cuda`` unless ``device="cpu"`` (``RuntimeError`` at construction
-    when no card is present and no device was asked for); on the card,
-    options its kernels do not run raise ``NotImplementedError`` at
-    construction.
+    when no card is present and no device was asked for).  On the card,
+    options its kernels never run raise ``NotImplementedError`` at
+    construction; what depends on a batch's geometry (N > 8, and gevd,
+    mpdr or online outside the fused gate) raises per batch, before the
+    batch is copied to the card.  Buckets are hop-aligned, so with the
+    default 512/256 STFT every batch takes the fused kernels; other
+    geometries take the planar kernels (mvdr) or the spectrum-domain run.
     """
 
     def __init__(self,

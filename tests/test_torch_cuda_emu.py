@@ -5,8 +5,10 @@ against tests/cuda_emu/cuda_runtime.h, a CPU stand-in for the CUDA
 runtime (blocks in order, a block's threads as std::threads with a
 barrier), and run through their C entry points on CPU tensors.  This
 checks the kernels' index arithmetic, FFT, reductions, overlap-add,
-the online pair's chunking and EMA, and the per-bin solves against their
-plain PyTorch versions without a card; it says nothing of
+the online pair's chunking and EMA, the per-bin solves, the planar
+STFT/iSTFT (n_fft 256 and 1024, center on and off, any length) and the
+pair covariance (N = 1, 6 and 8, complement mask or two masks) against
+their plain PyTorch versions without a card; it says nothing of
 speed, and the card's own compiler is checked by chip_smoke.py.  Skips
 when no g++ with C++20 is present (decided inside the fixture).
 """
@@ -24,8 +26,10 @@ import torch
 from setk_tpu_torch.dsp.stft import StftConfig
 from setk_tpu_torch.dsp.window import wss_inverse_blocks
 from setk_tpu_torch.ops.cuda import _build
+from setk_tpu_torch.ops.cuda import covariance_pair as cp
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
+from setk_tpu_torch.ops.cuda import planar as pl
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 TOL = 1e-5   # f32 radix-2 FFT against pocketfft, f32 sums in another order
@@ -295,3 +299,121 @@ def test_entry_points_reject_bad_geometry(libs):
     # powers come as a pair or not at all
     assert lib.pmwf_solve_launch(p, p, p, p, None, 1, 2, 0.0, 1e-6,
                                  None) != 0
+
+
+# planar STFT: one and several blocks of 16 frames per row, reflect and
+# plain framing, int16 and f32, lengths on and off the hop grid
+PLANAR = [(256, 3000, True, False), (256, 2048, False, True),
+          (1024, 8192, True, True), (1024, 5000, False, False)]
+
+
+def _planar_inputs(n_fft, s, center, int16, seed):
+    cfg = StftConfig(frame_len=n_fft, frame_hop=n_fft // 2, center=center)
+    x = np.random.default_rng(seed).standard_normal((3, s)).astype(
+        np.float32) * 0.3
+    wav = torch.from_numpy(
+        np.clip(x * 32768, -32768, 32767).astype(np.int16) if int16 else x)
+    return cfg, wav, torch.as_tensor(cfg.padded_window)
+
+
+@pytest.mark.parametrize("n_fft,s,center,int16", PLANAR)
+def test_stft_planar_source_matches_plain(libs, n_fft, s, center, int16):
+    cfg, wav, window = _planar_inputs(n_fft, s, center, int16, seed=s)
+    win = (window * fm.input_scale(wav)).contiguous()
+    t = cfg.num_frames(s)
+    re = torch.empty((3, t, n_fft // 2))
+    im = torch.empty_like(re)
+    nyq = torch.empty((3, t))
+    err = libs["planar_stft"].stft_planar_launch(
+        wav.data_ptr(), win.data_ptr(), re.data_ptr(), im.data_ptr(),
+        nyq.data_ptr(), 3, s, n_fft, int(center), int(int16), None)
+    assert err == 0
+    ref = pl.stft_planar_plain(wav, window, center)
+    peak = torch.complex(ref[0], ref[1]).abs().max()
+    for got, want in zip((re, im, nyq), ref):
+        assert float((got - want).abs().max() / peak) < TOL
+
+
+@pytest.mark.parametrize("n_fft,s", [(256, 3000), (1024, 8192)])
+@pytest.mark.parametrize("extra", [0, -700, 333])
+def test_istft_planar_source_matches_plain(libs, n_fft, s, extra):
+    """nsamps at, short of and past the (T-1) hop samples that carry
+    signal; the planar spectrum of a signal comes back as the signal."""
+    cfg, wav, window = _planar_inputs(n_fft, s, True, False, seed=n_fft)
+    t = cfg.num_frames(s)
+    hop = n_fft // 2
+    nsamps = (t - 1) * hop + extra
+    er, ei, ny = pl.stft_planar_plain(wav, window)
+    wss = torch.from_numpy(pl.istft_wss_inverse(cfg.padded_window, t,
+                                                nsamps))
+    out = torch.empty((3, nsamps))
+    err = libs["planar_stft"].istft_planar_launch(
+        er.data_ptr(), ei.data_ptr(), ny.data_ptr(), window.data_ptr(),
+        wss.data_ptr(), out.data_ptr(), 3, t, n_fft,
+        pl.valid_samples(t, hop, nsamps), nsamps, None)
+    assert err == 0
+    assert _rel(out, pl.istft_planar_plain(er, ei, ny, window, wss,
+                                           nsamps)) < TOL
+    n_sig = pl.valid_samples(t, hop, nsamps)
+    assert _rel(out[:, :n_sig], wav[:, :n_sig]) < TOL
+    assert not out[:, n_sig:].any()
+
+
+@pytest.mark.parametrize("n", [1, 6, 8])
+@pytest.mark.parametrize("complement", [True, False])
+def test_pair_covar_source_matches_plain(libs, n, complement):
+    """F = 129 (two blocks of 128 bins, the second partial); masks are
+    the first F columns of a (B, T, F + 1) mask, as the planar path
+    hands them over."""
+    rng = np.random.default_rng(n)
+    b, t, f = 2, 37, 129
+    obs = torch.from_numpy((rng.standard_normal((b, n, t, f)) + 1j *
+                            rng.standard_normal((b, n, t, f))).astype(
+                                np.complex64))
+    ms = torch.from_numpy(rng.random((b, t, f + 1)).astype(np.float32))
+    mn = torch.from_numpy(rng.random((b, t, f + 1)).astype(np.float32))
+    ms, mn = ms[..., :f], mn[..., :f]
+    out = [torch.empty((b, n, n, f)) for _ in range(4)]
+    ptrs = [o.data_ptr() for o in out]
+    lib = libs["covariance_pair"]
+    if complement:
+        re, im = obs.real.contiguous(), obs.imag.contiguous()
+        err = lib.pair_covar_launch(re.data_ptr(), im.data_ptr(), 1,
+                                    ms.data_ptr(), None, t * (f + 1), f + 1,
+                                    *ptrs, b, n, t, f, 30, 1, None)
+        ref = cp.pair_covar_complement_plain(re, im, ms, 30)
+    else:
+        err = lib.pair_covar_launch(obs.data_ptr(), obs.data_ptr() + 4, 2,
+                                    ms.data_ptr(), mn.data_ptr(),
+                                    t * (f + 1), f + 1, *ptrs, b, n, t, f, t,
+                                    0, None)
+        ref = cp.pair_covar_plain(obs, ms, mn)
+    assert err == 0
+    for k in (0, 2):
+        assert _rel(torch.complex(out[k], out[k + 1]),
+                    torch.complex(ref[k], ref[k + 1])) < TOL
+
+
+def test_planar_entry_points_reject_bad_arguments(libs):
+    p = torch.zeros(8).data_ptr()
+    lib = libs["planar_stft"]
+    for rows, s, n_fft in ((0, 4096, 512), (1, 4096, 768), (1, 4096, 4096),
+                           (1, 500, 512)):
+        assert lib.stft_planar_launch(p, p, p, p, p, rows, s, n_fft, 1, 0,
+                                      None) != 0
+    for b, t, n_fft, n_valid, nsamps in ((0, 9, 512, 2048, 2048),
+                                         (1, 9, 384, 1536, 1536),
+                                         (1, 1, 512, 0, 256),
+                                         (1, 9, 512, 2049, 4096),
+                                         (1, 9, 512, 2048, 2000)):
+        assert lib.istft_planar_launch(p, p, p, p, p, p, b, t, n_fft,
+                                       n_valid, nsamps, None) != 0
+    lib = libs["covariance_pair"]
+    for es, b, n, t, f, mt, mb, mn in ((1, 1, 9, 4, 8, 8, 32, p),
+                                       (3, 1, 2, 4, 8, 8, 32, p),
+                                       (1, 0, 2, 4, 8, 8, 32, p),
+                                       (1, 1, 2, 4, 8, 7, 32, p),
+                                       (1, 1, 2, 4, 8, 8, 31, p),
+                                       (1, 1, 2, 4, 8, 8, 32, None)):
+        assert lib.pair_covar_launch(p, p, es, p, mn, mb, mt, p, p, p, p, b,
+                                     n, t, f, t, 0, None) != 0

@@ -238,7 +238,8 @@ def test_uncovered_options_raise(monkeypatch):
                       "queue 1 item 13"),
                      ({"chunk_size": 32, "ban": True}, "queue 1 item 13"),
                      ({"steer": "eigh"}, "queue 2 item 14"),
-                     ({"nsamps": 4000}, "queue 2 items 9-11")):
+                     ({"nsamps": 4000, "beamformer": "gevd"},
+                      "queue 2 item 14")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             enhance_batch(wav, mask, CFG, device="cuda", **kw)
     with pytest.raises(ValueError, match="Unsupported fused beamformer"):

@@ -258,7 +258,7 @@ def test_cuda_entry_refuses_other_online_options(monkeypatch):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1 item 13"):
             enhance_batch(wav, mask, CFG, chunk_size=32, device="cuda", **kw)
-    with pytest.raises(NotImplementedError, match="queue 2 items 9-11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
         enhance_batch(wav, mask, CFG, chunk_size=32, nsamps=4000,
                       device="cuda")
     with pytest.raises(ValueError, match="Unknown online beamformer"):
