@@ -73,15 +73,43 @@ the CUDA toolkit.  In order it:
      enhance_batch on the CPU copies of the inputs, correlation >= 0.9;
   12. refusals at the E geometry: gevd, mpdr and N = 9 raise
      NotImplementedError with no device memory allocated;
-  13. times each kernel (20 launches replayed from one CUDA graph, so the
+  13. C1, CGMM/CACGMM mask estimation on the gated scene's STFT (B=128,
+     6 mics, 512/256, T = 501 padded to BatchClusterer's 512-frame
+     bucket, a frame mask): the masked covariance (kernel 13) on the
+     scan's K=2 weights and the Jacobi inverse (kernel 14) on those
+     covariances against their plain versions (1e-4 of the peak, of each
+     matrix's peak for kernel 14); the fused EM (kernel 15) against its
+     plain version at 4 iterations for cgmm with the Higuchi init,
+     cacgmm from one generator-drawn gamma, cacgmm with the Higuchi init
+     and K=3 cacgmm at B=16 (tests/test_pallas.py's bars: gamma 2e-3, Q
+     rtol 2e-3 + atol 1e-3, alpha 2e-3, covariances 2e-2 of the peak);
+  14. C2, BatchClusterer(device="cuda", batch_size=128) for cgmm and
+     cacgmm over the 128 utterances and four shorter ones (buckets of
+     512, 384 and 256 frames), counts reset before and read after: exactly
+     kernel 15 launched; masks finite, in [0, 1], summing to 1 over K; at
+     20 iterations against the plain path on the card bucket by bucket,
+     mask correlation >= 0.9999 and the 512 bucket's Q history within
+     rtol 2e-3;
+  15. C3, the clustering CLIs on the card against --device cpu over step
+     8's corpus: estimate_cgmm_masks --batch-size 4 (kernel 15 alone,
+     masks within 2e-3), the per-utterance path with --dump-model, then
+     --resume-model (exactly kernels 13 and 14: iterations and
+     iterations + 1 launches an utterance), and the recipe's chain, the
+     card's masks into apply_adaptive_beamformer --batch-size 4 on the
+     card, every key written and finite;
+  16. C4, refusals: M = 9 and num_iters = 0 raise with no device memory
+     allocated;
+  17. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
      function where there is one (torch.stft, torch.istft, torch.einsum;
      never on the port's path), and enhance_batch for every name, for the
-     online path and for P1, P2 and E with CUDA events (warm-up, then 20
-     calls), profiles the fused, P1 and E steps (torch.profiler: device
-     time by kernel, the device's idle share) and prints the kernels line;
-  14. prints {"ok": true, "device": {...}} as the last line.
+     online path and for P1, P2 and E, and the cgmm/cacgmm EM at B=128
+     with CUDA events (warm-up, then 20 calls; fewer for the slow plain
+     versions and the EM), profiles the fused, P1, E and EM steps
+     (torch.profiler: device time by kernel, the device's idle share)
+     and prints the kernels line;
+  18. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2 and
 prints no result.
@@ -218,12 +246,15 @@ def _ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
                       r"|covar_ema|beamform_istft_online|beamform_istft"
-                      r"|istft_planar|stft_planar|pair_covar)"
-                      r"_kernelILi(\d+)E(?:Lb([01])E)?([fs]?)E", line)
+                      r"|istft_planar|stft_planar|pair_covar|masked_covar"
+                      r"|regularized_inverse|em)"
+                      r"_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?([fs]?)E",
+                      line)
         if "Compiling entry function" in line and m:
-            flag = {"0": ",0", "1": ",1"}.get(m.group(3), "")
-            dtype = {"f": ",f32", "s": ",int16"}.get(m.group(4), "")
-            key = f"{m.group(1)}<{m.group(2)}{flag}{dtype}>"
+            classes = f",{m.group(3)}" if m.group(3) else ""
+            flag = {"0": ",0", "1": ",1"}.get(m.group(4), "")
+            dtype = {"f": ",f32", "s": ",int16"}.get(m.group(5), "")
+            key = f"{m.group(1)}<{m.group(2)}{classes}{flag}{dtype}>"
             out[key] = {}
         elif key and "spill stores" in line:
             out[key]["spill_bytes"] = sum(
@@ -333,14 +364,18 @@ def _flops_pair_covar(b, n, t, f, complement):
 
 
 def _all_counted():
+    from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+    from setk_tpu_torch.ops.cuda import covariance as mc
     from setk_tpu_torch.ops.cuda import covariance_pair as cp
+    from setk_tpu_torch.ops.cuda import eigh_small as es
     from setk_tpu_torch.ops.cuda import fused_mvdr as fm
     from setk_tpu_torch.ops.cuda import mvdr as mv
     from setk_tpu_torch.ops.cuda import planar as pl
     return (fm.stft_covar, fm.beamform_istft, fm.covar_ema,
             fm.beamform_istft_online, mv.mvdr_power, mv.gevd_power,
             mv.pmwf_solve, mv.capon, pl.stft_planar, pl.istft_planar,
-            cp.pair_covar_complement, cp.pair_covar)
+            cp.pair_covar_complement, cp.pair_covar, mc.masked_covar,
+            es.regularized_inverse, ce.em)
 
 
 def _launched(torch, run, label, want):
@@ -476,6 +511,103 @@ def _device_profile(torch, run, step_ms, iters=5, top=8):
     return {"step_ms": step_ms, "device_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / step_ms,
             "top": [[name, ms] for ms, name in kernels[:top]]}
+
+
+# ---- clustering: CGMM/CACGMM mask estimation (kernels 13-15) ----
+CL_ITERS = 20          # the clustering CLIs' default
+CL_CHECK_ITERS = 4     # kernels against plain (tests/test_pallas.py bars)
+CL_BUCKET = 128        # BatchClusterer's frame bucket
+CL_SWEEPS = 6          # the Jacobi sweeps of kernels 14 and 15
+CL_RESUME_ITERS = 5    # the CLI's resume run in C3
+EM_SET = {"em"}
+EM_BARS = {"gamma": 2e-3, "q_rtol": 2e-3, "q_atol": 1e-3, "alpha": 2e-3,
+           "covar": 2e-2}
+
+
+def _pair_flops(n):
+    """conj(y_a) y_c for every pair a <= c: 3 FLOP on the diagonal, 6
+    off it."""
+    return 3 * n + 6 * n * (n - 1) // 2
+
+
+def _flops_masked_covar(bins, n, t, k):
+    """Per (frame, bin): the pair products, then per class a multiply-add
+    for each real (2 FLOP) or complex (4) entry of the upper triangle."""
+    return bins * t * (_pair_flops(n) + k * (2 * n + 4 * n * (n - 1) // 2))
+
+
+def _flops_jacobi(m, sweeps):
+    """One matrix: per rotation ~25 FLOP of angle and phase and three
+    M-long complex updates (columns, rows, V) of 20 FLOP an entry; then
+    the floored inverse V diag(1/w) V^H (8 FLOP a term) and the logdet."""
+    rot = 25 + 3 * m * 20
+    return (sweeps * m * (m - 1) // 2 * rot + m * (m + 1) // 2 * m * 8 +
+            4 * m)
+
+
+def _flops_em(bins, m, t, k, iters, sweeps):
+    """Per bin: the Higuchi init's covariance pass, then iters M-steps
+    (gamma sums, weights, pair products, K accumulations) and iters + 1
+    E-steps (pair products, K quadratic forms, the posterior), and one
+    Jacobi a class an E-step."""
+    acc = k * (2 * m + 4 * m * (m - 1) // 2)
+    quad = k * (2 * m + 5 * m * (m - 1) // 2)
+    m_step = t * (_pair_flops(m) + acc + 6 * k)
+    e_step = t * (_pair_flops(m) + quad + 6 * k + 4) + k * _flops_jacobi(
+        m, sweeps)
+    init = t * (_pair_flops(m) + acc // k)
+    return bins * (init + iters * m_step + (iters + 1) * e_step)
+
+
+def _cluster_batch(np, items, bucket):
+    """(obs (B, F, M, bucket) complex64, frame mask (B, 1, bucket)) padded
+    as BatchClusterer pads: 1e-6 past each utterance's frames."""
+    f, m = items[0].shape[:2]
+    obs = np.zeros((len(items), f, m, bucket), np.complex64)
+    fm = np.zeros((len(items), 1, bucket), np.float32)
+    for i, o in enumerate(items):
+        t = o.shape[-1]
+        obs[i, ..., :t] = o
+        obs[i, ..., t:] = 1e-6
+        fm[i, 0, :t] = 1.0
+    return obs, fm
+
+
+def _cluster_plain(torch, algo, obs, fm, iters, seed):
+    """BatchClusterer's K=2 EM call through kernel 15's plain version on
+    the same device: cgmm from the Higuchi init, cacgmm from the uniform
+    gamma of a generator seeded as BatchClusterer seeds it.  Returns
+    (gamma, Q history)."""
+    from setk_tpu_torch.enhance.cluster import _uniform_init, norm_observation
+    from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+    if algo == "cgmm":
+        return ce.em_plain(obs, None, None, iters, "cg", False,
+                           frame_mask=fm, init="higuchi")
+    gen = torch.Generator(device=obs.device)
+    gen.manual_seed(seed)
+    g0 = _uniform_init(2, (*obs.shape[:-2], obs.shape[-1]), obs, gen)
+    return ce.em_plain(norm_observation(obs, axis=-2), g0,
+                       torch.ones_like(g0), iters, "cacg", True,
+                       frame_mask=fm)
+
+
+def _em_errs(torch, got, ref):
+    """Kernel 15 against its plain version: the errors EM_BARS bounds."""
+    (g, q, st), (gp, qp, stp) = got, ref
+    q_excess = float(((q - qp).abs() - EM_BARS["q_rtol"] * qp.abs()).max())
+    return {"gamma": _abs(g, gp), "q_abs": _abs(q, qp),
+            "q_rel": float(((q - qp).abs() / qp.abs()).max()),
+            "q_over_bar": q_excess,
+            "alpha": _abs(st["alpha"], stp["alpha"]),
+            "covar": _rel(st["covar"], stp["covar"])}
+
+
+def _run_clusterer(clusterer, utts):
+    results = {}
+    for key, obs in utts.items():
+        results.update(clusterer.add(key, obs))
+    results.update(clusterer.flush())
+    return results
 
 
 def _run_enhancer(enhancer, utts):
@@ -984,7 +1116,218 @@ def main() -> int:
         raise AssertionError("a refusal allocated device memory")
     print(json.dumps({"E_refusals": refused}))
 
-    # ---- 13. timing at the bench shape ----
+    # ---- 13. C1: the clustering kernels against their plain versions ----
+    from setk_tpu_torch.enhance.cluster import (_uniform_init, cacgmm_em,
+                                                cgmm_em, norm_observation)
+    from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+    from setk_tpu_torch.ops.cuda import covariance as mc
+    from setk_tpu_torch.ops.cuda import eigh_small as es
+    from setk_tpu_torch.parallel.executor import BatchClusterer
+    f_bins = cfg.num_bins
+    obs_np = forward_stft(gwav_d.float() / 32768.0, cfg).permute(
+        0, 3, 1, 2).cpu().numpy()                        # (B, F, N, T)
+    bucket = -(-t_frames // CL_BUCKET) * CL_BUCKET
+    cobs_np, cfm_np = _cluster_batch(np, list(obs_np), bucket)
+    cobs = torch.from_numpy(cobs_np).to(dev)
+    cfm = torch.from_numpy(cfm_np).to(dev)
+    # kernel 13 on the scan's K=2 weights gamma fm M / phi after 4
+    # iterations, kernel 14 on the covariances they give
+    g4, _, st4 = cgmm_em(cobs, 2, num_iters=CL_CHECK_ITERS, frame_mask=cfm,
+                         return_state=True)
+    w13 = (g4 * cfm * N / st4["phi"]).contiguous()
+    num_k = mc.masked_covar(cobs, w13)
+    num_p = mc.masked_covar_plain(cobs, w13)
+    den13 = torch.clamp((g4 * cfm).sum(-1), min=1.1920929e-07)
+    cov13 = (num_p / den13[..., None, None]).contiguous()
+    inv_k, ld_k = es.regularized_inverse(cov13)
+    inv_p, ld_p = es.jacobi_regularized_inverse_plain(cov13)
+    peak14 = inv_p.abs().amax(dim=(-1, -2))
+    cl_errs = {"masked_covar": _rel(num_k, num_p),
+               "regularized_inverse": float(((inv_k - inv_p).abs().amax(
+                   dim=(-1, -2)) / peak14).max()),
+               "regularized_inverse_logdet": _abs(ld_k, ld_p)}
+    cl_abs = {"masked_covar": _abs(num_k, num_p),
+              "regularized_inverse": max(_abs(inv_k, inv_p),
+                                         _abs(ld_k, ld_p))}
+    print(json.dumps({"C1_kernel_vs_plain": cl_errs, "T": t_frames,
+                      "bucket": bucket, "tol": TOL}))
+    for name in ("masked_covar", "regularized_inverse"):
+        if not cl_errs[name] <= TOL:
+            raise AssertionError(f"C1 {name}: kernel vs plain "
+                                 f"{cl_errs[name]} > {TOL}")
+    # kernel 15 at 4 iterations, both models, both entries, K = 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    nobs = norm_observation(cobs, axis=-2)
+    g0 = _uniform_init(2, (B, f_bins, bucket), cobs, gen)
+    b3 = min(16, B)
+    g3 = _uniform_init(3, (b3, f_bins, bucket), cobs, gen)
+    em_cases = {
+        "cgmm_higuchi": (cobs, None, None, "cg", False, "higuchi", 2),
+        "cacgmm_operand": (nobs, g0, torch.ones_like(g0), "cacg", True,
+                           None, 2),
+        "cacgmm_higuchi": (nobs, None, None, "cacg", True, "higuchi", 2),
+        "cacgmm_k3_b16": (nobs[:b3].contiguous(), g3, torch.ones_like(g3),
+                          "cacg", True, None, 3)}
+    em_errs = {}
+    for label, (o, ga, ka, model, upd, init, k) in em_cases.items():
+        kw = dict(frame_mask=cfm[:o.shape[0]], return_state=True, init=init,
+                  num_classes=k)
+        em_errs[label] = _em_errs(
+            torch, ce.em(o, ga, ka, CL_CHECK_ITERS, model, upd, **kw),
+            ce.em_plain(o, ga, ka, CL_CHECK_ITERS, model, upd, **kw))
+    torch.cuda.synchronize()
+    print(json.dumps({"C1_em_vs_plain": em_errs, "iters": CL_CHECK_ITERS,
+                      "bars": EM_BARS}))
+    for label, err in em_errs.items():
+        if not (err["gamma"] <= EM_BARS["gamma"] and
+                err["q_over_bar"] <= EM_BARS["q_atol"] and
+                err["alpha"] <= EM_BARS["alpha"] and
+                err["covar"] <= EM_BARS["covar"]):
+            raise AssertionError(f"C1 em {label}: {err} outside {EM_BARS}")
+
+    # ---- 14. C2: BatchClusterer on the card ----
+    cl_utts = {f"c{i:03d}": obs_np[i] for i in range(B)}
+    for i, t_len in enumerate((300, 330, 200, 250)):   # buckets 384, 256
+        cl_utts[f"d{i}"] = np.ascontiguousarray(
+            obs_np[(i + 7) % B][..., :t_len])
+    cl_path = {}
+    for algo in ("cgmm", "cacgmm"):
+        clusterer = BatchClusterer(algo=algo, num_iters=CL_ITERS,
+                                   batch_size=B, device="cuda")
+        t0 = time.perf_counter()
+        res, counts = _launched(torch, lambda: _run_clusterer(clusterer,
+                                                              cl_utts),
+                                f"BatchClusterer {algo}", EM_SET)
+        secs = time.perf_counter() - t0
+        if set(res) != set(cl_utts):
+            raise AssertionError(f"BatchClusterer {algo} lost utterances")
+        sum_err = 0.0
+        for key, gamma in res.items():
+            if gamma.shape != (2, f_bins, cl_utts[key].shape[-1]) or \
+                    not np.isfinite(gamma).all() or gamma.min() < 0 or \
+                    gamma.max() > 1:
+                raise AssertionError(f"{algo} {key}: bad masks {gamma.shape}")
+            sum_err = max(sum_err, float(np.abs(gamma.sum(0) - 1).max()))
+        # the plain path on the card, bucket by bucket
+        buckets = {}
+        for key, o in cl_utts.items():
+            buckets.setdefault(-(-o.shape[-1] // CL_BUCKET) * CL_BUCKET,
+                               []).append(key)
+        got_all, ref_all, worst = [], [], 0.0
+        for bk, keys in buckets.items():
+            ob, fb = _cluster_batch(np, [cl_utts[k] for k in keys], bk)
+            ref, _ = _cluster_plain(torch, algo, torch.from_numpy(ob).to(dev),
+                                    torch.from_numpy(fb).to(dev), CL_ITERS, 0)
+            ref = ref.cpu().numpy()
+            for i, key in enumerate(keys):
+                t_len = cl_utts[key].shape[-1]
+                got_all.append(res[key].ravel())
+                ref_all.append(ref[:, i, :, :t_len].ravel())
+                worst = max(worst, float(np.abs(got_all[-1] -
+                                                ref_all[-1]).max()))
+        corr = float(np.corrcoef(np.concatenate(got_all),
+                                 np.concatenate(ref_all))[0, 1])
+        # the 512 bucket's Q history: the entry itself against plain
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        entry = cgmm_em if algo == "cgmm" else cacgmm_em
+        _, q_k = entry(cobs, 2, num_iters=CL_ITERS, frame_mask=cfm,
+                       generator=gen)
+        _, q_p = _cluster_plain(torch, algo, cobs, cfm, CL_ITERS, 0)
+        q_rel = float(((q_k - q_p).abs() / q_p.abs()).max())
+        cl_path[algo] = {"launches": counts, "seconds": secs,
+                         "buckets": sorted(buckets),
+                         "max_abs_sum_minus_1": sum_err,
+                         "vs_plain_max_abs": worst, "vs_plain_corr": corr,
+                         "q_rel_err": q_rel, "q_last": float(q_k[-1])}
+        if not corr >= 0.9999:
+            raise AssertionError(f"BatchClusterer {algo}: mask correlation "
+                                 f"with the plain path {corr} < 0.9999")
+        if not q_rel <= 2e-3 or not sum_err <= 1e-4:
+            raise AssertionError(f"BatchClusterer {algo}: {cl_path[algo]}")
+    print(json.dumps({"C2_BatchClusterer": cl_path, "iters": CL_ITERS}))
+
+    # ---- 15. C3: the clustering CLIs on the card against the CPU ----
+    from setk_tpu_torch.cli import estimate_cgmm_masks as cgmm_cli
+    cl_cli = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        keys = _write_corpus(tmp, seed=3)
+        scp = str(tmp / "wav.scp")
+
+        def cgmm(*argv):
+            cgmm_cli.run(cgmm_cli.make_parser().parse_args([scp, *argv]))
+
+        masks = {}
+        for label, argv, want in (
+                ("batched", ["--batch-size", "4"], EM_SET),
+                ("dump", ["--dump-model", "{mdl}"], EM_SET),
+                ("resume", ["--resume-model", "{mdl}", "--num-iters",
+                            str(CL_RESUME_ITERS)],
+                 {"masked_covar", "regularized_inverse"})):
+            for device in ("cuda", "cpu"):
+                out = tmp / f"{label}-{device}"
+                args = [str(out), "--device", device, "--scp",
+                        f"{out}.scp"] + [a.format(mdl=tmp / f"mdl-{device}")
+                                         for a in argv]
+                if device == "cuda":
+                    _, counts = _launched(torch, lambda: cgmm(*args),
+                                          f"CGMM CLI {label}", want)
+                    cl_cli.setdefault(label, {})["launches"] = counts
+                else:
+                    cgmm(*args)
+                masks[label, device] = {k: np.load(out / f"{k}.npy")
+                                        for k in keys}
+            cl_cli[label]["card_vs_cpu_max_abs"] = max(
+                float(np.abs(masks[label, "cuda"][k] -
+                             masks[label, "cpu"][k]).max()) for k in keys)
+        want_resume = {"masked_covar": len(keys) * CL_RESUME_ITERS,
+                       "regularized_inverse": len(keys) * (
+                           CL_RESUME_ITERS + 1)}
+        if cl_cli["resume"]["launches"] != want_resume:
+            raise AssertionError(f"CGMM CLI resume launched "
+                                 f"{cl_cli['resume']['launches']}, needs "
+                                 f"{want_resume}")
+        # the recipe's chain: the card's masks into the beamformer
+        from setk_tpu_torch.cli import apply_adaptive_beamformer as bf_cli
+        from setk_tpu_torch.io.wave import read_wav
+        enh = tmp / "enhanced"
+        _, cl_cli["chain_launches"] = _launched(
+            torch, lambda: bf_cli.run(bf_cli.make_parser().parse_args(
+                [scp, str(tmp / "batched-cuda.scp"), str(enh),
+                 "--batch-size", "4"])), "CGMM masks -> beamformer",
+            FUSED_SET)
+        for key in keys:
+            if not (enh / f"{key}.wav").exists() or not np.isfinite(
+                    read_wav(enh / f"{key}.wav", normalize=False)).all():
+                raise AssertionError(f"chain: {key} missing or not finite")
+    print(json.dumps({"C3_clustering_cli": cl_cli, "utterances": len(keys),
+                      "tol": 2e-3}))
+    for label in ("batched", "dump", "resume"):
+        if not cl_cli[label]["card_vs_cpu_max_abs"] <= 2e-3:
+            raise AssertionError(f"CGMM CLI {label}: card vs CPU "
+                                 f"{cl_cli[label]} > 2e-3")
+
+    # ---- 16. C4: clustering refusals before any device allocation ----
+    cl_refused = {}
+    before = torch.cuda.memory_allocated()
+    try:
+        BatchClusterer(algo="cgmm", batch_size=1, device="cuda").add(
+            "m9", np.zeros((f_bins, 9, 100), np.complex64))
+    except NotImplementedError as exc:
+        cl_refused["M=9"] = re.search(r"ROADMAP [^;,]*", str(exc)).group(0)
+    try:
+        cacgmm_em(np.zeros((f_bins, N, 100), np.complex64), 2, num_iters=0,
+                  device="cuda")
+    except ValueError as exc:
+        cl_refused["num_iters=0"] = str(exc)
+    if len(cl_refused) != 2 or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"clustering refusals {cl_refused}, memory "
+                             f"{before} -> {torch.cuda.memory_allocated()}")
+    print(json.dumps({"C4_refusals": cl_refused}))
+
+    # ---- 17. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -1140,20 +1483,82 @@ def main() -> int:
             "bntf,bmtf,kbtf->kbnmf", spec_e, spec_e.conj(), masks_e),
             iters=5),
     }
+    # the clustering kernels at C1's shapes (B=128, T = 512 bucket, K = 2)
+    n_mat = cov13.numel() // (N * N)
+    em_run = (lambda: ce.em(cobs, None, None, CL_ITERS, "cg", False,
+                            frame_mask=cfm, init="higuchi"))
+    em_plain_run = (lambda: ce.em_plain(cobs, None, None, CL_ITERS, "cg",
+                                        False, frame_mask=cfm,
+                                        init="higuchi"))
+    em_out = em_run()
+    rows += [
+        ("masked_covar", "setk_tpu/ops/pallas/covariance.py:46",
+         lambda: mc.masked_covar(cobs, w13),
+         lambda: mc.masked_covar_plain(cobs, w13),
+         _bound(cobs.nbytes + w13.nbytes + num_k.nbytes,
+                _flops_masked_covar(B * f_bins, N, bucket, 2))),
+        ("regularized_inverse", "setk_tpu/ops/pallas/eigh_small.py:183",
+         lambda: es.regularized_inverse(cov13),
+         lambda: es.jacobi_regularized_inverse_plain(cov13),
+         _bound(cov13.nbytes + inv_k.nbytes + ld_k.nbytes,
+                n_mat * _flops_jacobi(N, CL_SWEEPS))),
+        ("em", "setk_tpu/ops/pallas/cacgmm_em.py:301", em_run, em_plain_run,
+         _bound(cobs.nbytes + cfm.nbytes + em_out[0].nbytes +
+                em_out[1].nbytes,
+                _flops_em(B * f_bins, N, bucket, 2, CL_ITERS, CL_SWEEPS))),
+    ]
+    # kernel 15's launches: the cgmm BatchClusterer run of C2 (one a
+    # bucket); kernels 13 and 14: the CLI's per-utterance resume of C3
+    launches.update(em=cl_path["cgmm"]["launches"]["em"],
+                    **cl_cli["resume"]["launches"])
+    errs.update(masked_covar=cl_errs["masked_covar"],
+                regularized_inverse=cl_errs["regularized_inverse"],
+                em=max(e["gamma"] for e in em_errs.values()))
+    abs_errs.update(cl_abs, em=max(max(e["gamma"], e["q_abs"], e["alpha"])
+                                   for e in em_errs.values()))
+    source.update(masked_covar="setk_tpu_torch/csrc/covariance.cu",
+                  regularized_inverse="setk_tpu_torch/csrc/eigh_small.cu",
+                  em="setk_tpu_torch/csrc/cacgmm_em.cu")
+    # the JAX package's N > 8 formula: one einsum over the K-fold
+    # broadcast of the weighted observations (timed, never called)
+    library["masked_covar"] = _time_ms(torch, lambda: torch.einsum(
+        "...nt,...mt->...nm", w13[..., None, :] * cobs[None], cobs.conj()),
+        iters=5)
+    # for information only: a batched complex EVD of the same matrices,
+    # not the same function (the floor, the inverse and the logdet follow);
+    # cuSOLVER's batched solver has refused all 65,792 matrices at once,
+    # so smaller leading batches are tried
+    flat13 = cov13.reshape(-1, N, N)
+    for count in (flat13.shape[0], 32768, 16384):
+        try:
+            info["regularized_inverse"] = {"matrices": count, "ms": _time_ms(
+                torch, lambda: torch.linalg.eigh(flat13[:count]), iters=5,
+                warmup=1)}
+            break
+        except RuntimeError as exc:
+            info["regularized_inverse"] = f"not measured: {str(exc)[:70]}"
+    plain_kw = {"masked_covar": {"iters": 5, "warmup": 1},
+                "regularized_inverse": {"iters": 3, "warmup": 1},
+                "em": {"iters": 2, "warmup": 1}}
+    kernel_kw = {"em": {"iters": 5, "warmup": 1}}
     kernels = []
     for name, replaces, run_k, run_p, (bound_ms, bound_by) in rows:
-        eager_ms = _time_ms(torch, run_k)
-        plain_ms = _time_ms(torch, run_p)
+        eager_ms = _time_ms(torch, run_k, **kernel_kw.get(name, {}))
+        plain_ms = _time_ms(torch, run_p, **plain_kw.get(name, {}))
         row = {
             "name": name, "route": "cuda",
             "source": source.get(name, "setk_tpu_torch/csrc/mvdr_power.cu"),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": abs_errs[name], "max_rel_err": errs[name],
-            "ms": _graph_ms(torch, run_k), "eager_ms": eager_ms,
+            "ms": _graph_ms(torch, run_k, **{
+                k: v for k, v in kernel_kw.get(name, {}).items()
+                if k == "iters"}), "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library.get(name)}
         if name in info:
-            row["linalg_solve_ms_info"] = info[name]
+            label = ("linalg_eigh_ms_info" if name == "regularized_inverse"
+                     else "linalg_solve_ms_info")
+            row[label] = info[name]
         kernels.append(row)
     gevd50_ms = _graph_ms(torch, lambda: mv.gevd_power(grs, grn,
                                                        power_iters=50))
@@ -1201,7 +1606,27 @@ def main() -> int:
         "E_512_128_pmwf-0": _device_profile(torch, lambda: enhance_batch(
             gwav_e_d, gmask_e_d, cfg_e, beamformer="pmwf-0"),
             geo_ms["E_512_128_pmwf-0"]["ms"])}
+    # the EM steps at B=128 (20 iterations, one 512-frame bucket) and the
+    # fused EM's layout glue (obs into (M, T, bins) planes)
+    em_steps = {}
+    gen = torch.Generator(device=dev)
+    for algo, entry in (("cgmm", cgmm_em), ("cacgmm", cacgmm_em)):
+        run = (lambda entry=entry: entry(cobs, 2, num_iters=CL_ITERS,
+                                         frame_mask=cfm,
+                                         generator=gen.manual_seed(0)))
+        ms = _time_ms(torch, run, iters=5, warmup=1)
+        em_steps[algo] = {"ms": ms, "audio_s_per_s": B * SECS / (ms / 1e3)}
+        profiles[f"{algo}_em_B128"] = _device_profile(torch, run, ms,
+                                                      iters=2)
+    nb_cl = B * f_bins
+    em_steps["glue_obs_planes_ms"] = _graph_ms(torch, lambda: [
+        x.contiguous() for x in (cobs.reshape(nb_cl, N, bucket).permute(
+            1, 2, 0).real, cobs.reshape(nb_cl, N, bucket).permute(
+                1, 2, 0).imag)], iters=5)
+    em_steps["cacgmm_normalize_ms"] = _time_ms(
+        torch, lambda: norm_observation(cobs, axis=-2), iters=5)
     print(json.dumps({"device_profiles": profiles}))
+    print(json.dumps({"clustering_steps": em_steps}))
     print(json.dumps({
         "card": smi, "enhance_batch_ms": step_ms,
         "planar_and_spectrum_steps": geo_ms,
@@ -1213,6 +1638,7 @@ def main() -> int:
         "online_audio_s_per_s": B * SECS / (online_ms / 1e3),
         "online_plain_path_ms": online_plain_ms, "streaming": streaming,
         "gevd_power_50_iters_ms": gevd50_ms,
+        "clustering_em_steps": em_steps,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

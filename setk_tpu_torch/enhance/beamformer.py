@@ -15,9 +15,12 @@ kernels cover (mvdr with the power steer, with or without BAN, and
 pmwf-0/1).  There ``compute_covar_pair`` runs the pair-covariance kernel
 (ops/cuda/covariance_pair.pair_covar) for N <= 8, as the JAX package runs
 its Pallas pair kernel on the TPU, and the power-steer MVDR solve runs
-``mvdr_power``.  The parts of this module that have no kernel yet raise
-on a CUDA tensor: the single masked covariance (``covar_stats``,
-``compute_covar``) and the EVD (``ops.linalg.eigh``).
+``mvdr_power``.  The single masked covariance (``covar_stats``,
+``compute_covar``) runs the masked covariance kernel
+(ops/cuda/covariance.masked_covar, kernel 13) for N <= 8, one read of
+the observation for all K weight classes of the clustering EM.  What has
+no kernel yet raises on a CUDA tensor: N > 8 (ROADMAP queue 1 item 15)
+and the EVD (``ops.linalg.eigh``).
 """
 
 import functools
@@ -25,6 +28,7 @@ import functools
 import torch
 
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
+from setk_tpu_torch.ops.cuda.covariance import MAX_MICS, masked_covar
 from setk_tpu_torch.utils.common import EPSILON
 from setk_tpu_torch.ops.linalg import (solve_pevd, hermitianize,
                                        hermitian_solve,
@@ -43,16 +47,35 @@ __all__ = [
 def covar_stats(obs: torch.Tensor, mask: torch.Tensor):
     """Unnormalized statistics: num = sum_t m y y^H, den = sum_t m.
 
-    CPU tensors only: on a CUDA tensor it raises until the single masked
-    covariance kernel lands (ROADMAP queue 2 item 13).
+    obs (..., F, N, T) and mask (..., F, T) broadcast over their leading
+    axes (the clustering EM passes one observation against K classes).
+    On a CUDA tensor with N <= 8 the numerator is kernel 13, which reads
+    the observation once for every class that only its leading axes add;
+    N > 8 there raises (ROADMAP queue 1 item 15).
     """
-    if obs.device.type == "cuda":
-        raise NotImplementedError(
-            "a single masked covariance on a CUDA device arrives with the "
-            "masked covariance kernel, ROADMAP queue 2 item 13")
     den = mask.sum(-1)
-    num = (mask[..., None, :] * obs) @ obs.conj().transpose(-1, -2)
-    return num, den
+    if obs.device.type != "cuda":
+        num = (mask[..., None, :] * obs) @ obs.conj().transpose(-1, -2)
+        return num, den
+    *obs_lead, f, n, t = obs.shape
+    if n > MAX_MICS:
+        raise NotImplementedError(
+            f"a masked covariance of N = {n} > {MAX_MICS} mics on a CUDA "
+            f"device arrives with ROADMAP queue 1 item 15")
+    lead = torch.broadcast_shapes(tuple(obs_lead), tuple(mask.shape[:-2]))
+    while obs_lead and obs_lead[0] == 1:
+        obs_lead = obs_lead[1:]
+    # the classes are the leading axes only the mask has; obs is
+    # expanded (copied) only where it broadcasts inside its own axes
+    n_cls = len(lead) - len(obs_lead)
+    if tuple(lead[n_cls:]) != tuple(obs_lead):
+        n_cls = 0
+    y = obs.reshape(*obs_lead, f, n, t).to(torch.complex64).expand(
+        *lead[n_cls:], f, n, t).reshape(-1, f, n, t).contiguous()
+    w = mask.to(torch.float32).expand(*lead, f, t).reshape(
+        -1, y.shape[0], f, t).contiguous()
+    num = masked_covar(y, w)
+    return num.reshape(*lead, f, n, n).to(obs.dtype), den
 
 
 def compute_covar(obs: torch.Tensor, mask: torch.Tensor,

@@ -2,8 +2,10 @@
 
 Each source under ``setk_tpu_torch/csrc/`` compiles with ``nvcc`` into
 its own shared library with a plain C interface, loaded with ``ctypes``.
-Libraries are named by a hash of their source and the flags, so an
-edited source rebuilds and an unchanged one loads as built.  The
+Libraries are named by a hash of their source, the headers under
+``csrc/`` that it includes (``#include "..."``, followed through the
+headers) and the flags, so an edited source or header rebuilds and an
+unchanged one loads as built.  The
 build directory (``setk_tpu_torch/_build/``) is not committed.  Nothing
 here runs at import: the first kernel launch builds its library, and
 ``build_all`` builds every library at once, one ``nvcc`` per source.
@@ -12,6 +14,7 @@ here runs at import: the first kernel launch builds its library, and
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,12 +28,15 @@ SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"mvdr_power": "mvdr_power.cu", "fused_mvdr": "fused_mvdr.cu",
            "planar_stft": "planar_stft.cu",
-           "covariance_pair": "covariance_pair.cu"}
+           "covariance_pair": "covariance_pair.cu",
+           "covariance": "covariance.cu", "eigh_small": "eigh_small.cu",
+           "cacgmm_em": "cacgmm_em.cu"}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C entry points and their ctypes signatures
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 _SIGNATURES = {
     "mvdr_power": {
         "mvdr_power_launch": [_P, _P, _P, _I, _I, _I, _F, _P],
@@ -58,7 +64,18 @@ _SIGNATURES = {
         "pair_covar_launch": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                               _I, _I, _I, _I, _I, _P],
     },
+    "covariance": {
+        "masked_covar_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "eigh_small": {
+        "regularized_inverse_launch": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "cacgmm_em": {
+        "cacgmm_em_launch": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded = {}
@@ -72,10 +89,23 @@ def _nvcc() -> str:
     return found
 
 
+def _included(path: Path, seen: set) -> list:
+    """``path`` and the csrc headers it includes, depth first, each once."""
+    if path in seen:
+        return []
+    seen.add(path)
+    files = [path]
+    for header in _INCLUDE.findall(path.read_text()):
+        if (SOURCE_DIR / header).is_file():
+            files += _included(SOURCE_DIR / header, seen)
+    return files
+
+
 def _target(name: str) -> Path:
-    src = (SOURCE_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in _included(SOURCE_DIR / SOURCES[name], set()):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

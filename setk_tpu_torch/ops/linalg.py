@@ -4,21 +4,27 @@ Counterpart of the parts of ``setk_tpu/ops/linalg.py`` that the
 supervised beamformers need: hermitianize, scale-invariant diagonal
 loading, the loaded Cholesky solve, its equilibrated form, power
 iteration, the principal eigenvector and the generalized EVD by Cholesky
-whitening.  Every op is batched over leading axes.  The regularized
-inverse comes with the clustering EM (ROADMAP queue 1 item 6).
+whitening, and the clustering EM's eigenvalue-floored
+``regularized_inverse``.  Every op is batched over leading axes.
 
-The EVD runs only on the CPU: on a CUDA tensor ``eigh`` raises until the
-batched small-matrix EVD kernel lands (ROADMAP queue 2 item 14).
+The EVD runs only on the CPU: on a CUDA tensor ``eigh`` raises (the eigh
+steer and the online family on the card are ROADMAP queue 1 item 13).
+``regularized_inverse`` on a CUDA tensor with M <= 8 runs the Jacobi
+kernel (ops/cuda/eigh_small.py, kernel 14), as the JAX package runs its
+Pallas Jacobi on the TPU; the CPU takes the eigh-based plain path.
 """
 
 import torch
 
+from setk_tpu_torch.ops.cuda.eigh_small import MAX_DIM
+from setk_tpu_torch.ops.cuda.eigh_small import \
+    regularized_inverse as jacobi_inverse
 from setk_tpu_torch.utils.common import EPSILON
 
 __all__ = [
     "hermitianize", "eigh", "principal_eigvec", "solve_pevd",
     "generalized_eigh", "hermitian_solve", "equilibrated_hermitian_solve",
-    "power_iteration"
+    "power_iteration", "regularized_inverse"
 ]
 
 
@@ -112,6 +118,33 @@ def solve_pevd(rs: torch.Tensor, rn=None, eps_rel: float = 1e-6):
         return principal_eigvec(hermitianize(rs))
     _, v = generalized_eigh(rs, rn, eps_rel=eps_rel)
     return v[..., :, -1]
+
+
+def regularized_inverse(covar: torch.Tensor, return_logdet: bool = False):
+    """Eigenvalue-floored inverse of batched Hermitian matrices.
+
+    The reference's regularization: eigenvalues scaled by their maximum,
+    floored at EPSILON and inverted, with the logdet of the scaled
+    spectrum.  On the CPU one batched ``torch.linalg.eigh``; on a CUDA
+    tensor with M <= 8 the Jacobi kernel (kernel 14); M > 8 on the card
+    raises (ROADMAP queue 1 item 15).
+    """
+    m = covar.shape[-1]
+    if covar.device.type == "cuda":
+        if m > MAX_DIM:
+            raise NotImplementedError(
+                f"a regularized inverse of M = {m} > {MAX_DIM} on a CUDA "
+                f"device arrives with ROADMAP queue 1 item 15")
+        inv, logdet = jacobi_inverse(covar.to(torch.complex64))
+        return (inv, logdet) if return_logdet else inv
+    w, v = eigh(hermitianize(covar))
+    w = w / torch.clamp(w.max(-1, keepdim=True).values, min=EPSILON)
+    w = torch.clamp(w, min=EPSILON)
+    inv = torch.einsum("...xy,...y,...zy->...xz", v, (1.0 / w).to(v.dtype),
+                       v.conj())
+    if return_logdet:
+        return inv, torch.log(w).sum(-1)
+    return inv
 
 
 def power_iteration(mat: torch.Tensor,

@@ -2,16 +2,18 @@
 
 Counterpart of ``setk_tpu/parallel/executor.py``: ``shard_manifest``
 (deterministic manifest sharding across processes), ``LengthBucketer``
-(padded shape buckets) and ``BatchEnhancer``, which assembles
+(padded shape buckets), ``BatchEnhancer``, which assembles
 (B, N, S) batches and (B, T, F) masks per bucket, runs
-``enhance_batch`` on them and returns per-utterance trimmed waveforms.
-Data parallelism over a device mesh comes with ROADMAP queue 1 item 12;
-the clustering and WPE executors with queue 1 items 6 and 7.
+``enhance_batch`` on them and returns per-utterance trimmed waveforms,
+and ``BatchClusterer``, which runs the CGMM/CACGMM EM over frame buckets
+of utterance STFTs.  Data parallelism over a device mesh comes with
+ROADMAP queue 1 item 12; the WPE executor with queue 1 item 7.
 """
 
 from collections import defaultdict
 
 import numpy as np
+import torch
 
 from setk_tpu_torch.dsp.stft import StftConfig, num_frames
 from setk_tpu_torch.parallel.enhance_step import (check_cuda_options,
@@ -21,7 +23,8 @@ from setk_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
 
-__all__ = ["shard_manifest", "LengthBucketer", "BatchEnhancer"]
+__all__ = ["shard_manifest", "LengthBucketer", "BatchEnhancer",
+           "BatchClusterer"]
 
 
 def shard_manifest(keys, num_shards: int, shard_index: int):
@@ -138,3 +141,77 @@ class BatchEnhancer:
                             alpha=self.alpha, device=self.device)
         out = out.cpu().numpy()
         return [(key, out[i, :s]) for i, (key, s) in enumerate(lengths)]
+
+
+class BatchClusterer:
+    """Batched CGMM/CACGMM mask estimation over utterance buckets.
+
+    Feed (key, STFT (F, M, T)) pairs; B utterances of a common frame
+    bucket (T rounded up to ``frame_bucket``) run as one EM call, padded
+    frames carrying 1e-6 (so normalized observations stay finite) and a
+    frame mask that keeps them out of every statistic.  Runs on ``cuda``
+    unless ``device="cpu"``; on the card a fresh K=2 run is one launch of
+    the fused EM kernel a bucket, and M > 8 raises before the batch is
+    copied.  Random inits draw from a generator seeded with ``seed``.
+    """
+
+    def __init__(self, algo: str = "cacgmm", num_classes: int = 2,
+                 num_iters: int = 20, batch_size: int = 16,
+                 frame_bucket: int = 128, seed: int = 0, device=None,
+                 **em_kwargs):
+        if algo not in ("cgmm", "cacgmm"):
+            raise ValueError(f"Unknown clustering algo: {algo}")
+        if num_iters < 1:
+            raise ValueError(f"num_iters must be >= 1, got {num_iters}")
+        self.algo = algo
+        self.num_classes = num_classes
+        self.num_iters = num_iters
+        self.batch_size = batch_size
+        self.frame_bucket = frame_bucket
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.em_kwargs = em_kwargs
+        self._pending = defaultdict(list)
+
+    def add(self, key, obs: np.ndarray):
+        """Queue one utterance's STFT (F, M, T); returns flushed results."""
+        f, m, t = obs.shape
+        bucket = -(-t // self.frame_bucket) * self.frame_bucket
+        self._pending[(f, m, bucket)].append((key, obs))
+        if len(self._pending[(f, m, bucket)]) >= self.batch_size:
+            return self._flush_bucket((f, m, bucket))
+        return []
+
+    def flush(self):
+        """Flush all remaining partial batches."""
+        out = []
+        for shape in list(self._pending):
+            out.extend(self._flush_bucket(shape))
+        return out
+
+    def _flush_bucket(self, shape):
+        from setk_tpu_torch.enhance.cluster import (cacgmm_em, cgmm_em,
+                                                    check_mics)
+        items = self._pending.pop(shape, [])
+        if not items:
+            return []
+        f, m, bucket = shape
+        check_mics(self.device, m)
+        obs = np.zeros((len(items), f, m, bucket), dtype=np.complex64)
+        fmask = np.zeros((len(items), 1, bucket), dtype=np.float32)
+        lengths = []
+        for i, (key, o) in enumerate(items):
+            t = o.shape[-1]
+            obs[i, :, :, :t] = o
+            obs[i, :, :, t:] = 1e-6
+            fmask[i, 0, :t] = 1.0
+            lengths.append((key, t))
+        em = cgmm_em if self.algo == "cgmm" else cacgmm_em
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed)
+        gamma, _ = em(obs, self.num_classes, num_iters=self.num_iters,
+                      frame_mask=fmask, generator=gen, device=self.device,
+                      **self.em_kwargs)
+        gamma = gamma.cpu().numpy()  # (K, B, F, bucket)
+        return [(key, gamma[:, i, :, :t]) for i, (key, t) in
+                enumerate(lengths)]

@@ -4,7 +4,10 @@
 // one after another; each block's threads are std::threads that meet at a
 // std::barrier for __syncthreads.  __shared__ arrays become function-local
 // statics: shared by a block's threads and reused by the next block, which
-// matches CUDA as long as blocks run one at a time (they do here).
+// matches CUDA as long as blocks run one at a time (they do here).  A warp
+// shuffle exchanges through such a static between two block-wide barriers,
+// so every thread of the block that has not returned must take part in it
+// (a thread that returned is dropped from the barrier).
 // tests/test_torch_cuda_emu.py rewrites each `kernel<<<grid, block, smem,
 // stream>>>(args)` launch into `emu_launch(grid, block, smem, stream,
 // kernel, args)` before compiling.
@@ -20,6 +23,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __restrict__
 #define __launch_bounds__(...)
 #define __shared__ static
@@ -55,6 +59,16 @@ inline unsigned __brev(unsigned v) {
 }
 using std::max;
 using std::min;
+
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  static float exchange[1024];
+  exchange[threadIdx.x] = v;
+  __syncthreads();
+  const float got =
+      exchange[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ lane_mask)];
+  __syncthreads();
+  return got;
+}
 
 template <typename K, typename... A>
 void emu_launch(dim3 grid, int block, int, cudaStream_t, K kernel, A... args) {

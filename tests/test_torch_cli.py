@@ -13,11 +13,14 @@
 - the port's prefetching loader (native decoder built from
   native/wav_io.cc, the Python decoder for pipes) against setk_tpu's
   Python WaveReader;
-- ``python -m setk_tpu_torch.cli --help`` lists the command, and a fresh
+- ``python -m setk_tpu_torch.cli --help`` lists the command, a fresh
   interpreter that imports every module of setk_tpu_torch and
-  chip_smoke.py holds neither jax nor setk_tpu.
+  chip_smoke.py holds neither jax nor setk_tpu, and no ``import`` or
+  ``from`` of either stands anywhere in those files' syntax trees (inside
+  functions too).
 """
 
+import ast
 import importlib
 import json
 import subprocess
@@ -271,3 +274,20 @@ assert "setk_tpu_torch.io.prefetch" in names
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+    # imports made only when a function runs count too: scan the syntax
+    # trees of every module and of chip_smoke.py at any depth
+    files = sorted((ROOT / "setk_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {name}"
+                    for name in names
+                    if name.split(".")[0] in ("jax", "setk_tpu")]
+    assert len(files) > 40 and not bad, bad

@@ -6,9 +6,12 @@ runtime (blocks in order, a block's threads as std::threads with a
 barrier), and run through their C entry points on CPU tensors.  This
 checks the kernels' index arithmetic, FFT, reductions, overlap-add,
 the online pair's chunking and EMA, the per-bin solves, the planar
-STFT/iSTFT (n_fft 256 and 1024, center on and off, any length) and the
-pair covariance (N = 1, 6 and 8, complement mask or two masks) against
-their plain PyTorch versions without a card; it says nothing of
+STFT/iSTFT (n_fft 256 and 1024, center on and off, any length), the
+pair covariance (N = 1, 6 and 8, complement mask or two masks), the
+masked covariance against K classes (warp shuffles), the Jacobi
+regularized inverse and the fused CGMM/CACGMM EM (both models, both
+entries, a frame mask, K = 3) against their plain PyTorch versions
+without a card; it says nothing of
 speed, and the card's own compiler is checked by chip_smoke.py.  Skips
 when no g++ with C++20 is present (decided inside the fixture).
 """
@@ -26,7 +29,10 @@ import torch
 from setk_tpu_torch.dsp.stft import StftConfig
 from setk_tpu_torch.dsp.window import wss_inverse_blocks
 from setk_tpu_torch.ops.cuda import _build
+from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+from setk_tpu_torch.ops.cuda import covariance as mc
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
+from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.ops.cuda import planar as pl
@@ -55,7 +61,7 @@ def libs(tmp_path_factory):
         lib = out / f"lib{name}.so"
         proc = subprocess.run(
             [cxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
-             f"-I{EMU}", "-o", str(lib), str(cpp)],
+             f"-I{EMU}", f"-I{_build.SOURCE_DIR}", "-o", str(lib), str(cpp)],
             capture_output=True, text=True)
         if proc.returncode != 0 and "c++20" in proc.stderr:
             pytest.skip("g++ without C++20 support")
@@ -417,3 +423,143 @@ def test_planar_entry_points_reject_bad_arguments(libs):
                                        (1, 1, 2, 4, 8, 8, 32, None)):
         assert lib.pair_covar_launch(p, p, es, p, mn, mb, mt, p, p, p, p, b,
                                      n, t, f, t, 0, None) != 0
+
+
+def _cplx(rng, *shape):
+    return torch.from_numpy((rng.standard_normal(shape) + 1j *
+                             rng.standard_normal(shape)).astype(np.complex64))
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (6, 2), (8, 3), (3, 4)])
+def test_masked_covar_source_matches_plain(libs, n, k):
+    """L = 2, F = 5 (ten bins, three blocks of four warps, the last one
+    partial), T = 45 (lanes with one and two frames)."""
+    rng = np.random.default_rng(n + k)
+    lead, f, t = 2, 5, 45
+    obs = _cplx(rng, lead, f, n, t)
+    w = torch.from_numpy(rng.random((k, lead, f, t)).astype(np.float32))
+    num = torch.empty((k, lead, f, n, n), dtype=torch.complex64)
+    err = libs["covariance"].masked_covar_launch(
+        obs.data_ptr(), w.data_ptr(), num.data_ptr(), lead * f, n, t, k, None)
+    assert err == 0
+    assert _rel(num, mc.masked_covar_plain(obs, w)) < TOL
+
+
+def _hermitian(rng, count, m, rank):
+    a = _cplx(rng, count, m, rank)
+    return (a @ a.conj().transpose(-1, -2)).contiguous()
+
+
+@pytest.mark.parametrize("m", [1, 3, 6, 8])
+def test_regularized_inverse_source_matches_plain(libs, m):
+    """130 matrices (two blocks, the second partial), full rank and, for
+    a fifth of them, rank one (the EPSILON floor)."""
+    rng = np.random.default_rng(m)
+    a = _hermitian(rng, 130, m, m + 2)
+    a[:26] = _hermitian(rng, 26, m, 1)
+    inv = torch.empty_like(a)
+    logdet = torch.empty(130)
+    err = libs["eigh_small"].regularized_inverse_launch(
+        a.data_ptr(), inv.data_ptr(), logdet.data_ptr(), 130, m, 6, None)
+    assert err == 0
+    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
+    peak = ref_inv.abs().amax(dim=(-1, -2))
+    assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) < \
+        SOLVE_TOL
+    assert float((logdet - ref_ld).abs().max()) < SOLVE_TOL * m
+
+
+def _em_inputs(rng, b, f, m, t, k):
+    obs = _cplx(rng, b, f, m, t)
+    obs[:, :, 1:] += 0.5 * obs[:, :, :1]
+    g0 = torch.from_numpy(rng.random((k, b, f, t)).astype(np.float32))
+    return obs, g0 / g0.sum(0), torch.ones((k, b, f, t))
+
+
+# (model, init, K, M, frame mask): both models and entries, K = 3, a
+# (B, 1, T) frame mask read with a zero bin stride
+EM_CASES = [("cg", "higuchi", 2, 3, False), ("cacg", None, 2, 4, True),
+            ("cacg", "higuchi", 2, 2, True), ("cg", None, 3, 3, False)]
+
+
+@pytest.mark.parametrize("model,init,k,m,masked", EM_CASES)
+def test_em_source_matches_plain(libs, model, init, k, m, masked):
+    """B = 2, F = 19 (38 bins, two blocks of 32 threads, the second
+    partial), T = 21, 4 iterations."""
+    rng = np.random.default_rng(k * 10 + m)
+    b, f, t, iters = 2, 19, 21, 4
+    obs, g0, k0 = _em_inputs(rng, b, f, m, t, k)
+    if model == "cacg":
+        obs = obs / torch.linalg.vector_norm(obs, dim=-2, keepdim=True)
+    fm = None
+    if masked:
+        fm = torch.ones((b, 1, t))
+        fm[1, 0, 15:] = 0.0
+    nb = b * f
+    zre = obs.real.reshape(nb, m, t).permute(1, 2, 0).contiguous()
+    zim = obs.imag.reshape(nb, m, t).permute(1, 2, 0).contiguous()
+    planes = [x.reshape(k, nb, t).transpose(1, 2).contiguous()
+              for x in (g0, k0)]
+    q = torch.empty((iters, nb))
+    covar = torch.empty((k, nb, m, m), dtype=torch.complex64)
+    alpha = torch.empty((k, nb))
+    strides = (0, 0, 0) if fm is None else fm.expand(b, f, t).stride()
+    err = libs["cacgmm_em"].cacgmm_em_launch(
+        zre.data_ptr(), zim.data_ptr(), None if fm is None else fm.data_ptr(),
+        *strides, planes[0].data_ptr(), planes[1].data_ptr(), q.data_ptr(),
+        covar.data_ptr(), alpha.data_ptr(), nb, f, t, m, k, iters,
+        int(model == "cg"), int(init is not None), int(model == "cacg"), 6,
+        None)
+    assert err == 0
+    ref_g, ref_q, ref_state = ce.em_plain(
+        obs, None if init else g0, None if init else k0, iters, model,
+        model == "cacg", frame_mask=fm, return_state=True, init=init,
+        num_classes=k)
+    gamma = planes[0].transpose(1, 2).reshape(k, b, f, t)
+    assert float((gamma - ref_g).abs().max()) < SOLVE_TOL
+    q_hist = q.sum(-1) / (fm.expand(b, f, t).sum() if masked else nb * t)
+    assert float((q_hist - ref_q).abs().max()) < SOLVE_TOL * float(
+        ref_q.abs().max())
+    assert _rel(covar.reshape(k, b, f, m, m), ref_state["covar"]) < SOLVE_TOL
+    assert float((alpha.reshape(k, b, f) - ref_state["alpha"]).abs().max()) \
+        < SOLVE_TOL
+    if model == "cg":
+        kern = planes[1].transpose(1, 2).reshape(k, b, f, t)
+        assert _rel(kern, ref_state["phi"]) < SOLVE_TOL
+
+
+def test_clustering_entry_points_reject_bad_arguments(libs):
+    p = torch.zeros(8).data_ptr()
+    lib = libs["covariance"]
+    for nbins, n, t, k in ((0, 2, 4, 1), (1, 9, 4, 1), (1, 2, 0, 1),
+                           (1, 2, 4, 0), (1, 2, 4, 5)):
+        assert lib.masked_covar_launch(p, p, p, nbins, n, t, k, None) != 0
+    lib = libs["eigh_small"]
+    for n, m, sweeps in ((0, 2, 6), (1, 9, 6), (1, 0, 6), (1, 2, -1)):
+        assert lib.regularized_inverse_launch(p, p, p, n, m, sweeps,
+                                              None) != 0
+    lib = libs["cacgmm_em"]
+    for nb, f, t, m, k, iters, higuchi in ((0, 1, 4, 2, 2, 1, 0),
+                                           (6, 4, 4, 2, 2, 1, 0),
+                                           (4, 4, 4, 9, 2, 1, 0),
+                                           (4, 4, 4, 2, 5, 1, 0),
+                                           (4, 4, 4, 2, 2, 0, 0),
+                                           (4, 4, 4, 2, 3, 1, 1)):
+        assert lib.cacgmm_em_launch(p, p, None, 0, 0, 0, p, p, p, p, p, nb,
+                                    f, t, m, k, iters, 0, higuchi, 0, 6,
+                                    None) != 0
+
+
+def test_library_names_follow_sources_and_headers(tmp_path, monkeypatch):
+    """A library is named by its source and the csrc headers it includes:
+    editing jacobi.cuh renames the Jacobi and EM libraries, and only
+    those."""
+    for src in _build.SOURCE_DIR.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "SOURCE_DIR", tmp_path)
+    before = {name: _build._target(name).name for name in _build.SOURCES}
+    header = tmp_path / "jacobi.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build._target(name).name for name in _build.SOURCES}
+    assert {name for name in before if before[name] != after[name]} == {
+        "eigh_small", "cacgmm_em"}

@@ -17,7 +17,10 @@ from setk_tpu_torch.enhance import beamformer as bf
 from setk_tpu_torch.enhance.pipeline import (enhance_plain,
                                              enhance_plain_online,
                                              mvdr_enhance_planar_plain)
+from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+from setk_tpu_torch.ops.cuda import covariance as mc
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
+from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.ops.cuda import planar as pl
@@ -255,8 +258,12 @@ def test_pair_covar_matches_plain(n):
     assert cp.pair_covar.launches == 1
     rs_p, rn_p = bf.compute_covar_pair(obs.cpu(), ms.transpose(1, 2).cpu())
     assert _rel(rs.cpu(), rs_p) < TOL and _rel(rn.cpu(), rn_p) < TOL
-    with pytest.raises(NotImplementedError, match="queue 2 item 13"):
-        bf.compute_covar(obs, ms.transpose(1, 2))
+    # the single masked covariance runs kernel 13 on the card
+    mc.masked_covar.launches = 0
+    ry = bf.compute_covar(obs, ms.transpose(1, 2))
+    assert mc.masked_covar.launches == 1
+    assert _rel(ry.cpu(), bf.compute_covar(obs.cpu(),
+                                           ms.transpose(1, 2).cpu())) < TOL
 
 
 PLANAR_LAUNCHES = ("stft_planar", "pair_covar_complement", "mvdr_power",
@@ -312,3 +319,117 @@ def test_spectrum_branch_runs_kernels_only(name, ban, want):
     ref = enhance_batch(wav, mask, cfg, beamformer=name, ban=ban,
                         steer="power", device="cpu")
     assert torch.isfinite(out).all() and _rel(out.cpu(), ref) < TOL
+
+
+def _cplx(rng, *shape, dev):
+    return torch.from_numpy((rng.standard_normal(shape) + 1j *
+                             rng.standard_normal(shape)).astype(
+                                 np.complex64)).to(dev)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (6, 2), (8, 3), (6, 5)])
+def test_masked_covar_matches_plain(n, k):
+    """Kernel 13 (K = 5 takes two launches), and covar_stats' broadcast of
+    one observation against K classes."""
+    dev = _card()
+    rng = np.random.default_rng(n * k)
+    obs = _cplx(rng, 3, 257, n, 173, dev=dev)
+    w = torch.rand((k, 3, 257, 173), device=dev)
+    mc.masked_covar.launches = 0
+    num = mc.masked_covar(obs, w)
+    assert mc.masked_covar.launches == -(-k // 4)
+    assert _rel(num, mc.masked_covar_plain(obs, w)) < TOL
+    got, den = bf.covar_stats(obs[None], w)
+    ref, _ = bf.covar_stats(obs[None].cpu(), w.cpu())
+    assert _rel(got.cpu(), ref) < TOL and den.shape == (k, 3, 257)
+
+
+@pytest.mark.parametrize("m", [1, 6, 8])
+def test_regularized_inverse_matches_plain(m):
+    """Kernel 14 against its plain Jacobi (1e-4 of each matrix's peak),
+    and ops.linalg.regularized_inverse on the card against the eigh-based
+    CPU path on well-conditioned matrices."""
+    from setk_tpu_torch.ops.linalg import regularized_inverse
+    dev = _card()
+    rng = np.random.default_rng(m)
+    a = _cplx(rng, 2000, m, 3 * m, dev=dev)
+    a = (a @ a.conj().transpose(-1, -2)).contiguous()
+    es.regularized_inverse.launches = 0
+    inv, logdet = es.regularized_inverse(a)
+    assert es.regularized_inverse.launches == 1
+    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
+    peak = ref_inv.abs().amax(dim=(-1, -2))
+    assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) \
+        < TOL
+    assert float((logdet - ref_ld).abs().max()) < TOL * m
+    inv2, ld2 = regularized_inverse(a, return_logdet=True)
+    cpu_inv, cpu_ld = regularized_inverse(a.cpu(), return_logdet=True)
+    assert float(((inv2.cpu() - cpu_inv).abs().amax(dim=(-1, -2)) /
+                  peak.cpu()).max()) < 1e-3
+    assert float((ld2.cpu() - cpu_ld).abs().max()) < 1e-3 * m
+
+
+@pytest.mark.parametrize("model,init,k,masked,m,t", [
+    ("cg", "higuchi", 2, False, 6, 301), ("cacg", None, 2, True, 6, 301),
+    ("cacg", "higuchi", 2, True, 6, 301), ("cacg", None, 3, False, 6, 301),
+    ("cg", None, 4, True, 8, 1001)])
+def test_em_kernel_matches_plain(model, init, k, masked, m, t):
+    """Kernel 15 against its plain version on the card, 4 iterations, at
+    257 bins (6 mics and T = 301; 8 mics, K = 4 and T = 1001, where the
+    kernel spills): gamma within 2e-3, Q within 2e-3 relative, covariances
+    within 2e-2 of their peak."""
+    dev = _card()
+    rng = np.random.default_rng(k)
+    b, f, iters = 3, 257, 4
+    obs = _cplx(rng, b, f, m, t, dev=dev)
+    obs[:, :, 1:] += 0.5 * obs[:, :, :1]
+    if model == "cacg":
+        obs = obs / torch.linalg.vector_norm(obs, dim=-2, keepdim=True)
+    g0 = torch.rand((k, b, f, t), device=dev)
+    g0 = g0 / g0.sum(0)
+    k0 = torch.ones_like(g0)
+    fm = None
+    if masked:
+        fm = torch.ones((b, 1, t), device=dev)
+        fm[1, 0, 200:] = 0.0
+    args = (None, None) if init else (g0, k0)
+    ce.em.launches = 0
+    got = ce.em(obs, *args, iters, model, True, frame_mask=fm,
+                return_state=True, init=init, num_classes=k)
+    assert ce.em.launches == 1
+    ref = ce.em_plain(obs, *args, iters, model, True, frame_mask=fm,
+                      return_state=True, init=init, num_classes=k)
+    assert float((got[0] - ref[0]).abs().max()) < 2e-3
+    assert float(((got[1] - ref[1]).abs() / ref[1].abs()).max()) < 2e-3
+    assert _rel(got[2]["covar"], ref[2]["covar"]) < 2e-2
+    assert float((got[2]["alpha"] - ref[2]["alpha"]).abs().max()) < 2e-3
+
+
+def test_clustering_runs_kernels_only():
+    """A fresh cgmm_em / cacgmm_em(cgmm_init) launches kernel 15 alone; a
+    resume launches kernels 13 and 14 once an iteration (and 14 once more
+    for its first predict); M = 9 and num_iters = 0 raise with no device
+    memory allocated."""
+    from setk_tpu_torch.enhance.cluster import cacgmm_em, cgmm_em
+    dev = _card()
+    rng = np.random.default_rng(7)
+    obs = _cplx(rng, 2, 257, 4, 120, dev=dev)
+    counted = (mc.masked_covar, es.regularized_inverse, ce.em)
+    for fn in counted:
+        fn.launches = 0
+    _, _, state = cgmm_em(obs, 2, num_iters=5, return_state=True)
+    gamma, _ = cacgmm_em(obs, 2, num_iters=5, cgmm_init=True)
+    assert [fn.launches for fn in counted] == [0, 0, 2]
+    assert torch.isfinite(gamma).all()
+    for fn in counted:
+        fn.launches = 0
+    gamma, q = cgmm_em(obs, 2, num_iters=3, state=state)
+    assert [fn.launches for fn in counted] == [3, 4, 0]
+    assert torch.isfinite(gamma).all() and torch.isfinite(q).all()
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        cgmm_em(np.zeros((257, 9, 20), np.complex64), 2, device="cuda")
+    with pytest.raises(ValueError, match="num_iters"):
+        cacgmm_em(np.zeros((257, 4, 20), np.complex64), 2, num_iters=0,
+                  device="cuda")
+    assert torch.cuda.memory_allocated() == before
