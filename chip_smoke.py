@@ -99,7 +99,39 @@ the CUDA toolkit.  In order it:
      card, every key written and finite;
   16. C4, refusals: M = 9 and num_iters = 0 raise with no device memory
      allocated;
-  17. times each kernel (20 launches replayed from one CUDA graph, so the
+  17. WPE and WPD at the JAX package's bench width (B = 32, 6 mics, 8 s,
+     512/256, taps 10, delay 3, context 1, 3 iterations; WPD 4 s, 3 outer,
+     CGMM 10): W1 holds kernels 16-19 against their plain versions on a
+     noise scene (noise at 0.2, bench_secondary.py:123-127) and a
+     reverberant one (TOL of the peak for the Gram and the application,
+     2e-3 of the peak for the solves of the scenes' Grams, 5e-3 of the
+     peak equilibrated), kernel 17 at NK = 9, 30 and 60 with and without
+     equilibration, kernel 16 at n = 60 and n = 128 (8 mics, taps 16:
+     dynamic shared memory), and both on the CPU tests' systems
+     (tests/test_pallas.py:793's Grams, rtol 1e-3 + atol 1e-4);
+     W2 runs wpe fused on both scenes (exactly 18 x3, 17 x3, 19 x1; the
+     noise scene within 2e-3 of the same loop through the plain versions,
+     the reverberant one, whose tap correlations are ill conditioned,
+     within 2e-2 of the peak of a float64 run of the plain loop and the
+     median utterance within 2e-3 of its peak), the scan
+     (exactly 16 x3) and a chirp input (finite); W3 runs BatchWpe over 32
+     keyed 8 s utterances and four other lengths (one 30 s, one that
+     fills its bucket) of the noise scene (exact launch counts, finite;
+     the unpadded output within 2e-3 of the plain path's peak; padded
+     frames make the solves badly conditioned, so padded outputs within
+     7e-2 of their peak of a float64 run of the plain path), then over the
+     reverberant scene, recording how many padded outputs are not finite
+     on each path (lambda = EPSILON on zero padding, the JAX package's
+     semantics); W4 runs apply_wpe (--batch-size 4 and 1) and apply_wpd on
+     the card against --device cpu (files written on both correlate >=
+     0.99, WPD masks too; utterances that no bucket pads must be
+     written); W5 runs
+     wpd at B = 32 x 4 s on the noise scene (exactly 18, 17, 19, 15, 12
+     and 2 three times each; cosine and mask correlation >= 0.995 against
+     the same call through the plain versions, chained CGMM being
+     chaotic) and on the reverberant one (recorded, finite); N = 9 is
+     refused with no allocation;
+  18. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
      function where there is one (torch.stft, torch.istft, torch.einsum;
@@ -108,11 +140,12 @@ the CUDA toolkit.  In order it:
      with CUDA events (warm-up, then 20 calls; fewer for the slow plain
      versions and the EM), profiles the fused, P1, E and EM steps
      (torch.profiler: device time by kernel, the device's idle share)
-     and prints the kernels line;
-  18. prints {"ok": true, "device": {...}} as the last line.
+     and prints the kernels line (kernels 16-19 timed at W's scene, with
+     the wpe, wpd and BatchWpe steps and their idle shares);
+  19. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
-without the setk_tpu_torch package beside this file, it exits 2 and
-prints no result.
+without the setk_tpu_torch package beside this file, it exits 2, says
+which on stdout and stderr, and prints no result.
 """
 
 import json
@@ -247,7 +280,8 @@ def _ptxas_summary(log: str) -> dict:
         m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
                       r"|covar_ema|beamform_istft_online|beamform_istft"
                       r"|istft_planar|stft_planar|pair_covar|masked_covar"
-                      r"|regularized_inverse|em)"
+                      r"|regularized_inverse|hermitian_solve|gram_solve"
+                      r"|wpe_gram|wpe_apply|em)"
                       r"_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?([fs]?)E",
                       line)
         if "Compiling entry function" in line and m:
@@ -304,10 +338,11 @@ FAMILY = [(("gevd", False), ("gevd_power",)),
 CHUNK, ALPHA = 32, 0.8
 
 
-def _write_corpus(root, seed, cfg=None):
-    """Six 6-channel int16 wav files of 3-8 s (a clean source on every
-    mic plus noise) with uniform [0, 1) masks of ``cfg``'s geometry (by
-    default the 512/256 STFT) as .npy, and their scps."""
+def _write_corpus(root, seed, cfg=None, lengths=None, prefix="c"):
+    """Six 6-channel int16 wav files of 3-8 s (or of ``lengths`` samples;
+    a clean source on every mic plus noise) with uniform [0, 1) masks of
+    ``cfg``'s geometry (by default the 512/256 STFT) as .npy, and their
+    scps; keys ``prefix`` + index."""
     import numpy as np
     from setk_tpu_torch.dsp.stft import StftConfig
     from setk_tpu_torch.io.wave import write_wav
@@ -315,18 +350,20 @@ def _write_corpus(root, seed, cfg=None):
     root.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     wav_lines, mask_lines = [], []
-    for i, secs in enumerate((3, 4, 5, 6, 7, 8)):
-        s = secs * SR + 37 * i
+    lengths = lengths or [secs * SR + 37 * i
+                          for i, secs in enumerate((3, 4, 5, 6, 7, 8))]
+    for i, s in enumerate(lengths):
         clean = rng.standard_normal(s).astype(np.float32) * 0.2
         x = clean + rng.standard_normal((N, s)).astype(np.float32) * 0.05
-        write_wav(root / f"c{i}.wav", x, sr=SR)
-        np.save(root / f"c{i}.npy", rng.random(
+        key = f"{prefix}{i}"
+        write_wav(root / f"{key}.wav", x, sr=SR)
+        np.save(root / f"{key}.npy", rng.random(
             (cfg.num_frames(s), cfg.num_bins)).astype(np.float32))
-        wav_lines.append(f"c{i} {root}/c{i}.wav")
-        mask_lines.append(f"c{i} {root}/c{i}.npy")
+        wav_lines.append(f"{key} {root}/{key}.wav")
+        mask_lines.append(f"{key} {root}/{key}.npy")
     (root / "wav.scp").write_text("\n".join(wav_lines) + "\n")
     (root / "mask.scp").write_text("\n".join(mask_lines) + "\n")
-    return [f"c{i}" for i in range(6)]
+    return [f"{prefix}{i}" for i in range(len(lengths))]
 
 
 # ---- the planar and spectrum-domain geometries (kernels 9-12) ----
@@ -365,17 +402,20 @@ def _flops_pair_covar(b, n, t, f, complement):
 
 def _all_counted():
     from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+    from setk_tpu_torch.ops.cuda import cholesky as ch
     from setk_tpu_torch.ops.cuda import covariance as mc
     from setk_tpu_torch.ops.cuda import covariance_pair as cp
     from setk_tpu_torch.ops.cuda import eigh_small as es
     from setk_tpu_torch.ops.cuda import fused_mvdr as fm
     from setk_tpu_torch.ops.cuda import mvdr as mv
     from setk_tpu_torch.ops.cuda import planar as pl
+    from setk_tpu_torch.ops.cuda import wpe_gram as wg
     return (fm.stft_covar, fm.beamform_istft, fm.covar_ema,
             fm.beamform_istft_online, mv.mvdr_power, mv.gevd_power,
             mv.pmwf_solve, mv.capon, pl.stft_planar, pl.istft_planar,
             cp.pair_covar_complement, cp.pair_covar, mc.masked_covar,
-            es.regularized_inverse, ce.em)
+            es.regularized_inverse, ce.em, ch.hermitian_solve_lanes,
+            ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply)
 
 
 def _launched(torch, run, label, want):
@@ -602,6 +642,653 @@ def _em_errs(torch, got, ref):
             "covar": _rel(st["covar"], stp["covar"])}
 
 
+# ---- WPE dereverberation and factored WPD (kernels 16-19) ----
+# the JAX package's bench rows (benchmarks/bench_secondary.py:113-133) and
+# recipes/run_wpe.sh: B = 32, 6 mics, 8 s (WPD 4 s), taps 10, delay 3,
+# context 1, 3 iterations; WPD 3 outer iterations, CGMM 10
+W_B, W_SECS, WPD_SECS = 32, 8, 4
+W_TAPS, W_DELAY, W_CONTEXT, W_ITERS = 10, 3, 1, 3
+WPD_OUTER, WPD_CGMM = 3, 10
+# W3's utterances besides the B 8 s ones: (key, samples, seed); u6.144s
+# fills its 98304-sample bucket, so its frames are not zero-padded
+W_EXTRA = (("x3s", 48000, 31), ("x5.5s", 88000, 32), ("x30s", 480000, 33),
+           ("u6.144s", 98304, 34))
+WPE_SET = {"wpe_gram", "solve_wpe_gram", "wpe_apply"}
+WPD_SET = WPE_SET | {"em", "pair_covar", "mvdr_power"}
+# the CPU tests' bars: solves rtol 1e-3 + atol 1e-4 (tests/test_pallas.py:
+# 196), equilibrated 5e-3 of the peak (:793), fused against plain 2e-3 of
+# the peak (:618); Grams and the application TOL of the peak
+W_RTOL, W_ATOL, W_EQ_TOL, W_FUSED_TOL = 1e-3, 1e-4, 5e-3, 2e-3
+W5_BAR = 0.995   # WPD's enhanced cosine and mask correlation (W5)
+# Where the f32 loop is ill conditioned the plain versions on the card are
+# no sound reference (their cuBLAS Grams lie 0.158 of the peak from a
+# float64 run on the reverberant scene), so the kernels are held against
+# a float64 run of the plain loop at fixed bars: no further than the f32
+# plain loop on the CPU lies (CPU BLAS Grams, the closest f32 loop measured),
+# rounded up to one digit.  Readings of tools/wpe_precision.py on an
+# NVIDIA H100 80GB HBM3 at 700 W: on the reverberant scene (condition
+# numbers of the tap correlation up to 2e6) the CPU loop lies 1.76e-2 of
+# the peak (largest |diff|) from float64, and over utterances the median
+# of each one's largest |diff| over its peak is 1.21e-3, inside the fused
+# bar W_FUSED_TOL; on zero-padded noise (BatchWpe's buckets; condition
+# numbers ~1e7, where even float64 Grams with an f32 solve lie 2.8e-2
+# away) 6.09e-2 of an utterance's peak.
+W_REV_MAX, W_PAD_TOL = 2e-2, 7e-2
+
+
+def _wpe_scene(b, n, s, seed, reverb):
+    """(B, N, S) float32: noise at 0.2 (bench_secondary.py:123-127), or a
+    source at 0.2 reaching mic k one sample later per mic through ten
+    echoes 3-60 ms late at 0.6^d, plus noise at 0.02."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if not reverb:
+        return rng.standard_normal((b, n, s)).astype(np.float32) * 0.2
+    dry = rng.standard_normal((b, s)).astype(np.float32) * 0.2
+    wav = rng.standard_normal((b, n, s)).astype(np.float32) * 0.02
+    for k in range(n):
+        wav[:, k] += np.roll(dry, k, axis=-1)
+        for d in range(1, 11):
+            lag = 48 + 96 * (d - 1) + 7 * k
+            wav[:, k, lag:] += 0.6**d * dry[:, :s - lag]
+    return wav
+
+
+def _spectra(torch, wav_d, cfg):
+    """(B, F, N, T) complex64 of (B, N, S) float32 on the card."""
+    from setk_tpu_torch.dsp.stft import forward_stft
+    return forward_stft(wav_d, cfg).permute(0, 3, 1, 2).contiguous()
+
+
+def _wpe_plain(obs, taps, delay, context, iters):
+    """The fused WPE loop through the plain versions of kernels 18, 17,
+    19: (..., F, N, T) -> the same."""
+    from setk_tpu_torch.ops.cuda import cholesky as ch
+    from setk_tpu_torch.ops.cuda import wpe_gram as wg
+    *lead, f, n, t = obs.shape
+    flat = obs.reshape(-1, n, t)
+    g = None
+    for i in range(iters):
+        gram = wg.wpe_gram_plain(flat, g, taps, delay, context, i > 0)
+        g = ch.solve_wpe_gram_plain(gram, n, n * taps, n)
+    return wg.wpe_apply_plain(flat, g, taps, delay).reshape(obs.shape)
+
+
+class _PlainKernels:
+    """Within the block every kernel wrapper on the WPE and WPD paths
+    (16-19, the EM, the pair covariance, the MVDR solve) is its plain
+    version: the same call through the plain versions on the card."""
+
+    def __enter__(self):
+        from setk_tpu_torch.enhance import wpe as tw
+        from setk_tpu_torch.ops import linalg as tla
+        from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+        from setk_tpu_torch.ops.cuda import cholesky as ch
+        from setk_tpu_torch.ops.cuda import covariance_pair as cp
+        from setk_tpu_torch.ops.cuda import mvdr as mv
+        from setk_tpu_torch.ops.cuda import wpe_gram as wg
+        self.swaps = [(tw, "wpe_gram", wg.wpe_gram_plain),
+                      (tw, "solve_wpe_gram", ch.solve_wpe_gram_plain),
+                      (tw, "wpe_apply", wg.wpe_apply_plain),
+                      (tw, "mvdr_power", mv.mvdr_power_plain),
+                      (tla, "hermitian_solve_lanes",
+                       ch.hermitian_solve_lanes_plain),
+                      (ce, "em", ce.em_plain),
+                      (cp, "pair_covar", cp.pair_covar_plain)]
+        self.saved = [(m, a, getattr(m, a)) for m, a, _ in self.swaps]
+        for m, a, fn in self.swaps:
+            setattr(m, a, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, fn in self.saved:
+            setattr(m, a, fn)
+        return False
+
+
+def _allclose_excess(got, ref, rtol, atol):
+    """max(|got - ref| - rtol |ref|) - atol: <= 0 where allclose holds."""
+    return float(((got - ref).abs() - rtol * ref.abs()).max()) - atol
+
+
+def _tri(n):
+    return n * (n + 1) // 2
+
+
+def _flops_wpe_gram(bins, n, taps, t, use_g):
+    """Per frame and bin 8 FLOP for each (i <= j) Gram entry, and with
+    ``use_g`` 8 for each of the dereverberation's N x N taps products."""
+    cols = (taps + 1) * n
+    return bins * t * 8 * (_tri(cols) + (n * n * taps if use_g else 0))
+
+
+def _flops_wpe_apply(bins, n, taps, t):
+    return bins * t * 8 * n * n * taps
+
+
+def _flops_chol_solve(bins, n, k):
+    return bins * (_chol_flops(n) + k * _solve_flops(n))
+
+
+def _time_batch_wpe(executor, utts):
+    results = {}
+    for key, x in utts.items():
+        results.update(executor.add(key, x))
+    results.update(executor.flush())
+    return results
+
+
+def _wpe_slice(np, torch, dev, cfg):
+    """Phases W1-W5 and the timing of kernels 16-19: returns (the kernels
+    line's rows for 16-19, a summary of the steps)."""
+    from setk_tpu_torch.dsp.stft import inverse_stft
+    from setk_tpu_torch.enhance import wpe as tw
+    from setk_tpu_torch.enhance.wpe import compute_lambda
+    from setk_tpu_torch.ops.cuda import _build
+    from setk_tpu_torch.ops.cuda import cholesky as ch
+    from setk_tpu_torch.ops.cuda import wpe_gram as wg
+    from setk_tpu_torch.parallel.executor import BatchWpe
+    eps = 1.1920929e-07
+    n, taps, delay, ctx = N, W_TAPS, W_DELAY, W_CONTEXT
+    nk, s_w = n * taps, W_SECS * SR
+
+    # ---- W1: kernels 16-19 against their plain versions ----
+    errs = {k: 0.0 for k in ("wpe_gram", "solve_wpe_gram", "wpe_apply",
+                             "hermitian_solve_lanes")}
+    abs_errs = dict(errs)
+    w1 = {}
+
+    def held(name, got, ref, how):
+        """Record got against ref; how is "peak" (TOL of the peak),
+        "solve" (W_FUSED_TOL of the peak: a WPE Gram's solve, which two
+        f32 operation orders part by its condition), "eq" (W_EQ_TOL of the
+        peak) or "close" (W_RTOL, W_ATOL elementwise)."""
+        rel, ab = _rel(got, ref), _abs(got, ref)
+        errs[name] = max(errs[name], rel)
+        abs_errs[name] = max(abs_errs[name], ab)
+        if how == "close":
+            bad = _allclose_excess(got, ref, W_RTOL, W_ATOL) > 0
+        else:
+            bad = not rel <= {"peak": TOL, "solve": W_FUSED_TOL,
+                              "eq": W_EQ_TOL}[how]
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"W1 {name} ({how}): kernel vs plain "
+                                 f"relative {rel}, absolute {ab}")
+        return rel
+
+    scenes = {}
+    wav_n = _wpe_scene(W_B, n, s_w, 20, False)
+    wav_r = _wpe_scene(W_B, n, s_w, 21, True)
+    for label, reverb in (("noise", False), ("reverberant", True)):
+        wav = torch.from_numpy(wav_r if reverb else wav_n).to(dev)
+        obs = _spectra(torch, wav, cfg)
+        scenes[label] = obs
+        flat = obs.reshape(-1, n, obs.shape[-1])
+        t = flat.shape[-1]
+        gram0 = wg.wpe_gram(flat, None, taps, delay, ctx, use_g=False)
+        gram0_p = wg.wpe_gram_plain(flat, None, taps, delay, ctx, False)
+        row = {"gram_first": held("wpe_gram", gram0, gram0_p, "peak")}
+        x_p = ch.solve_wpe_gram_plain(gram0_p, n, nk, n)
+        row["solve"] = held("solve_wpe_gram", ch.solve_wpe_gram(
+            gram0_p, n, nk, n), x_p, "solve")
+        gram1_p = wg.wpe_gram_plain(flat, x_p, taps, delay, ctx, True)
+        row["gram_use_g"] = held("wpe_gram", wg.wpe_gram(
+            flat, x_p, taps, delay, ctx, True), gram1_p, "peak")
+        row["apply"] = held("wpe_apply", wg.wpe_apply(flat, x_p, taps,
+                                                      delay),
+                            wg.wpe_apply_plain(flat, x_p, taps, delay),
+                            "peak")
+        lam = compute_lambda(obs, ctx).reshape(-1, t).contiguous()
+        gram_l_p = wg.wpe_gram_plain(flat, None, taps, delay, 0, False, lam)
+        row["gram_lambda"] = held("wpe_gram", wg.wpe_gram(
+            flat, None, taps, delay, 0, False, lam), gram_l_p, "peak")
+        e_eq = 4.0 * nk * eps
+        row["solve_equilibrated"] = held(
+            "solve_wpe_gram", ch.solve_wpe_gram(gram_l_p, n, nk, n, e_eq,
+                                                True),
+            ch.solve_wpe_gram_plain(gram_l_p, n, nk, n, e_eq, True), "eq")
+        corr = gram1_p[:, n:, n:].contiguous()
+        cross = gram1_p[:, n:, :n].contiguous()
+        row["lanes_60"] = held("hermitian_solve_lanes",
+                               ch.hermitian_solve_lanes(corr, cross),
+                               ch.hermitian_solve_lanes_plain(corr, cross),
+                               "solve")
+        # NK = 9 and 30: the first three mics at taps 3 and 10
+        sub = flat[:, :3].contiguous()
+        for tp in (3, 10):
+            g3 = wg.wpe_gram_plain(sub, None, tp, delay, ctx, False)
+            for eq in (False, True):
+                e = 4.0 * 3 * tp * eps if eq else 1e-6
+                row[f"solve_nk{3 * tp}{'_eq' if eq else ''}"] = held(
+                    "solve_wpe_gram",
+                    ch.solve_wpe_gram(g3, 3, 3 * tp, 3, e, eq),
+                    ch.solve_wpe_gram_plain(g3, 3, 3 * tp, 3, e, eq),
+                    "eq" if eq else "solve")
+        w1[label] = row
+    # n = 128 (8 mics, taps 16): kernel 18 at cols = 136 in several passes
+    # and kernel 16 through its dynamic shared memory
+    wav8 = torch.from_numpy(_wpe_scene(4, 8, s_w, 22, True)).to(dev)
+    flat8 = _spectra(torch, wav8, cfg).reshape(-1, 8, cfg.num_frames(s_w))
+    g8_p = wg.wpe_gram_plain(flat8, None, 16, delay, ctx, False)
+    w1["n8_taps16"] = {
+        "gram": held("wpe_gram", wg.wpe_gram(flat8, None, 16, delay, ctx,
+                                             False), g8_p, "peak"),
+        "lanes_128": held(
+            "hermitian_solve_lanes", ch.hermitian_solve_lanes(
+                g8_p[:, 8:, 8:].contiguous(), g8_p[:, 8:, :8].contiguous()),
+            ch.hermitian_solve_lanes_plain(g8_p[:, 8:, 8:].contiguous(),
+                                           g8_p[:, 8:, :8].contiguous()),
+            "solve")}
+    # the CPU tests' systems at the CPU tests' bars (tests/test_pallas.py:
+    # 793: a rank-6 Gram plus 0.5 I; a copy with rows scaled over ~5
+    # decades, equilibrated, eps_rel 1e-5), one a bin of the scene
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    n_sys = W_B * cfg.num_bins
+
+    def synth(cols):
+        a = torch.complex(torch.randn(n_sys, cols, 6, generator=gen,
+                                      device=dev),
+                          torch.randn(n_sys, cols, 6, generator=gen,
+                                      device=dev))
+        return (a @ a.conj().transpose(-1, -2) + 0.5 * torch.eye(
+            cols, device=dev)).contiguous()
+
+    synth_row = {}
+    for nk_s, n0 in ((9, 3), (30, 3), (60, 6)):
+        gs = synth(n0 + nk_s)
+        synth_row[f"solve_nk{nk_s}"] = held(
+            "solve_wpe_gram", ch.solve_wpe_gram(gs, n0, nk_s, n0),
+            ch.solve_wpe_gram_plain(gs, n0, nk_s, n0), "close")
+        sc = torch.exp(torch.rand(n_sys, n0 + nk_s, generator=gen,
+                                  device=dev) * 12 - 6)
+        gs = (gs * (sc[:, :, None] * sc[:, None, :])).contiguous()
+        synth_row[f"solve_nk{nk_s}_eq"] = held(
+            "solve_wpe_gram", ch.solve_wpe_gram(gs, n0, nk_s, n0, 1e-5, True),
+            ch.solve_wpe_gram_plain(gs, n0, nk_s, n0, 1e-5, True), "eq")
+    for nn in (60, 128):
+        gs = synth(nn + 8)
+        a_s = gs[:, 8:, 8:].contiguous()
+        b_s = gs[:, 8:, :8].contiguous()
+        synth_row[f"lanes_{nn}"] = held(
+            "hermitian_solve_lanes", ch.hermitian_solve_lanes(a_s, b_s),
+            ch.hermitian_solve_lanes_plain(a_s, b_s), "close")
+    w1["synthetic"] = synth_row
+    torch.cuda.synchronize()
+    print(json.dumps({"W1_kernel_vs_plain_max_rel_err": w1,
+                      "bars": {"peak": TOL, "solve": W_FUSED_TOL,
+                               "equilibrated": W_EQ_TOL,
+                               "synthetic_rtol": W_RTOL,
+                               "synthetic_atol": W_ATOL}}))
+
+    # ---- W2: wpe at full width ----
+    # on the noise scene the loop is well conditioned: the kernels within
+    # W_FUSED_TOL of the same loop through the plain versions.  On the
+    # reverberant scene WPE nearly cancels the echoes and lambda collapses:
+    # the kernels' loop within W_REV_MAX of the peak of a float64 run, and
+    # the median utterance within W_FUSED_TOL of its peak
+    want = {"wpe_gram": W_ITERS, "solve_wpe_gram": W_ITERS, "wpe_apply": 1}
+    w2 = {}
+    for label, obs_s in scenes.items():
+        fused, c_fused = _launched(torch, lambda: tw.wpe(obs_s),
+                                   f"W2 wpe fused {label}", WPE_SET)
+        plain = _wpe_plain(obs_s, taps, delay, ctx, W_ITERS)
+        row = {"fused_launches": c_fused, "fused_vs_plain": _rel(fused, plain),
+               "finite": bool(torch.isfinite(fused).all())}
+        if label == "reverberant":
+            exact = _wpe_plain(obs_s.to(torch.complex128), taps, delay, ctx,
+                               W_ITERS)
+            row["fused_vs_f64"] = _rel(fused.to(exact.dtype), exact)
+            per_utt = ((fused.to(exact.dtype) - exact).abs().flatten(1)
+                       .amax(1) / exact.abs().flatten(1).amax(1))
+            row["fused_vs_f64_median_utterance"] = float(
+                per_utt.quantile(0.5))
+            row["plain_vs_f64"] = _rel(plain.to(exact.dtype), exact)
+            del exact, per_utt
+            ok = row["fused_vs_f64"] <= W_REV_MAX and \
+                row["fused_vs_f64_median_utterance"] <= W_FUSED_TOL
+        else:
+            ok = row["fused_vs_plain"] <= W_FUSED_TOL
+        w2[label] = row
+        if c_fused != want or not row["finite"] or not ok:
+            raise AssertionError(f"W2 wpe {label}: {row}")
+    obs_w = scenes["noise"]
+    scan, c_scan = _launched(torch, lambda: tw.wpe(obs_w, use_fused=False),
+                             "W2 wpe scan", {"hermitian_solve_lanes"})
+    t_chirp = np.arange(4 * SR) / SR
+    chirp = np.sin(2 * np.pi * (300 + 600 * t_chirp) * t_chirp).astype(
+        np.float32) * 0.5
+    mix = chirp[None] + np.random.default_rng(23).standard_normal(
+        (n, t_chirp.size)).astype(np.float32) * 0.25
+    chirp_out = tw.wpe(_spectra(torch, torch.from_numpy(mix[None]).to(dev),
+                                cfg))
+    w2.update(scan_launches=c_scan,
+              scan_vs_fused=_rel(scan, tw.wpe(obs_w)),
+              chirp_finite=bool(torch.isfinite(chirp_out).all()))
+    print(json.dumps({"W2_wpe": w2, "tol": W_FUSED_TOL,
+                      "reverberant_tol": W_REV_MAX}))
+    if c_scan != {"hermitian_solve_lanes": W_ITERS} or \
+            not w2["chirp_finite"]:
+        raise AssertionError(f"W2 wpe: {w2}")
+
+    # ---- W3: BatchWpe over keyed utterances ----
+    # the bench scene (noise at 0.2): B utterances of 8 s and W_EXTRA; then
+    # the reverberant scene's 8 s utterances, whose bucket pads 12 frames
+    utts = {f"w{i:02d}": wav_n[i] for i in range(W_B)}
+    for key, samples, seed in W_EXTRA:
+        utts[key] = _wpe_scene(1, n, samples, seed, False)[0]
+    executor = BatchWpe(cfg, taps=taps, delay=delay, context=ctx,
+                        num_iters=W_ITERS, batch_size=W_B, device="cuda")
+
+    def against_plain(utts, res, exact=True):
+        """Each output against the plain path on the card, bucket by
+        bucket as BatchWpe pads, and (``exact``) against a float64 run of
+        the plain path: (over the zero-padded outputs, the largest error
+        relative to an utterance's peak of the kernels' output and of the
+        f32 plain output from the f64 run; over the outputs that fill their
+        bucket, the kernels' largest error from the f32 plain output; keys
+        not finite on the card; keys not finite on the plain path; bucket
+        count); errors over outputs finite on both paths."""
+        buckets = {}
+        for key, x in utts.items():
+            buckets.setdefault(executor.bucketer.bucket(x.shape[-1]),
+                               []).append(key)
+        err_k, err_p, err_kp, bad_k, bad_p = 0.0, 0.0, 0.0, [], []
+        for bucket, keys in buckets.items():
+            wv = np.zeros((len(keys), n, bucket), np.float32)
+            for i, key in enumerate(keys):
+                wv[i, :, :utts[key].shape[-1]] = utts[key]
+            spec = _spectra(torch, torch.from_numpy(wv).to(dev), cfg)
+            refs = []
+            for dtype in ((torch.complex64, torch.complex128) if exact
+                          else (torch.complex64,)):
+                der = _wpe_plain(spec.to(dtype), taps, delay, ctx, W_ITERS)
+                refs.append(inverse_stft(der.permute(0, 2, 3, 1), cfg,
+                                         nsamps=bucket).cpu().numpy())
+                del der
+            for i, key in enumerate(keys):
+                got, x = res[key], utts[key]
+                if got.shape != x.shape:
+                    raise AssertionError(f"W3 {key}: bad shape {got.shape}")
+                r32 = refs[0][i, :, :x.shape[-1]]
+                fin_k, fin_p = np.isfinite(got).all(), np.isfinite(r32).all()
+                if not fin_k:
+                    bad_k.append(key)
+                if not fin_p:
+                    bad_p.append(key)
+                if fin_k and fin_p and x.shape[-1] == bucket:
+                    err_kp = max(err_kp, float(np.abs(got - r32).max() /
+                                               np.abs(r32).max()))
+                elif fin_k and fin_p:
+                    if exact:
+                        r64 = refs[1][i, :, :x.shape[-1]]
+                        peak = np.abs(r64).max()
+                        err_k = max(err_k, float(np.abs(got - r64).max() /
+                                                 peak))
+                        err_p = max(err_p, float(np.abs(r32 - r64).max() /
+                                                 peak))
+        return err_k, err_p, err_kp, bad_k, bad_p, len(buckets)
+
+    t0 = time.perf_counter()
+    res, c_batch = _launched(torch, lambda: _time_batch_wpe(executor, utts),
+                             "W3 BatchWpe", WPE_SET)
+    batch_s = time.perf_counter() - t0
+    err_k, err_p, err_kp, bad_k, bad_p, nb = against_plain(utts, res)
+    want = {"wpe_gram": W_ITERS * nb, "solve_wpe_gram": W_ITERS * nb,
+            "wpe_apply": nb}
+    w3 = {"launches": c_batch, "buckets": nb, "utterances": len(utts),
+          "seconds": batch_s, "padded_kernels_vs_f64": err_k,
+          "padded_plain_vs_f64": err_p, "unpadded_kernels_vs_plain": err_kp,
+          "non_finite_card": bad_k, "non_finite_plain": bad_p}
+    # padded frames get lambda = EPSILON (the JAX package's semantics,
+    # kept): on the reverberant scene the padded tap Gram is indefinite
+    # in f32 and the outputs are not finite on either path; recorded
+    utts_r = {f"r{i:02d}": wav_r[i] for i in range(W_B)}
+    res_r, c_r = _launched(torch, lambda: _time_batch_wpe(executor, utts_r),
+                           "W3 BatchWpe reverberant", WPE_SET)
+    _, _, _, bad_rk, bad_rp, _ = against_plain(utts_r, res_r, exact=False)
+    w3["reverberant_padded"] = {"launches": c_r,
+                                "non_finite_card": len(bad_rk),
+                                "non_finite_plain": len(bad_rp),
+                                "utterances": len(utts_r)}
+    unpadded = [key for key, x in utts.items()
+                if executor.bucketer.bucket(x.shape[-1]) == x.shape[-1]]
+    w3["unpadded"] = unpadded
+    print(json.dumps({"W3_BatchWpe": w3, "unpadded_tol": W_FUSED_TOL,
+                      "padded_tol": W_PAD_TOL}))
+    if c_batch != want or bad_k or bad_p or not err_k <= W_PAD_TOL or \
+            not unpadded or not err_kp <= W_FUSED_TOL or \
+            c_r != {k: v // nb for k, v in want.items()}:
+        raise AssertionError(f"W3 BatchWpe: {w3}, launches need {want}")
+
+    # ---- W4: the CLIs on the card against --device cpu ----
+    # each CLI skips an utterance whose output is not finite; with the
+    # padded-frame semantics above most of step 8's corpus is skipped by
+    # the WPE CLI on the CPU (recorded).  A second corpus of lengths that
+    # fill a sample bucket (65536, 131072: no padded frame on the batched
+    # path) or a 64-frame bucket (65280, 130816: none on the per-utterance
+    # path) must be written on both sides where its path pads nothing.
+    from setk_tpu_torch.cli import apply_wpd as wpd_cli
+    from setk_tpu_torch.cli import apply_wpe as wpe_cli
+    from setk_tpu_torch.io.wave import read_wav
+    w4 = {}
+    fit = {"apply_wpe_b4": {"f0", "f2"}, "apply_wpe_b1": {"f1", "f3"},
+           "apply_wpd": set()}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        keys = _write_corpus(tmp, seed=3)
+        _write_corpus(tmp / "fit", seed=4,
+                      lengths=(65536, 65280, 131072, 130816), prefix="f")
+        for label, mod, extra, want in (
+                ("apply_wpe_b4", wpe_cli, ["--batch-size", "4"], WPE_SET),
+                ("apply_wpe_b1", wpe_cli, ["--batch-size", "1"], WPE_SET),
+                ("apply_wpd", wpd_cli, [], WPD_SET)):
+            outs, masks = {}, {}
+            for device in ("cuda", "cpu"):
+                outs[device] = {}
+                for corpus in ((tmp,) if mod is wpd_cli else
+                               (tmp, tmp / "fit")):
+                    out = corpus / f"{label}-{device}"
+                    argv = [str(corpus / "wav.scp"), str(out), "--device",
+                            device] + extra
+                    if mod is wpd_cli:
+                        argv += ["--mask-dir", str(out) + "-masks"]
+                    run = (lambda: mod.run(mod.make_parser().parse_args(
+                        argv)))
+                    if device == "cuda":
+                        _, counts = _launched(torch, run, f"W4 {label}",
+                                              want)
+                        w4.setdefault(label, {}).setdefault(
+                            "launches", []).append(counts)
+                    else:
+                        run()
+                    for path in sorted(out.glob("*.wav")):
+                        outs[device][path.stem] = read_wav(
+                            path, normalize=False)
+                    if mod is wpd_cli:
+                        masks[device] = {
+                            k: np.load(f"{out}-masks/{k}.npy")
+                            for k in outs[device]}
+            a, b = outs["cuda"], outs["cpu"]
+            both = sorted(set(a) & set(b))
+            row = w4[label]
+            row.update(written_card=sorted(a), written_cpu=sorted(b),
+                       must_write=sorted(fit[label]))
+            row["max_int16_step"] = max(
+                (float(np.abs(a[k] - b[k]).max()) for k in both), default=0)
+            row["min_corr"] = min((float(np.corrcoef(
+                a[k].ravel(), b[k].ravel())[0, 1]) for k in both), default=1)
+            if masks:
+                row["min_mask_corr"] = min(float(np.corrcoef(
+                    masks["cuda"][k].ravel(), masks["cpu"][k].ravel())[0, 1])
+                    for k in both)
+                row["min_cosine"] = min(float(
+                    np.abs((a[k] * b[k]).sum()) / np.sqrt(
+                        (a[k] * a[k]).sum() * (b[k] * b[k]).sum()))
+                    for k in both)
+    print(json.dumps({"W4_cli_card_vs_cpu": w4, "utterances": len(keys),
+                      "corr": 0.99}))
+    for label, row in w4.items():
+        if fit[label] - set(row["written_card"]) or \
+                fit[label] - set(row["written_cpu"]) or not (
+                    row["min_corr"] >= 0.99 and
+                    row.get("min_mask_corr", 1) >= 0.99 and
+                    row.get("min_cosine", 1) >= 0.99):
+            raise AssertionError(f"W4 {label}: {row}")
+    if len(w4["apply_wpd"]["written_cpu"]) != len(keys) or \
+            len(w4["apply_wpd"]["written_card"]) != len(keys):
+        raise AssertionError(f"W4 apply_wpd: {w4['apply_wpd']}")
+
+    # ---- W5: wpd at B = 32 x 4 s ----
+    # the bench's input (noise at 0.2, bench_secondary.py:84-91) against
+    # the same call through the plain versions: three outer iterations of
+    # chained CGMM over noise amplify rounding (first run on the card:
+    # cosine 0.9985, mask correlation 0.9994), so the bar is W5_BAR,
+    # between that and tests/test_wpe.py's fused-vs-XLA 0.99; the
+    # reverberant scene (chained EM over a collapsing lambda) recorded,
+    # and finite on both paths
+    w5 = {}
+    for label, reverb, seed in (("noise", False, 24), ("reverberant", True,
+                                                       24)):
+        wav_d = torch.from_numpy(_wpe_scene(W_B, n, WPD_SECS * SR, seed,
+                                            reverb)).to(dev)
+        obs_d = _spectra(torch, wav_d, cfg)
+
+        def run_wpd(obs_d=obs_d):
+            return tw.wpd(obs_d, cgmm_iters=WPD_CGMM, wpd_iters=WPD_OUTER,
+                          taps=taps, delay=delay, context=ctx)
+
+        (mask_k, enh_k), c_wpd = _launched(torch, run_wpd,
+                                           f"W5 wpd {label}", WPD_SET)
+        with _PlainKernels():
+            mask_p, enh_p = run_wpd()
+        w5[label] = {
+            "launches": c_wpd,
+            "enhanced_cosine": float((torch.vdot(
+                enh_k.flatten(), enh_p.flatten()).abs() / (
+                    torch.linalg.vector_norm(enh_k) *
+                    torch.linalg.vector_norm(enh_p)))),
+            "mask_corr": float(np.corrcoef(
+                mask_k.cpu().numpy().ravel(),
+                mask_p.cpu().numpy().ravel())[0, 1]),
+            "finite": bool(torch.isfinite(enh_k).all() and
+                           torch.isfinite(enh_p).all())}
+        if label == "noise":
+            wpd_run = run_wpd
+    before = torch.cuda.memory_allocated()
+    try:
+        tw.wpd(np.zeros((cfg.num_bins, 9, 100), np.complex64), taps=2,
+               device="cuda")
+    except NotImplementedError as exc:
+        w5["refusal"] = re.search(r"ROADMAP [^;,]*", str(exc)).group(0)
+    else:
+        raise AssertionError("W5: wpd outside the gate was not refused")
+    w5["refusal_allocated"] = torch.cuda.memory_allocated() - before
+    print(json.dumps({"W5_wpd": w5, "bar": W5_BAR}))
+    for label in ("noise", "reverberant"):
+        row = w5[label]
+        if row["launches"] != {k: WPD_OUTER for k in WPD_SET} or \
+                not row["finite"] or (label == "noise" and not (
+                    row["enhanced_cosine"] >= W5_BAR and
+                    row["mask_corr"] >= W5_BAR)):
+            raise AssertionError(f"W5 wpd {label}: {w5}")
+    if w5["refusal_allocated"]:
+        raise AssertionError(f"W5 refusal allocated: {w5}")
+
+    # ---- timing at the WPE scene ----
+    flat = obs_w.reshape(-1, n, obs_w.shape[-1])
+    t = flat.shape[-1]
+    bins = flat.shape[0]
+    g_w = ch.solve_wpe_gram_plain(wg.wpe_gram_plain(
+        flat, None, taps, delay, ctx, False), n, nk, n)
+    gram_w = wg.wpe_gram_plain(flat, g_w, taps, delay, ctx, True)
+    corr = gram_w[:, n:, n:].contiguous()
+    cross = gram_w[:, n:, :n].contiguous()
+    x_w = ch.solve_wpe_gram(gram_w, n, nk, n)
+    rows = [
+        ("hermitian_solve_lanes", "setk_tpu/ops/pallas/cholesky.py:384",
+         lambda: ch.hermitian_solve_lanes(corr, cross),
+         lambda: ch.hermitian_solve_lanes_plain(corr, cross),
+         _bound(corr.nbytes + cross.nbytes + x_w.nbytes,
+                _flops_chol_solve(bins, nk, n)), c_scan),
+        ("solve_wpe_gram", "setk_tpu/ops/pallas/cholesky.py:304",
+         lambda: ch.solve_wpe_gram(gram_w, n, nk, n),
+         lambda: ch.solve_wpe_gram_plain(gram_w, n, nk, n),
+         _bound(bins * (_tri(nk) + nk * n) * 8 + x_w.nbytes,
+                _flops_chol_solve(bins, nk, n)), c_batch),
+        ("wpe_gram", "setk_tpu/ops/pallas/wpe_gram.py:292",
+         lambda: wg.wpe_gram(flat, g_w, taps, delay, ctx, True),
+         lambda: wg.wpe_gram_plain(flat, g_w, taps, delay, ctx, True),
+         _bound(flat.nbytes + g_w.nbytes + gram_w.nbytes,
+                _flops_wpe_gram(bins, n, taps, t, True)), c_batch),
+        ("wpe_apply", "setk_tpu/ops/pallas/wpe_gram.py:344",
+         lambda: wg.wpe_apply(flat, g_w, taps, delay),
+         lambda: wg.wpe_apply_plain(flat, g_w, taps, delay),
+         _bound(2 * flat.nbytes + g_w.nbytes,
+                _flops_wpe_apply(bins, n, taps, t)), c_batch)]
+    # for information only, never called by the port: the loaded
+    # torch.linalg Cholesky solve of the same systems, and the weighted
+    # Gram / application of a tap stack built beforehand
+    load = ((1e-6 / nk) * torch.diagonal(corr, dim1=-2, dim2=-1).real.sum(
+        -1) + eps)[:, None, None] * torch.eye(nk, device=dev)
+    loaded = corr + load
+    taps_m = wg.tap_rows(flat, taps, delay)
+    sw = torch.rsqrt(torch.clamp(compute_lambda(flat, ctx), min=eps))
+    stack = torch.cat([flat, taps_m], dim=-2) * sw[:, None, :]
+    info = {}
+    for label, fn in (
+            ("linalg_cholesky_solve_ms_info", lambda: torch.cholesky_solve(
+                cross, torch.linalg.cholesky(loaded))),
+            ("tap_stack_gram_ms_info", lambda: stack @ stack.conj(
+            ).transpose(-1, -2)),
+            ("tap_stack_apply_ms_info", lambda: flat - g_w.conj().transpose(
+                -1, -2) @ taps_m)):
+        try:
+            info[label] = _time_ms(torch, fn, iters=5, warmup=1)
+        except RuntimeError as exc:
+            info[label] = f"not measured: {str(exc)[:70]}"
+    info_of = {"hermitian_solve_lanes": "linalg_cholesky_solve_ms_info",
+               "solve_wpe_gram": "linalg_cholesky_solve_ms_info",
+               "wpe_gram": "tap_stack_gram_ms_info",
+               "wpe_apply": "tap_stack_apply_ms_info"}
+    kernels = []
+    for name, replaces, run_k, run_p, (bound_ms, bound_by), counts in rows:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "setk_tpu_torch/csrc/" + (
+                "wpe_gram.cu" if name.startswith("wpe") else "cholesky.cu"),
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": abs_errs[name], "max_rel_err": errs[name],
+            "ms": _graph_ms(torch, run_k, iters=10),
+            "eager_ms": _time_ms(torch, run_k, iters=10),
+            "plain_ms": _time_ms(torch, run_p, iters=3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            info_of[name]: info[info_of[name]]})
+    steps = {}
+    wpe_ms = _time_ms(torch, lambda: tw.wpe(obs_w), iters=5, warmup=1)
+    wpd_ms = _time_ms(torch, wpd_run, iters=3, warmup=1)
+    batch_utts = {k: v for k, v in utts.items() if k.startswith("w")}
+    batch_ms = _time_ms(torch, lambda: _time_batch_wpe(executor, batch_utts),
+                        iters=3, warmup=1)
+    steps["wpe_B32_8s"] = {"ms": wpe_ms,
+                           "audio_s_per_s": W_B * W_SECS / (wpe_ms / 1e3),
+                           "profile": _device_profile(
+                               torch, lambda: tw.wpe(obs_w), wpe_ms,
+                               iters=3)}
+    steps["wpe_scan_B32_8s_ms"] = _time_ms(
+        torch, lambda: tw.wpe(obs_w, use_fused=False), iters=3, warmup=1)
+    steps["wpd_B32_4s"] = {"ms": wpd_ms,
+                           "audio_s_per_s": W_B * WPD_SECS / (wpd_ms / 1e3),
+                           "profile": _device_profile(torch, wpd_run, wpd_ms,
+                                                      iters=2)}
+    steps["BatchWpe_32x8s"] = {
+        "ms": batch_ms, "audio_s_per_s": W_B * W_SECS / (batch_ms / 1e3),
+        "profile": _device_profile(torch, lambda: _time_batch_wpe(
+            executor, batch_utts), batch_ms, iters=2)}
+    print(json.dumps({"wpe_steps": steps}))
+    return kernels, steps
+
+
 def _run_clusterer(clusterer, utts):
     results = {}
     for key, obs in utts.items():
@@ -618,15 +1305,23 @@ def _run_enhancer(enhancer, utts):
     return results
 
 
+def _say(message: str) -> None:
+    """One line on stdout and on stderr."""
+    print(message)
+    print(message, file=sys.stderr)
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "setk_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: setk_tpu_torch/ not found beside this script",
-              file=sys.stderr)
+        _say(f"chip_smoke: exit 2, no setk_tpu_torch/csrc beside this "
+             f"script under {root}")
         return 2
     import torch
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
+        _say(f"chip_smoke: exit 2, no CUDA device (torch "
+             f"{torch.__version__}, CUDA {torch.version.cuda}, "
+             f"{torch.cuda.device_count()} devices)")
         return 2
     sys.path.insert(0, str(root))
     import numpy as np
@@ -1327,7 +2022,10 @@ def main() -> int:
                              f"{before} -> {torch.cuda.memory_allocated()}")
     print(json.dumps({"C4_refusals": cl_refused}))
 
-    # ---- 17. timing at the bench shape ----
+    # ---- 17. W1-W5: WPE dereverberation and factored WPD ----
+    wpe_kernels, wpe_steps = _wpe_slice(np, torch, dev, cfg)
+
+    # ---- 18. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -1560,6 +2258,7 @@ def main() -> int:
                      else "linalg_solve_ms_info")
             row[label] = info[name]
         kernels.append(row)
+    kernels += wpe_kernels
     gevd50_ms = _graph_ms(torch, lambda: mv.gevd_power(grs, grn,
                                                        power_iters=50))
     step_ms = _time_ms(torch, lambda: enhance_batch(
@@ -1639,6 +2338,9 @@ def main() -> int:
         "online_plain_path_ms": online_plain_ms, "streaming": streaming,
         "gevd_power_50_iters_ms": gevd50_ms,
         "clustering_em_steps": em_steps,
+        "wpe_wpd_steps": {k: {kk: vv for kk, vv in v.items()
+                              if kk != "profile"} if isinstance(v, dict)
+                          else v for k, v in wpe_steps.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -27,10 +27,9 @@ rank-1 approximation) comes with ROADMAP queue 1 item 14.
 import argparse
 
 import numpy as np
-import torch
 
-from setk_tpu_torch.cli.common import (StftParser, stft_config_from_args,
-                                       strtobool)
+from setk_tpu_torch.cli.common import (StftParser, refuse_data_parallel,
+                                       stft_config_from_args, strtobool)
 from setk_tpu_torch.io import MaskReader, WaveWriter
 from setk_tpu_torch.io.prefetch import PrefetchWaveLoader
 from setk_tpu_torch.parallel.executor import BatchEnhancer
@@ -58,11 +57,7 @@ def _check_args(args):
             f"ROADMAP queue 1 item 14; the port runs --batch-size > 1 "
             f"(offline and online) without these options")
     device = resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and \
-            torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data-parallel over more than one card arrives with ROADMAP "
-            "queue 1 item 12")
+    refuse_data_parallel(args.data_parallel, device)
     return device
 
 

@@ -9,7 +9,7 @@ import argparse
 import numpy as np
 
 __all__ = ["StftParser", "strtobool", "stft_config_from_args",
-           "pad_to_bucket"]
+           "pad_to_bucket", "refuse_data_parallel"]
 
 
 def strtobool(value):
@@ -56,3 +56,14 @@ def pad_to_bucket(arr: np.ndarray, axis: int, bucket: int = 64):
     width = [(0, 0)] * arr.ndim
     width[axis] = (0, target - n)
     return np.pad(arr, width), n
+
+
+def refuse_data_parallel(data_parallel: bool, device) -> None:
+    """--data-parallel over more than one card is ROADMAP queue 1 item 12;
+    on one card (or the CPU) it changes nothing."""
+    import torch
+    if data_parallel and device.type == "cuda" and \
+            torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "--data-parallel over more than one card arrives with ROADMAP "
+            "queue 1 item 12")

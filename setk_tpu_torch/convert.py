@@ -13,6 +13,10 @@ for CACGMM).  ``em_state_from_numpy`` and ``em_state_to_numpy`` carry it
 across in both directions, as numpy arrays of the JAX package's dtypes
 (complex64 covariances, float32 phi and alpha).
 
+WPE dereverberation and factored WPD have no trained parameters and no
+resumable state: they carry nothing across, and the tests feed the same
+numpy-made spectra to both packages.
+
 The converter for the mask-net parameters (flax pytree -> torch state
 dict) comes with the neural mask estimators, ROADMAP queue 1 item 8.
 """

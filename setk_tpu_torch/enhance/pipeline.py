@@ -176,7 +176,7 @@ def check_fused_options(beamformer: str, steer: str) -> None:
     if beamformer == "mvdr" and steer != "power":
         raise NotImplementedError(
             "the fused pipeline's eigh steer for mvdr arrives with the "
-            "batched small-matrix EVD kernel, ROADMAP queue 2 item 14")
+            "batched small-matrix EVD kernel, ROADMAP queue 1 item 13")
 
 
 def enhance_fused(wav: torch.Tensor,

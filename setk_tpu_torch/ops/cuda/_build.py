@@ -30,7 +30,8 @@ SOURCES = {"mvdr_power": "mvdr_power.cu", "fused_mvdr": "fused_mvdr.cu",
            "planar_stft": "planar_stft.cu",
            "covariance_pair": "covariance_pair.cu",
            "covariance": "covariance.cu", "eigh_small": "eigh_small.cu",
-           "cacgmm_em": "cacgmm_em.cu"}
+           "cacgmm_em": "cacgmm_em.cu", "cholesky": "cholesky.cu",
+           "wpe_gram": "wpe_gram.cu"}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -73,6 +74,14 @@ _SIGNATURES = {
     "cacgmm_em": {
         "cacgmm_em_launch": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "cholesky": {
+        "hermitian_solve_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "gram_solve_launch": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "wpe_gram": {
+        "wpe_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "wpe_apply_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)

@@ -9,6 +9,9 @@ whitening, and the clustering EM's eigenvalue-floored
 
 The EVD runs only on the CPU: on a CUDA tensor ``eigh`` raises (the eigh
 steer and the online family on the card are ROADMAP queue 1 item 13).
+``hermitian_solve`` on a CUDA tensor with 16 <= N <= 128 runs the medium
+Cholesky kernel (ops/cuda/cholesky.py, kernel 16), as the JAX package runs
+its lane-batched Pallas Cholesky there on the TPU.
 ``regularized_inverse`` on a CUDA tensor with M <= 8 runs the Jacobi
 kernel (ops/cuda/eigh_small.py, kernel 14), as the JAX package runs its
 Pallas Jacobi on the TPU; the CPU takes the eigh-based plain path.
@@ -16,10 +19,15 @@ Pallas Jacobi on the TPU; the CPU takes the eigh-based plain path.
 
 import torch
 
+from setk_tpu_torch.ops.cuda.cholesky import MAX_DIM as MAX_SOLVE_DIM
+from setk_tpu_torch.ops.cuda.cholesky import hermitian_solve_lanes
 from setk_tpu_torch.ops.cuda.eigh_small import MAX_DIM
 from setk_tpu_torch.ops.cuda.eigh_small import \
     regularized_inverse as jacobi_inverse
 from setk_tpu_torch.utils.common import EPSILON
+
+# the smallest system kernel 16 takes on the card (the TPU's Pallas floor)
+KERNEL_MIN_DIM = 16
 
 __all__ = [
     "hermitianize", "eigh", "principal_eigvec", "solve_pevd",
@@ -33,7 +41,7 @@ def eigh(mat: torch.Tensor):
     if mat.device.type == "cuda":
         raise NotImplementedError(
             "a Hermitian EVD on a CUDA device arrives with the batched "
-            "small-matrix EVD kernel, ROADMAP queue 2 item 14")
+            "small-matrix EVD kernel, ROADMAP queue 1 item 13")
     return torch.linalg.eigh(mat)
 
 
@@ -50,17 +58,34 @@ def _diag_load(mat: torch.Tensor, eps_rel: float) -> torch.Tensor:
     return mat + (eps_rel * tr + EPSILON)[..., None, None] * eye
 
 
+def _on_card(a: torch.Tensor) -> bool:
+    return a.device.type == "cuda"
+
+
 def hermitian_solve(a: torch.Tensor, b: torch.Tensor,
                     eps_rel: float = 1e-6,
                     assume_hermitian: bool = False) -> torch.Tensor:
     """Solve a x = b for Hermitian (PSD) ``a`` via Cholesky + loading.
 
-    b: (..., N) vector or (..., N, K) matrix right-hand side.
+    b: (..., N) vector or (..., N, K) matrix right-hand side.  For
+    16 <= N <= 128 on a CUDA tensor the solve is kernel 16
+    (ops/cuda/cholesky.hermitian_solve_lanes), as the JAX package runs its
+    lane-batched Pallas Cholesky on the TPU; elsewhere ``torch.linalg``.
     """
     vec = b.ndim == a.ndim - 1
     rhs = b[..., None] if vec else b
+    n = a.shape[-1]
+    if _on_card(a) and KERNEL_MIN_DIM <= n <= MAX_SOLVE_DIM:
+        x = hermitian_solve_lanes(a.to(torch.complex64).contiguous(),
+                                  rhs.to(torch.complex64).contiguous(),
+                                  eps_rel, assume_hermitian).to(a.dtype)
+        return x[..., 0] if vec else x
     loaded = _diag_load(a if assume_hermitian else hermitianize(a), eps_rel)
-    chol = torch.linalg.cholesky(loaded)
+    # a system that is not positive definite after loading solves to NaN
+    # (as jnp.linalg.cholesky gives it; callers skip non-finite output)
+    chol, info = torch.linalg.cholesky_ex(loaded)
+    chol = torch.where((info == 0)[..., None, None], chol,
+                       torch.full_like(chol, float("nan")))
     y = torch.linalg.solve_triangular(chol, rhs, upper=False)
     x = torch.linalg.solve_triangular(chol.conj().transpose(-1, -2), y,
                                       upper=True)

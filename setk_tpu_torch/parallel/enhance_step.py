@@ -76,8 +76,8 @@ def check_cuda_options(beamformer: str, ban: bool, steer: str,
                 f" with the {steer} steer" if beamformer == "mvdr" else "")
             raise NotImplementedError(
                 f"online (chunked EMA) {what} on a CUDA device arrives with "
-                f"the batched small-matrix EVD kernel (queue 2 item 14), "
-                f"ROADMAP queue 1 item 13; the online kernels run mvdr with "
+                f"the batched small-matrix EVD kernel, ROADMAP queue 1 item "
+                f"13; the online kernels run mvdr with "
                 f"the power steer and no BAN")
     if cfg is None:
         return None
@@ -102,7 +102,7 @@ def check_cuda_options(beamformer: str, ban: bool, steer: str,
         raise NotImplementedError(
             f"{beamformer} at {where} and nsamps {out_samps} is outside the "
             f"fused kernels' gate; its weights there need the batched "
-            f"small-matrix EVD kernel, ROADMAP queue 2 item 14")
+            f"small-matrix EVD kernel, ROADMAP queue 1 item 13")
     if beamformer == "mvdr" and not ban and planar_supported(cfg, num_mics,
                                                              nsamps):
         return "planar"

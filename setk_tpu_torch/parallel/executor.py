@@ -6,8 +6,9 @@ Counterpart of ``setk_tpu/parallel/executor.py``: ``shard_manifest``
 (B, N, S) batches and (B, T, F) masks per bucket, runs
 ``enhance_batch`` on them and returns per-utterance trimmed waveforms,
 and ``BatchClusterer``, which runs the CGMM/CACGMM EM over frame buckets
-of utterance STFTs.  Data parallelism over a device mesh comes with
-ROADMAP queue 1 item 12; the WPE executor with queue 1 item 7.
+of utterance STFTs, and ``BatchWpe``, which runs STFT -> WPE -> iSTFT
+over sample buckets.  Data parallelism over a device mesh comes with
+ROADMAP queue 1 item 12.
 """
 
 from collections import defaultdict
@@ -24,7 +25,7 @@ from setk_tpu_torch.utils.logger import get_logger
 logger = get_logger(__name__)
 
 __all__ = ["shard_manifest", "LengthBucketer", "BatchEnhancer",
-           "BatchClusterer"]
+           "BatchClusterer", "BatchWpe"]
 
 
 def shard_manifest(keys, num_shards: int, shard_index: int):
@@ -215,3 +216,80 @@ class BatchClusterer:
         gamma = gamma.cpu().numpy()  # (K, B, F, bucket)
         return [(key, gamma[:, i, :, :t]) for i, (key, t) in
                 enumerate(lengths)]
+
+
+class BatchWpe:
+    """Batched WPE dereverberation over utterance buckets.
+
+    Feed (key, wav (N, S)) pairs; B utterances of one (N, bucket) shape
+    run as one STFT -> ``wpe`` -> iSTFT call on ``device`` (``cuda``
+    unless ``device="cpu"``): on the card the fused kernels 18 -> 17 per
+    iteration and 19 at the end, where ``wpe_fused_supported`` admits N
+    and taps.  Zero-padded tails are not harmless: their lambda is floored
+    at EPSILON, so their frames weigh 1 / EPSILON in the tap Gram (the
+    JAX package's semantics, kept).  On reverberant input that makes
+    padded outputs non-finite, on white noise it costs accuracy (ROADMAP
+    queue 3, "Zero-padded frames get lambda = EPSILON").  Returns
+    per-utterance (N, S) float32.
+    """
+
+    def __init__(self,
+                 cfg: StftConfig,
+                 taps: int = 10,
+                 delay: int = 3,
+                 context: int = 1,
+                 num_iters: int = 3,
+                 batch_size: int = 8,
+                 mesh=None,
+                 samples_per_bucket: int = 16384,
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh data parallelism arrives with ROADMAP queue 1 item 12")
+        self.cfg = cfg
+        self.taps = taps
+        self.delay = delay
+        self.context = context
+        self.num_iters = num_iters
+        self.batch_size = batch_size
+        self.device = resolve_device(device)
+        self.bucketer = LengthBucketer(cfg, samples_per_bucket)
+        self._pending = defaultdict(list)
+
+    def add(self, key, wav: np.ndarray):
+        """Queue one utterance (N, S); returns flushed (key, (N, S))."""
+        n_ch, nsamps = wav.shape
+        bucket = self.bucketer.bucket(nsamps)
+        self._pending[(n_ch, bucket)].append((key, wav))
+        if len(self._pending[(n_ch, bucket)]) >= self.batch_size:
+            return self._flush_bucket((n_ch, bucket))
+        return []
+
+    def flush(self):
+        """Flush all remaining partial batches."""
+        out = []
+        for shape in list(self._pending):
+            out.extend(self._flush_bucket(shape))
+        return out
+
+    def _flush_bucket(self, shape):
+        from setk_tpu_torch.dsp.stft import forward_stft, inverse_stft
+        from setk_tpu_torch.enhance.wpe import wpe
+        items = self._pending.pop(shape, [])
+        if not items:
+            return []
+        n_ch, bucket = shape
+        wavs = np.zeros((len(items), n_ch, bucket), dtype=np.float32)
+        lengths = []
+        for i, (key, wav) in enumerate(items):
+            s = wav.shape[-1]
+            wavs[i, :, :s] = wav
+            lengths.append((key, s))
+        logger.debug("bucket %s: %d utterances", shape, len(items))
+        spec = forward_stft(torch.from_numpy(wavs).to(self.device),
+                            self.cfg)                      # (B, N, T, F)
+        der = wpe(spec.permute(0, 3, 1, 2), taps=self.taps, delay=self.delay,
+                  context=self.context, num_iters=self.num_iters)
+        out = inverse_stft(der.permute(0, 2, 3, 1), self.cfg, nsamps=bucket)
+        out = out.cpu().numpy()
+        return [(key, out[i, :, :s]) for i, (key, s) in enumerate(lengths)]

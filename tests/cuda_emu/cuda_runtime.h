@@ -10,11 +10,13 @@
 // (a thread that returned is dropped from the barrier).
 // tests/test_torch_cuda_emu.py rewrites each `kernel<<<grid, block, smem,
 // stream>>>(args)` launch into `emu_launch(grid, block, smem, stream,
-// kernel, args)` before compiling.
+// kernel, args)` before compiling, and each dynamic shared array into a
+// pointer to the block's buffer of `smem` bytes.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <cstddef>
 #include <cstdint>
 #include <thread>
 #include <vector>
@@ -41,10 +43,18 @@ struct dim3 {
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename K>
+inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
+// a block's dynamic shared memory (`extern __shared__ T name[];` is
+// rewritten to `T* name = reinterpret_cast<T*>(emu_dyn_smem);`)
+inline char* emu_dyn_smem = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
@@ -71,9 +81,12 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
 }
 
 template <typename K, typename... A>
-void emu_launch(dim3 grid, int block, int, cudaStream_t, K kernel, A... args) {
+void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, K kernel,
+                A... args) {
   blockDim = dim3(block);
   gridDim = grid;
+  std::vector<double> dyn(smem / sizeof(double) + 1);
+  emu_dyn_smem = reinterpret_cast<char*>(dyn.data());
   for (unsigned by = 0; by < grid.y; ++by) {
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::barrier<> bar(block);

@@ -16,8 +16,8 @@
 - ``python -m setk_tpu_torch.cli --help`` lists the command, a fresh
   interpreter that imports every module of setk_tpu_torch and
   chip_smoke.py holds neither jax nor setk_tpu, and no ``import`` or
-  ``from`` of either stands anywhere in those files' syntax trees (inside
-  functions too).
+  ``from`` of either stands anywhere in those files' or tools/*.py's
+  syntax trees (inside functions too).
 """
 
 import ast
@@ -275,9 +275,10 @@ assert "setk_tpu_torch.io.prefetch" in names
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     # imports made only when a function runs count too: scan the syntax
-    # trees of every module and of chip_smoke.py at any depth
+    # trees of every module, of chip_smoke.py and of the port's tools at
+    # any depth
     files = sorted((ROOT / "setk_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

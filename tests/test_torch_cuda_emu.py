@@ -30,12 +30,14 @@ from setk_tpu_torch.dsp.stft import StftConfig
 from setk_tpu_torch.dsp.window import wss_inverse_blocks
 from setk_tpu_torch.ops.cuda import _build
 from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+from setk_tpu_torch.ops.cuda import cholesky as ch
 from setk_tpu_torch.ops.cuda import covariance as mc
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
 from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.ops.cuda import planar as pl
+from setk_tpu_torch.ops.cuda import wpe_gram as wg
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 TOL = 1e-5   # f32 radix-2 FFT against pocketfft, f32 sums in another order
@@ -44,6 +46,7 @@ TOL = 1e-5   # f32 radix-2 FFT against pocketfft, f32 sums in another order
 # kernels are held to on the card
 SOLVE_TOL = 1e-4
 _LAUNCH = re.compile(r"(\w+<[^;]*?>)<<<(.*?)>>>\(", re.S)
+_DYNAMIC_SMEM = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -56,6 +59,8 @@ def libs(tmp_path_factory):
     for name, src in _build.SOURCES.items():
         code = _LAUNCH.sub(r"emu_launch(\2, \1, ",
                            (_build.SOURCE_DIR / src).read_text())
+        code = _DYNAMIC_SMEM.sub(
+            r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", code)
         cpp = out / f"{name}.cpp"
         cpp.write_text(code)
         lib = out / f"lib{name}.so"
@@ -548,6 +553,137 @@ def test_clustering_entry_points_reject_bad_arguments(libs):
         assert lib.cacgmm_em_launch(p, p, None, 0, 0, 0, p, p, p, p, p, nb,
                                     f, t, m, k, iters, 0, higuchi, 0, 6,
                                     None) != 0
+
+
+def _gram(rng, bins, cols, rank=6, load=0.5):
+    a = _cplx(rng, bins, cols, rank)
+    return (a @ a.conj().transpose(-1, -2) + load * torch.eye(
+        cols, dtype=torch.complex64)).contiguous()
+
+
+@pytest.mark.parametrize("n,k,herm", [(1, 1, True), (16, 1, True),
+                                      (37, 6, False), (60, 6, True)])
+def test_hermitian_solve_source_matches_plain(libs, n, k, herm):
+    """Three systems a launch (three blocks), a nudge off Hermitian where
+    the kernel hermitianizes on load, n = 37 with rows past one warp's
+    32 lanes."""
+    rng = np.random.default_rng(n + k)
+    a = _gram(rng, 3, n, rank=n + 2, load=1.0)
+    if herm:
+        a = (a + 1e-3 * _cplx(rng, 3, n, n)).contiguous()
+    b = _cplx(rng, 3, n, k)
+    x = torch.empty_like(b)
+    err = libs["cholesky"].hermitian_solve_launch(
+        a.data_ptr(), b.data_ptr(), x.data_ptr(), 3, n, k, 1e-6, int(herm),
+        None)
+    assert err == 0
+    assert _rel(x, ch.hermitian_solve_lanes_plain(
+        a, b, assume_hermitian=not herm)) < SOLVE_TOL
+
+
+# NK at every residue mod 4 (the TPU's unrolled substitution double-
+# subtracted rows at NK % 4 in {2, 3}), the 3-mic and 6-mic defaults
+@pytest.mark.parametrize("nk", [9, 10, 11, 12, 30, 60])
+def test_gram_solve_source_matches_plain(libs, nk):
+    """Kernel 17 on a Gram two columns wider than N + NK, plain and
+    equilibrated on a row-scaled Gram with one empty row."""
+    rng = np.random.default_rng(nk)
+    bins, n0 = 3, 3 if nk < 60 else 6
+    g = n0 + nk + 2
+    gram = _gram(rng, bins, g)
+    x = torch.empty((bins, nk, n0), dtype=torch.complex64)
+    err = libs["cholesky"].gram_solve_launch(gram.data_ptr(), x.data_ptr(),
+                                             bins, g, n0, nk, n0, 1e-6, 0,
+                                             None)
+    assert err == 0
+    assert _rel(x, ch.solve_wpe_gram_plain(gram, n0, nk, n0)) < SOLVE_TOL
+    scale = torch.from_numpy(np.exp(rng.uniform(-6, 6, size=(bins, g))
+                                    ).astype(np.float32))
+    gram_s = gram * (scale[:, :, None] * scale[:, None, :])
+    gram_s[:, n0 + 2] = 0
+    gram_s[:, :, n0 + 2] = 0
+    gram_s = gram_s.contiguous()
+    eps = 4.0 * nk * 1.1920929e-07
+    err = libs["cholesky"].gram_solve_launch(gram_s.data_ptr(), x.data_ptr(),
+                                             bins, g, n0, nk, n0, eps, 1,
+                                             None)
+    assert err == 0
+    ref = ch.solve_wpe_gram_plain(gram_s, n0, nk, n0, eps, equilibrate=True)
+    assert torch.isfinite(x).all() and _rel(x, ref) < SOLVE_TOL
+    assert float(x[:, 2].abs().max()) == 0.0
+
+
+# (N, taps, delay, context, T, use_g, external lambda): T past one and two
+# 64-frame tiles, contexts 0-2, cols = 96 > 88 in two passes of the
+# block's 4 x 4 Gram tiles, taps reaching past the first tile
+WPE_CASES = [(3, 4, 2, 1, 150, False, False), (3, 4, 2, 1, 150, True, False),
+             (2, 3, 3, 2, 70, True, False), (1, 2, 0, 0, 64, True, False),
+             (4, 2, 1, 0, 65, False, True), (8, 11, 3, 1, 40, True, False)]
+
+
+@pytest.mark.parametrize("n,taps,delay,context,t,use_g,ext", WPE_CASES)
+def test_wpe_gram_source_matches_plain(libs, n, taps, delay, context, t,
+                                       use_g, ext):
+    rng = np.random.default_rng(n * taps + t)
+    bins, cols = 2, (taps + 1) * n
+    obs = _cplx(rng, bins, n, t)
+    obs[..., 5:] += 0.4 * obs[..., :-5]
+    obs = obs.contiguous()
+    g = (0.1 * _cplx(rng, bins, n * taps, n)).contiguous()
+    lam = torch.from_numpy(rng.random((bins, t)).astype(np.float32) + 0.1)
+    gram = torch.empty((bins, cols, cols), dtype=torch.complex64)
+    err = libs["wpe_gram"].wpe_gram_launch(
+        obs.data_ptr(), g.data_ptr(), lam.data_ptr() if ext else None,
+        gram.data_ptr(), bins, n, t, taps, delay, context, int(use_g), None)
+    assert err == 0
+    ref = wg.wpe_gram_plain(obs, g, taps, delay, context, use_g,
+                            lam if ext else None)
+    assert _rel(gram, ref) < TOL
+    assert torch.equal(gram, gram.conj().transpose(-1, -2))
+    assert float(torch.diagonal(gram, dim1=-2, dim2=-1).imag.abs().max()) \
+        == 0.0
+
+
+@pytest.mark.parametrize("n,taps,delay,t", [(3, 4, 2, 150), (6, 10, 3, 64),
+                                            (1, 1, 0, 5)])
+def test_wpe_apply_source_matches_plain(libs, n, taps, delay, t):
+    rng = np.random.default_rng(n + t)
+    obs = _cplx(rng, 2, n, t)
+    g = (0.1 * _cplx(rng, 2, n * taps, n)).contiguous()
+    out = torch.empty_like(obs)
+    err = libs["wpe_gram"].wpe_apply_launch(obs.data_ptr(), g.data_ptr(),
+                                            out.data_ptr(), 2, n, t, taps,
+                                            delay, None)
+    assert err == 0
+    assert _rel(out, wg.wpe_apply_plain(obs, g, taps, delay)) < TOL
+
+
+def test_wpe_entry_points_reject_bad_arguments(libs):
+    p = torch.zeros(8).data_ptr()
+    lib = libs["cholesky"]
+    for bins, n, k in ((0, 4, 1), (1, 0, 1), (1, 129, 1), (1, 4, 0),
+                       (1, 128, 2000)):
+        assert lib.hermitian_solve_launch(p, p, p, bins, n, k, 1e-6, 1,
+                                          None) != 0
+    for bins, g, row0, n, k in ((0, 8, 2, 4, 2), (1, 8, 5, 4, 2),
+                                (1, 8, -1, 4, 2), (1, 8, 2, 4, 9),
+                                (1, 200, 2, 129, 2)):
+        assert lib.gram_solve_launch(p, p, bins, g, row0, n, k, 1e-6, 0,
+                                     None) != 0
+    lib = libs["wpe_gram"]
+    for bins, n, t, taps, delay, ctx in ((0, 2, 8, 2, 1, 1), (1, 9, 8, 2, 1,
+                                                              1),
+                                         (1, 8, 8, 17, 1, 1),
+                                         (1, 2, 0, 2, 1, 1),
+                                         (1, 2, 8, 2, -1, 1),
+                                         (1, 2, 8, 2, 1, -1)):
+        assert lib.wpe_gram_launch(p, p, None, p, bins, n, t, taps, delay,
+                                   ctx, 1, None) != 0
+        assert ctx < 0 or lib.wpe_apply_launch(p, p, p, bins, n, t, taps,
+                                               delay, None) != 0
+    # use_g needs G unless lambda is given
+    assert lib.wpe_gram_launch(p, None, None, p, 1, 2, 8, 2, 1, 1, 1,
+                               None) != 0
 
 
 def test_library_names_follow_sources_and_headers(tmp_path, monkeypatch):

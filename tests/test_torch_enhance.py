@@ -225,7 +225,7 @@ def test_uncovered_options_raise(monkeypatch):
         assert torch.isfinite(enhance_batch(wt, mt, CFG, beamformer=name,
                                             ban=True)).all()
     assert torch.isfinite(enhance_batch(wt, mt, CFG, chunk_size=32)).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
         pipeline.enhance_fused(wt, mt, CFG, steer="eigh")
     with pytest.raises(ValueError, match="Unsupported fused beamformer"):
         pipeline.enhance_fused(wt, mt, CFG, beamformer="ds")
@@ -237,9 +237,9 @@ def test_uncovered_options_raise(monkeypatch):
     for kw, item in (({"chunk_size": 32, "beamformer": "gevd"},
                       "queue 1 item 13"),
                      ({"chunk_size": 32, "ban": True}, "queue 1 item 13"),
-                     ({"steer": "eigh"}, "queue 2 item 14"),
+                     ({"steer": "eigh"}, "queue 1 item 13"),
                      ({"nsamps": 4000, "beamformer": "gevd"},
-                      "queue 2 item 14")):
+                      "queue 1 item 13")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             enhance_batch(wav, mask, CFG, device="cuda", **kw)
     with pytest.raises(ValueError, match="Unsupported fused beamformer"):

@@ -18,12 +18,14 @@ from setk_tpu_torch.enhance.pipeline import (enhance_plain,
                                              enhance_plain_online,
                                              mvdr_enhance_planar_plain)
 from setk_tpu_torch.ops.cuda import cacgmm_em as ce
+from setk_tpu_torch.ops.cuda import cholesky as chl
 from setk_tpu_torch.ops.cuda import covariance as mc
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
 from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.ops.cuda import planar as pl
+from setk_tpu_torch.ops.cuda import wpe_gram as wgr
 from setk_tpu_torch.parallel.enhance_step import enhance_batch
 
 pytestmark = pytest.mark.gpu
@@ -432,4 +434,88 @@ def test_clustering_runs_kernels_only():
     with pytest.raises(ValueError, match="num_iters"):
         cacgmm_em(np.zeros((257, 4, 20), np.complex64), 2, num_iters=0,
                   device="cuda")
+    assert torch.cuda.memory_allocated() == before
+
+
+# ---- WPE and WPD (kernels 16-19) ----
+
+def _gram_on(dev, rng, bins, cols, load=0.5):
+    a = _cplx(rng, bins, cols, 8, dev=dev)
+    return (a @ a.conj().transpose(-1, -2) + load * torch.eye(
+        cols, dtype=torch.complex64, device=dev)).contiguous()
+
+
+@pytest.mark.parametrize("n,k", [(16, 1), (60, 6), (128, 8)])
+def test_hermitian_solve_lanes_matches_plain(n, k):
+    """n = 128 takes the dynamic shared memory opt-in above 48 KB."""
+    dev = _card()
+    rng = np.random.default_rng(n)
+    a = _gram_on(dev, rng, 300, n, load=2.0)
+    b = _cplx(rng, 300, n, k, dev=dev)
+    for assume in (False, True):
+        got = chl.hermitian_solve_lanes(a, b, assume_hermitian=assume)
+        ref = chl.hermitian_solve_lanes_plain(a, b, assume_hermitian=assume)
+        assert _rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("nk", [9, 30, 60])
+def test_solve_wpe_gram_matches_plain(nk):
+    dev = _card()
+    rng = np.random.default_rng(nk)
+    n0 = 6 if nk == 60 else 3
+    gram = _gram_on(dev, rng, 300, n0 + nk)
+    for eq in (False, True):
+        got = chl.solve_wpe_gram(gram, n0, nk, n0, 1e-6 if not eq else
+                                 4 * nk * 1.1920929e-07, equilibrate=eq)
+        ref = chl.solve_wpe_gram_plain(gram, n0, nk, n0, 1e-6 if not eq
+                                       else 4 * nk * 1.1920929e-07, eq)
+        assert _rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("n,taps,t", [(6, 10, 501), (3, 4, 1876),
+                                      (8, 16, 70)])
+def test_wpe_gram_and_apply_match_plain(n, taps, t):
+    dev = _card()
+    rng = np.random.default_rng(n * t)
+    obs = _cplx(rng, 40, n, t, dev=dev)
+    g = (0.05 * _cplx(rng, 40, n * taps, n, dev=dev)).contiguous()
+    lam = torch.rand((40, t), device=dev) + 0.1
+    for use_g, ext in ((False, None), (True, None), (False, lam)):
+        got = wgr.wpe_gram(obs, g, taps, 3, 1 if ext is None else 0, use_g,
+                           ext)
+        ref = wgr.wpe_gram_plain(obs, g, taps, 3, 1 if ext is None else 0,
+                                 use_g, ext)
+        assert _rel(got, ref) < TOL
+        assert torch.equal(got, got.conj().transpose(-1, -2))
+    assert _rel(wgr.wpe_apply(obs, g, taps, 3),
+                wgr.wpe_apply_plain(obs, g, taps, 3)) < TOL
+
+
+def test_wpe_and_wpd_run_kernels_only():
+    """wpe: the fused gate launches 18 x3, 17 x3, 19 x1; use_fused=False
+    kernel 16 x3.  wpd: 18, 17, 19, 15, 12 and 2 once an outer iteration;
+    outside the gate it refuses with no device memory allocated."""
+    from setk_tpu_torch.enhance.wpe import wpd, wpe
+    dev = _card()
+    rng = np.random.default_rng(12)
+    obs = _cplx(rng, 2, 257, 6, 120, dev=dev)
+    obs[..., 5:] += 0.4 * obs[..., :-5]
+    counted = (wgr.wpe_gram, chl.solve_wpe_gram, wgr.wpe_apply,
+               chl.hermitian_solve_lanes, ce.em, cp.pair_covar,
+               mv.mvdr_power)
+    for fn in counted:
+        fn.launches = 0
+    out = wpe(obs)
+    assert [fn.launches for fn in counted] == [3, 3, 1, 0, 0, 0, 0]
+    ref = wpe(obs, use_fused=False)
+    assert [fn.launches for fn in counted] == [3, 3, 1, 3, 0, 0, 0]
+    assert torch.isfinite(out).all() and _rel(out, ref) < 2e-3
+    for fn in counted:
+        fn.launches = 0
+    mask, enh = wpd(obs[0], cgmm_iters=3, wpd_iters=2, taps=4)
+    assert [fn.launches for fn in counted] == [2, 2, 2, 0, 2, 2, 2]
+    assert torch.isfinite(enh).all() and mask.shape == (257, 120)
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        wpd(np.zeros((257, 9, 40), np.complex64), taps=2, device="cuda")
     assert torch.cuda.memory_allocated() == before

@@ -326,13 +326,13 @@ def test_cuda_refusals_come_before_the_copy(monkeypatch):
     _, spec_cfg = _cfgs(frame_len=512, frame_hop=128)
     _, wide_cfg = _cfgs(frame_len=1024, frame_hop=512)
     _, cfg = _cfgs()
-    cases = [(spec_cfg, 3, 4096, {"beamformer": "gevd"}, "queue 2 item 14"),
-             (spec_cfg, 3, 4096, {"beamformer": "mpdr"}, "queue 2 item 14"),
+    cases = [(spec_cfg, 3, 4096, {"beamformer": "gevd"}, "queue 1 item 13"),
+             (spec_cfg, 3, 4096, {"beamformer": "mpdr"}, "queue 1 item 13"),
              (wide_cfg, 3, 8192, {"beamformer": "mpdr-whiten"},
-              "queue 2 item 14"),
+              "queue 1 item 13"),
              (cfg, 3, 4000, {"beamformer": "gevd", "ban": True},
-              "queue 2 item 14"),
-             (spec_cfg, 3, 4096, {"steer": "eigh"}, "queue 2 item 14"),
+              "queue 1 item 13"),
+             (spec_cfg, 3, 4096, {"steer": "eigh"}, "queue 1 item 13"),
              (spec_cfg, 9, 4096, {}, "queue 1 item 15"),
              (cfg, 9, 4096, {"beamformer": "pmwf-0"}, "queue 1 item 15"),
              (spec_cfg, 3, 4096, {"chunk_size": 32}, "queue 1 item 13"),
@@ -346,7 +346,7 @@ def test_cuda_refusals_come_before_the_copy(monkeypatch):
     enhancer = tex.BatchEnhancer(spec_cfg, beamformer="gevd", device="cuda")
     wav, mask = _scene(41, 1, 3, 4096, spec_cfg)
     enhancer.add("u0", wav[0], mask[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
         enhancer.flush()
     assert enhance_step.check_cuda_options("mvdr", False, "power", -1) is None
     assert pipeline.planar_supported(wide_cfg, 8, 1024)
