@@ -131,7 +131,26 @@ the CUDA toolkit.  In order it:
      the same call through the plain versions, chained CGMM being
      chaotic) and on the reverberant one (recorded, finite); N = 9 is
      refused with no allocation;
-  18. times each kernel (20 launches replayed from one CUDA graph, so the
+  18. the BLSTM mask estimator at the train CLI's width (MaskNet blstm,
+     257 bins, hidden 512, 3 layers) and the JAX training bench's batch
+     (B = 64, T = 400): N1 holds kernels 20 and 21 against their plain
+     versions (f32 and bf16 weights at the full shape, B = 1 and B = 6, a
+     ragged tile of 4 rows; 1e-5 of the peak f32, 2e-3 bf16) and the
+     gradients through lstm_seq_bidir against autograd through the plain
+     forward (2e-4 f32, 1e-2 bf16, where kernel 21 rounds dgates and
+     autograd rounds the products); N2 runs MaskNet's forward (exactly
+     kernel 20, 3 times) against the same call through the plain versions
+     (1e-4); N3 runs 5 MaskTrainer steps with a frame mask (exactly 3 x
+     kernel 20 and 3 x kernel 21 a step, losses finite and within 1e-5 of
+     the plain path from the same init); N4 runs the recipe's chain
+     (recipes/train_mask.sh:22-27) on 8 utterances: compute_mask on the
+     card and with --device cpu, train_mask_estimator --arch blstm on the
+     card (2 epochs, exact launch counts), estimate_nn_masks from its
+     checkpoint on both devices (targets 2e-6, masks 2e-4); it times
+     kernels 20-21 (bf16, graph
+     replay, eager, plain, cuDNN's nn.LSTM for information) and the
+     serving (B = 64 and B = 1) and training steps with their profiles;
+  19. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
      function where there is one (torch.stft, torch.istft, torch.einsum;
@@ -141,8 +160,9 @@ the CUDA toolkit.  In order it:
      versions and the EM), profiles the fused, P1, E and EM steps
      (torch.profiler: device time by kernel, the device's idle share)
      and prints the kernels line (kernels 16-19 timed at W's scene, with
-     the wpe, wpd and BatchWpe steps and their idle shares);
-  19. prints {"ok": true, "device": {...}} as the last line.
+     the wpe, wpd and BatchWpe steps and their idle shares, 20-21 and the
+     BLSTM steps from step 18);
+  20. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2, says
 which on stdout and stderr, and prints no result.
@@ -407,6 +427,7 @@ def _all_counted():
     from setk_tpu_torch.ops.cuda import covariance_pair as cp
     from setk_tpu_torch.ops.cuda import eigh_small as es
     from setk_tpu_torch.ops.cuda import fused_mvdr as fm
+    from setk_tpu_torch.ops.cuda import lstm_seq as ls
     from setk_tpu_torch.ops.cuda import mvdr as mv
     from setk_tpu_torch.ops.cuda import planar as pl
     from setk_tpu_torch.ops.cuda import wpe_gram as wg
@@ -415,7 +436,8 @@ def _all_counted():
             mv.pmwf_solve, mv.capon, pl.stft_planar, pl.istft_planar,
             cp.pair_covar_complement, cp.pair_covar, mc.masked_covar,
             es.regularized_inverse, ce.em, ch.hermitian_solve_lanes,
-            ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply)
+            ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply,
+            ls.lstm_seq_forward, ls.lstm_seq_backward)
 
 
 def _launched(torch, run, label, want):
@@ -1289,6 +1311,365 @@ def _wpe_slice(np, torch, dev, cfg):
     return kernels, steps
 
 
+# ---- the BLSTM mask estimator (kernels 20-21) ----
+# MaskNet(arch="blstm") at the train CLI's width (setk_tpu/cli/
+# train_mask_estimator.py:114-115: hidden 512, 3 layers, 257 bins) and the
+# JAX training bench's batch (benchmarks/bench_training.py:28-34: B = 64,
+# T = 400); audio seconds at a hop of 16 ms a frame (bench_training.py)
+N_B, N_T, N_F, N_H, N_L = 64, 400, 257, 512, 3
+N_HOP_S = 0.016
+N_STEPS = 5
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
+LSTM_SET = {"lstm_seq_forward", "lstm_seq_backward"}
+# bars, of the peak.  f32: kernels against their plain versions 1e-5 and
+# gradients through lstm_seq_bidir against autograd through the plain
+# forward 2e-4 (tests/test_pallas_lstm.py:56-80).  bf16 weights, from the
+# readings on an NVIDIA H100 80GB HBM3 at 700 W, each about 4-20x under its
+# bar: kernel against plain 2e-3 (one bf16 step of a rounded h or dgates
+# where two f32 sums of another order straddle a rounding boundary; read
+# 5.4e-4); the gradients 1e-2 (kernel 21 rounds dgates before the W_h^T
+# product where autograd rounds the product, and dW_h returns in bf16:
+# read 4.2e-3); MaskNet's masks against the plain versions 1e-4 (read
+# 5.2e-6); 5 Adam steps' losses 1e-5 relative (read 1.8e-7); the CLI
+# chain's targets 2e-6 (read 1.2e-7) and masks 2e-4 (read 2.0e-5)
+N1_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
+N1_GRAD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+N2_TOL = 1e-4
+N3_LOSS_RTOL = 1e-5
+N4_TARGET_TOL = 2e-6
+N4_MASK_TOL = 2e-4
+
+
+class _PlainLstm:
+    """Within the block kernels 20 and 21's wrappers are their plain
+    versions: the same call through the plain versions on the card."""
+
+    def __enter__(self):
+        from setk_tpu_torch.ops.cuda import lstm_seq as ls
+        self.saved = (ls.lstm_seq_forward, ls.lstm_seq_backward)
+        ls.lstm_seq_forward = ls.lstm_seq_forward_plain
+        ls.lstm_seq_backward = ls.lstm_seq_backward_plain
+        return self
+
+    def __exit__(self, *exc):
+        from setk_tpu_torch.ops.cuda import lstm_seq as ls
+        ls.lstm_seq_forward, ls.lstm_seq_backward = self.saved
+        return False
+
+
+def _lstm_args(np, torch, dev, t, b, h, dtype, seed):
+    """Gates (T, B, 4H) f32, W_h (H, 4H) of ``dtype`` and output
+    cotangents (T, B, H), numpy-made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    xg = [torch.from_numpy(rng.standard_normal((t, b, 4 * h)).astype(
+        np.float32) * 0.5).to(dev) for _ in "fb"]
+    wh = [torch.from_numpy((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                           .astype(np.float32)).to(dev, dtype) for _ in "fb"]
+    dy = [torch.from_numpy(rng.standard_normal((t, b, h)).astype(
+        np.float32)).to(dev) for _ in "fb"]
+    return xg, wh, dy
+
+
+def _lstm_kernel_errs(torch, xg, wh, dy):
+    """Kernels 20 and 21 against their plain versions: (relative to the
+    peak, absolute) for each, and the plain forward's states."""
+    from setk_tpu_torch.ops.cuda import lstm_seq as ls
+    got = ls.lstm_seq_forward(*xg, *wh)
+    ref = ls.lstm_seq_forward_plain(*xg, *wh)
+    args = (*dy, *xg, *ref[::2], *ref[1::2], *wh)
+    dx = ls.lstm_seq_backward(*args)
+    dx_p = ls.lstm_seq_backward_plain(*args)
+    torch.cuda.synchronize()
+    return ({"lstm_seq_forward": max(_rel(g, r) for g, r in zip(got, ref)),
+             "lstm_seq_backward": max(_rel(g, r) for g, r in zip(dx, dx_p))},
+            {"lstm_seq_forward": max(_abs(g, r) for g, r in zip(got, ref)),
+             "lstm_seq_backward": max(_abs(g, r) for g, r in zip(dx, dx_p))},
+            ref)
+
+
+def _lstm_grad_errs(torch, xg, wh, dy):
+    """dxg_f, dxg_b, dW_h_f, dW_h_b through lstm_seq_bidir (kernels 20-21)
+    against autograd through the plain forward: each relative to its
+    peak."""
+    from setk_tpu_torch.ops.cuda import lstm_seq as ls
+    grads = []
+    for run in (lambda *a: ls.lstm_seq_bidir(*a),
+                lambda *a: ls.lstm_seq_forward_plain(*a)[::2]):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (*xg, *wh)]
+        ysf, ysb = run(*leaves)
+        ((ysf * dy[0]).sum() + (ysb * dy[1]).sum()).backward()
+        grads.append([x.grad.float() for x in leaves])
+    return {name: _rel(g, r) for name, g, r in zip(
+        ("dxg_f", "dxg_b", "dW_h_f", "dW_h_b"), *grads)}
+
+
+def _flops_lstm(t, b, h, products):
+    """(bf16 recurrent-product FLOP, f32 gate-math FLOP) of one direction
+    pair: ``products`` (T B) x (H x 4H) products a direction and ~40 f32
+    operations a (t, b, unit) of gate math a pass."""
+    return 2 * products * t * b * h * 4 * h * 2, 2 * t * b * h * 40
+
+
+def _bound_mixed(nbytes, tc_flops, f32_flops):
+    """max(bytes over HBM, the products on the bf16 tensor cores plus the
+    gate math on the f32 cores)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (tc_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _mask_batch(np, b, t, f, seed):
+    """Log-magnitude-like features, targets in [0, 1] and a frame mask of
+    utterances from T / 2 to T frames."""
+    rng = np.random.default_rng(seed)
+    feats = (rng.standard_normal((b, t, f)) * 2 - 3).astype(np.float32)
+    targets = rng.random((b, t, f)).astype(np.float32)
+    lengths = rng.integers(t // 2, t + 1, size=b)
+    lengths[0] = t
+    fmask = (np.arange(t)[None] < lengths[:, None]).astype(np.float32)
+    return feats, targets * fmask[..., None], fmask
+
+
+def _write_mask_corpus(np, root, count, seed):
+    """``count`` mono utterances of 2-5 s (a tone in bursts plus noise) as
+    clean and noisy wav files, and their scps."""
+    from setk_tpu_torch.io.wave import write_wav
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    clean_lines, noisy_lines = [], []
+    for i in range(count):
+        s = (2 + i % 4) * SR + 101 * i
+        tt = np.arange(s) / SR
+        gate = (np.sin(2 * np.pi * 1.5 * tt) > 0).astype(np.float32)
+        clean = (0.3 * np.sin(2 * np.pi * (220 + 40 * i) * tt) *
+                 gate).astype(np.float32)
+        noisy = clean + rng.standard_normal(s).astype(np.float32) * 0.05
+        key = f"m{i}"
+        write_wav(root / f"{key}.clean.wav", clean, sr=SR)
+        write_wav(root / f"{key}.wav", noisy, sr=SR)
+        clean_lines.append(f"{key} {root}/{key}.clean.wav")
+        noisy_lines.append(f"{key} {root}/{key}.wav")
+    (root / "clean.scp").write_text("\n".join(clean_lines) + "\n")
+    (root / "noisy.scp").write_text("\n".join(noisy_lines) + "\n")
+    return [f"m{i}" for i in range(count)]
+
+
+def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
+                 steps=N_STEPS, corpus=8):
+    """Phases N1-N4 and the timing of kernels 20-21: returns (the kernels
+    line's rows for 20-21, a summary of the steps)."""
+    from setk_tpu_torch.cli import compute_mask as cm_cli
+    from setk_tpu_torch.cli import estimate_nn_masks as est_cli
+    from setk_tpu_torch.cli import train_mask_estimator as train_cli
+    from setk_tpu_torch.io import ScriptReader
+    from setk_tpu_torch.models.mask_net import make_model
+    from setk_tpu_torch.models.trainer import MaskTrainer
+    from setk_tpu_torch.ops.cuda import _build
+    from setk_tpu_torch.ops.cuda import lstm_seq as ls
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    # ---- N1: kernels 20 and 21 against their plain versions ----
+    n1, n1_abs = {}, {}
+    for label, bb, dtype in ((f"B{b}_f32", b, f32), (f"B{b}_bf16", b, bf16),
+                             ("B1_bf16", 1, bf16), ("B6_bf16", 6, bf16),
+                             ("B6_f32", 6, f32)):
+        xg, wh, dy = _lstm_args(np, torch, dev, t, bb, h, dtype, bb)
+        n1[label], n1_abs[label], _ = _lstm_kernel_errs(torch, xg, wh, dy)
+    n1_grad = {}
+    for label, dtype in (("float32", f32), ("bfloat16", bf16)):
+        xg, wh, dy = _lstm_args(np, torch, dev, t, b, h, dtype, 7)
+        n1_grad[label] = _lstm_grad_errs(torch, xg, wh, dy)
+    print(json.dumps({"N1_kernel_vs_plain_rel": n1, "N1_abs": n1_abs,
+                      "N1_grad_vs_plain_autograd_rel": n1_grad,
+                      "tol": N1_TOL, "grad_tol": N1_GRAD_TOL}))
+    for label, errs in n1.items():
+        key = "float32" if label.endswith("f32") else "bfloat16"
+        for name, err in errs.items():
+            if not err <= N1_TOL[key]:
+                raise AssertionError(f"N1 {label} {name}: kernel vs plain "
+                                     f"{err} > {N1_TOL[key]}")
+    for key, errs in n1_grad.items():
+        for name, err in errs.items():
+            if not err <= N1_GRAD_TOL[key]:
+                raise AssertionError(
+                    f"N1 {key} {name}: lstm_seq_bidir vs autograd "
+                    f"through the plain forward {err} > {N1_GRAD_TOL[key]}")
+
+    # ---- N2: MaskNet blstm forward at full width ----
+    feats, targets, fmask = _mask_batch(np, b, t, f, 11)
+    feats_d = torch.from_numpy(feats).to(dev)
+    model = make_model("blstm", f, h, layers)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    with torch.no_grad():
+        masks, counts = _launched(torch, lambda: model(feats_d), "N2",
+                                  {"lstm_seq_forward"})
+        with _PlainLstm():
+            masks_p = model(feats_d)
+    n2_err = _abs(masks, masks_p)
+    print(json.dumps({"N2_masknet_launches": counts,
+                      "N2_mask_vs_plain_max_abs": n2_err, "tol": N2_TOL}))
+    if counts != {"lstm_seq_forward": layers} or not torch.isfinite(
+            masks).all() or tuple(masks.shape) != (b, t, f) or \
+            not n2_err <= N2_TOL:
+        raise AssertionError(f"N2: launches {counts}, masks "
+                             f"{tuple(masks.shape)} vs plain {n2_err}")
+
+    # ---- N3: MaskTrainer steps against the plain path from one init ----
+    trainer = MaskTrainer(make_model("blstm", f, h, layers), seed=0,
+                          device=dev)
+    plain = MaskTrainer(make_model("blstm", f, h, layers), seed=1,
+                        device=dev)
+    plain.model.load_state_dict(trainer.model.state_dict())
+    losses, losses_p, n3_counts = [], [], []
+    for _ in range(steps):
+        loss, counts = _launched(torch, lambda: trainer.train_batch(
+            feats, targets, fmask), "N3 step", LSTM_SET)
+        n3_counts.append(counts)
+        losses.append(loss)
+        with _PlainLstm():
+            losses_p.append(plain.train_batch(feats, targets, fmask))
+    n3_err = max(abs(a - p) / abs(p) for a, p in zip(losses, losses_p))
+    train_launches = {k: sum(c.get(k, 0) for c in n3_counts)
+                      for k in sorted(LSTM_SET)}
+    print(json.dumps({"N3_losses": losses, "N3_plain_losses": losses_p,
+                      "N3_loss_rel_err": n3_err, "tol": N3_LOSS_RTOL,
+                      "N3_launches": train_launches}))
+    if any(c != {"lstm_seq_forward": layers, "lstm_seq_backward": layers}
+           for c in n3_counts) or not np.isfinite(losses).all() or \
+            not n3_err <= N3_LOSS_RTOL:
+        raise AssertionError(f"N3: launches {n3_counts}, losses {losses} "
+                             f"vs plain {losses_p}")
+
+    # ---- N4: the recipe's CLI chain, on the card against --device cpu ----
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        keys = _write_mask_corpus(np, tmp, corpus, seed=5)
+        targets_by = {}
+        for device in ("cuda", "cpu"):
+            argv = [str(tmp / "clean.scp"), str(tmp / "noisy.scp"),
+                    str(tmp / f"target-{device}.ark"), "--scp",
+                    str(tmp / f"target-{device}.scp"), "--device", device]
+            cm_cli.run(cm_cli.make_parser().parse_args(argv))
+            targets_by[device] = ScriptReader(str(tmp / f"target-{device}"
+                                                  f".scp"))
+        n4_target = max(float(np.abs(targets_by["cuda"][k] -
+                                     targets_by["cpu"][k]).max())
+                        for k in keys)
+        ckpt = tmp / "final.msgpack"
+        argv = [str(tmp / "noisy.scp"), str(tmp / "target-cuda.scp"),
+                str(ckpt), "--arch", "blstm", "--hidden", str(h),
+                "--num-layers", str(layers), "--epochs", "2",
+                "--batch-size", "8", "--device", "cuda"]
+        _, train_counts = _launched(torch, lambda: train_cli.run(
+            train_cli.make_parser().parse_args(argv)), "N4 train", LSTM_SET)
+        batches = 2 * -(-corpus // 8)
+        masks_by = {}
+        for device in ("cuda", "cpu"):
+            out = tmp / f"masks-{device}"
+            argv = [str(tmp / "noisy.scp"), str(ckpt), str(out), "--device",
+                    device]
+            run = (lambda: est_cli.run(est_cli.make_parser().parse_args(
+                argv)))
+            if device == "cuda":
+                _, est_counts = _launched(torch, run, "N4 estimate",
+                                          {"lstm_seq_forward"})
+            else:
+                run()
+            masks_by[device] = {k: np.load(out / f"{k}.npy") for k in keys}
+        n4_mask = max(float(np.abs(masks_by["cuda"][k] -
+                                   masks_by["cpu"][k]).max()) for k in keys)
+    want_train = {"lstm_seq_forward": layers * batches,
+                  "lstm_seq_backward": layers * batches}
+    print(json.dumps({"N4_target_card_vs_cpu_max_abs": n4_target,
+                      "N4_mask_card_vs_cpu_max_abs": n4_mask,
+                      "tol": [N4_TARGET_TOL, N4_MASK_TOL],
+                      "N4_train_launches": train_counts,
+                      "N4_estimate_launches": est_counts,
+                      "utterances": corpus}))
+    if train_counts != want_train or est_counts != {
+            "lstm_seq_forward": layers * corpus} or \
+            not n4_target <= N4_TARGET_TOL or not n4_mask <= N4_MASK_TOL or \
+            not all(np.isfinite(m).all() for m in masks_by["cuda"].values()):
+        raise AssertionError(f"N4: train launches {train_counts}, estimate "
+                             f"{est_counts}, targets {n4_target}, masks "
+                             f"{n4_mask}")
+
+    # ---- timing: kernels 20-21 at the bench shape, bf16 weights ----
+    xg, wh, dy = _lstm_args(np, torch, dev, t, b, h, bf16, b)
+    states = ls.lstm_seq_forward_plain(*xg, *wh)
+    bargs = (*dy, *xg, *states[::2], *states[1::2], *wh)
+    seq, gate = t * b * h * 4, t * b * 4 * h * 4   # bytes of (T, B, H|4H)
+    w_bytes = 2 * h * 4 * h * 2
+    tc1, f1 = _flops_lstm(t, b, h, 1)
+    tc2, f2 = _flops_lstm(t, b, h, 2)
+    rows = [
+        ("lstm_seq_forward", "setk_tpu/ops/pallas/lstm_seq.py:130",
+         lambda: ls.lstm_seq_forward(*xg, *wh),
+         lambda: ls.lstm_seq_forward_plain(*xg, *wh),
+         _bound_mixed(2 * gate + w_bytes + 4 * seq, tc1, f1)),
+        ("lstm_seq_backward", "setk_tpu/ops/pallas/lstm_seq.py:159",
+         lambda: ls.lstm_seq_backward(*bargs),
+         lambda: ls.lstm_seq_backward_plain(*bargs),
+         _bound_mixed(4 * gate + w_bytes + 6 * seq, tc2, f2 * 2))]
+    # for information only, never called by the port: cuDNN's
+    # bidirectional LSTM at the same (T, B, H) over a layer's 2H-wide input
+    # (it also runs the input projection), f32 as the port's projections
+    cudnn = torch.nn.LSTM(2 * h, h, bidirectional=True).to(dev)
+    x_in = torch.randn(t, b, 2 * h, device=dev, requires_grad=True)
+    info = {"lstm_seq_forward": _time_ms(torch, lambda: cudnn(x_in)[0],
+                                         iters=5),
+            "lstm_seq_backward": _time_ms(
+                torch, lambda: cudnn(x_in)[0].sum().backward(), iters=5)}
+    launches = dict(train_launches)
+    abs_errs = n1_abs[f"B{b}_bf16"]
+    rel_errs = n1[f"B{b}_bf16"]
+    kernels = []
+    for name, replaces, run_k, run_p, (bound_ms, bound_by) in rows:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "setk_tpu_torch/csrc/lstm_seq.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": abs_errs[name], "max_rel_err": rel_errs[name],
+            "ms": _graph_ms(torch, run_k, iters=5),
+            "eager_ms": _time_ms(torch, run_k, iters=5, warmup=1),
+            "plain_ms": _time_ms(torch, run_p, iters=2, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "peaks": "bf16 products 989 TFLOP/s, gate math 67 TFLOP/s f32",
+            "library_ms": None,
+            "cudnn_lstm_bidir_ms_info" if name.endswith("forward") else
+            "cudnn_lstm_bidir_fwd_bwd_ms_info": info[name]})
+
+    # ---- the serving and training steps ----
+    audio_s = b * t * N_HOP_S
+    one = feats_d[:1]
+    steps = {}
+    with torch.no_grad():
+        serve_ms = _time_ms(torch, lambda: model(feats_d), iters=5)
+        steps[f"serve_B{b}_T{t}"] = {
+            "ms": serve_ms, "audio_s_per_s": audio_s / (serve_ms / 1e3),
+            "profile": _device_profile(torch, lambda: model(feats_d),
+                                       serve_ms, iters=3)}
+        one_ms = _time_ms(torch, lambda: model(one), iters=5)
+        steps[f"serve_B1_T{t}"] = {
+            "ms": one_ms, "audio_s_per_s": t * N_HOP_S / (one_ms / 1e3)}
+        with _PlainLstm():
+            steps["serve_plain_ms"] = _time_ms(torch, lambda: model(feats_d),
+                                               iters=2, warmup=1)
+    train_ms = _time_ms(torch, lambda: trainer.train_batch(
+        feats, targets, fmask), iters=3, warmup=1)
+    steps[f"train_B{b}_T{t}"] = {
+        "ms": train_ms, "audio_s_per_s": audio_s / (train_ms / 1e3),
+        "profile": _device_profile(torch, lambda: trainer.train_batch(
+            feats, targets, fmask), train_ms, iters=2)}
+    with _PlainLstm():
+        steps["train_plain_ms"] = _time_ms(torch, lambda: plain.train_batch(
+            feats, targets, fmask), iters=2, warmup=1)
+    print(json.dumps({"blstm_steps": steps}))
+    return kernels, steps
+
+
 def _run_clusterer(clusterer, utts):
     results = {}
     for key, obs in utts.items():
@@ -2025,7 +2406,10 @@ def main() -> int:
     # ---- 17. W1-W5: WPE dereverberation and factored WPD ----
     wpe_kernels, wpe_steps = _wpe_slice(np, torch, dev, cfg)
 
-    # ---- 18. timing at the bench shape ----
+    # ---- 18. N1-N4: the BLSTM mask estimator ----
+    blstm_kernels, blstm_steps = _blstm_slice(np, torch, dev)
+
+    # ---- 19. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -2258,7 +2642,7 @@ def main() -> int:
                      else "linalg_solve_ms_info")
             row[label] = info[name]
         kernels.append(row)
-    kernels += wpe_kernels
+    kernels += wpe_kernels + blstm_kernels
     gevd50_ms = _graph_ms(torch, lambda: mv.gevd_power(grs, grn,
                                                        power_iters=50))
     step_ms = _time_ms(torch, lambda: enhance_batch(
@@ -2341,6 +2725,9 @@ def main() -> int:
         "wpe_wpd_steps": {k: {kk: vv for kk, vv in v.items()
                               if kk != "profile"} if isinstance(v, dict)
                           else v for k, v in wpe_steps.items()},
+        "blstm_steps": {k: {kk: vv for kk, vv in v.items()
+                            if kk != "profile"} if isinstance(v, dict)
+                        else v for k, v in blstm_steps.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,8 +17,18 @@ WPE dereverberation and factored WPD have no trained parameters and no
 resumable state: they carry nothing across, and the tests feed the same
 numpy-made spectra to both packages.
 
-The converter for the mask-net parameters (flax pytree -> torch state
-dict) comes with the neural mask estimators, ROADMAP queue 1 item 8.
+The neural mask estimators carry trained weights: the flax parameter
+tree (nested dicts of numpy arrays, what ``flax.serialization`` writes to
+``final.msgpack`` under "params") maps name by name to the port's
+``MaskNet`` state dict, whose submodules carry flax's automatic names.
+``mask_net_params_from_numpy`` and ``mask_net_params_to_numpy`` carry it
+across in both directions:
+
+  Dense ``kernel`` (in, out)         <-> Linear ``weight`` (out, in)
+  Conv ``kernel`` (kh, kw, in, out)  <-> ``weight`` (out, in, kh, kw)
+  LayerNorm ``scale`` / ``bias``     <-> ``weight`` / ``bias``
+  FastLSTM ``wh_f`` / ``wh_b``       <-> the same (H, 4H); ``wx_f`` /
+                                         ``wx_b`` are Dense
 """
 
 import numpy as np
@@ -27,9 +37,11 @@ import torch
 from setk_tpu_torch.dsp.stft import StftConfig
 
 __all__ = ["stft_config_from_fields", "em_state_from_numpy",
-           "em_state_to_numpy"]
+           "em_state_to_numpy", "mask_net_params_from_numpy",
+           "mask_net_params_to_numpy"]
 
 _EM_KEYS = ("phi", "covar", "alpha")
+_LSTM_ORDER = ("wx_f", "wh_f", "wx_b", "wh_b")
 
 
 def stft_config_from_fields(frame_len: int = 512, frame_hop: int = 256,
@@ -62,3 +74,52 @@ def em_state_to_numpy(state) -> dict:
     package's dtypes, what ``np.savez`` writes for ``--dump-model``."""
     return {k: v.detach().cpu().numpy().astype(_em_dtype(k), copy=False)
             for k, v in state.items()}
+
+
+def mask_net_params_from_numpy(params) -> dict:
+    """A flax MaskNet parameter tree (nested dicts of numpy arrays, the
+    "params" entry of a checkpoint) -> the port's ``MaskNet`` state dict
+    (float32 CPU tensors; ``load_state_dict`` checks every name)."""
+    state = {}
+
+    def walk(tree, prefix):
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, prefix + [name])
+                continue
+            arr = np.asarray(value, dtype=np.float32)
+            if name == "kernel":        # Conv (kh, kw, in, out), Dense
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            leaf = "weight" if name in ("kernel", "scale") else name
+            state[".".join(prefix + [leaf])] = torch.tensor(arr)
+
+    walk(params, [])
+    return state
+
+
+def mask_net_params_to_numpy(state_dict) -> dict:
+    """The port's ``MaskNet`` state dict -> the flax parameter tree, arrays
+    float32, in the order flax creates the parameters (the state dict's,
+    but a FastLSTM's wx_f, wh_f, wx_b, wh_b), so ``save_checkpoint``
+    writes what flax writes for the same values."""
+    tree = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().cpu().float().numpy()
+        if leaf.startswith("wh_"):
+            name = leaf
+        elif path[-1].startswith("LayerNorm"):
+            name = "scale" if leaf == "weight" else "bias"
+        else:
+            name = "kernel" if leaf == "weight" else "bias"
+            if name == "kernel":
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    for node in tree.values():
+        if "wh_f" in node:
+            for name in [n for n in _LSTM_ORDER if n in node]:
+                node[name] = node.pop(name)
+    return tree

@@ -31,7 +31,7 @@ SOURCES = {"mvdr_power": "mvdr_power.cu", "fused_mvdr": "fused_mvdr.cu",
            "covariance_pair": "covariance_pair.cu",
            "covariance": "covariance.cu", "eigh_small": "eigh_small.cu",
            "cacgmm_em": "cacgmm_em.cu", "cholesky": "cholesky.cu",
-           "wpe_gram": "wpe_gram.cu"}
+           "wpe_gram": "wpe_gram.cu", "lstm_seq": "lstm_seq.cu"}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -82,6 +82,10 @@ _SIGNATURES = {
     "wpe_gram": {
         "wpe_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "wpe_apply_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "lstm_seq": {
+        "lstm_fwd_launch": [_P] * 8 + [_I] * 4 + [_P],
+        "lstm_bwd_launch": [_P] * 14 + [_I] * 4 + [_P],
     },
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)

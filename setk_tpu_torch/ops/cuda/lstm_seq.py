@@ -1,0 +1,220 @@
+"""The bidirectional LSTM recurrence, forward and BPTT (kernels 20, 21).
+
+Counterpart of ``setk_tpu/ops/pallas/lstm_seq.py``; kernel source
+``setk_tpu_torch/csrc/lstm_seq.cu``:
+
+  lstm_seq_forward (kernel 20; ``_forward`` :130): xg_f, xg_b (T, B, 4H)
+      f32 gate pre-activations (i | f | g | o, both in natural time order),
+      W_h (H, 4H) f32 or bf16 -> ys_f, cs_f, ys_b, cs_b (T, B, H) f32, the
+      hidden and cell states in natural time order (ys_b[t] is the backward
+      direction's state after consuming frames T-1 .. t);
+  lstm_seq_backward (kernel 21; ``_backward`` :159): dxg_f, dxg_b (T, B,
+      4H) f32 from the output gradients, the gates and the saved hidden and
+      cell states; each direction's processing-order previous state is the
+      saved state at the neighbouring frame (zero at its first frame), read
+      in place of the JAX package's shifted copies (:212-220).
+
+h is rounded to W_h's type before each recurrent product, and the
+backward pass rounds dgates the same way before the W_h^T product, as the
+TPU kernels do; sums are f32.  ``lstm_seq_bidir`` is the differentiable
+pair (the JAX package's ``custom_vjp``, :197-236): dW_h = h_prev^T dxg over
+T B is one matrix product outside kernel 21.  The ``*_plain`` functions
+are the plain PyTorch versions (a loop over T; ``lstm_cell`` and
+``round_to`` are the cell and the rounding that ``models.mask_net``'s
+scan runs too).  ``lstm_seq_supported`` is the port's gate: any B >= 1
+and 1 <= H <= 1024 (one thread a hidden unit), not the TPU's B % 8 == 0
+and H % 128 == 0.
+"""
+
+import torch
+
+from setk_tpu_torch.ops.cuda import _build
+
+__all__ = ["MAX_HIDDEN", "lstm_seq_supported", "lstm_seq_bidir",
+           "lstm_seq_forward", "lstm_seq_forward_plain", "lstm_seq_backward",
+           "lstm_seq_backward_plain", "lstm_cell", "round_to"]
+
+MAX_HIDDEN = 1024
+
+
+def lstm_seq_supported(batch: int, hidden: int) -> bool:
+    return batch >= 1 and 1 <= hidden <= MAX_HIDDEN
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x (f32) rounded to ``dtype`` and widened back (bf16: nearest even)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _split(gates: torch.Tensor):
+    i, f, g, o = gates.chunk(4, dim=-1)
+    return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+
+
+def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
+    """One LSTM step from the gate pre-activations (i | f | g | o): the
+    new (h, c)."""
+    i, f, g, o = _split(gates)
+    c = f * c + i * g
+    return o * torch.tanh(c), c
+
+
+def _forward_dir(xg, wh, reverse):
+    w = wh.float()
+    t_len, b, h4 = xg.shape
+    h = xg.new_zeros((b, h4 // 4))
+    c = torch.zeros_like(h)
+    hs, cs = [], []
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        h, c = lstm_cell(xg[t] + round_to(h, wh.dtype) @ w, c)
+        hs.append(h)
+        cs.append(c)
+    if reverse:
+        hs.reverse()
+        cs.reverse()
+    return torch.stack(hs), torch.stack(cs)
+
+
+def lstm_seq_forward_plain(xgf, xgb, whf, whb):
+    """Plain version of kernel 20 (differentiable)."""
+    ysf, csf = _forward_dir(xgf, whf, False)
+    ysb, csb = _forward_dir(xgb, whb, True)
+    return ysf, csf, ysb, csb
+
+
+def _backward_dir(dy, xg, hs, cs, wh, ascending):
+    """``ascending``: the backward direction, whose previous state in
+    processing order is the frame after t."""
+    w = wh.float()
+    t_len, b, h4 = xg.shape
+    dh = xg.new_zeros((b, h4 // 4))
+    dc = torch.zeros_like(dh)
+    dx = torch.empty_like(xg)
+    for t in (range(t_len) if ascending else range(t_len - 1, -1, -1)):
+        tp = t + 1 if ascending else t - 1
+        if 0 <= tp < t_len:
+            hp, cp = hs[tp], cs[tp]
+        else:
+            hp = cp = torch.zeros_like(dh)
+        i, f, g, o = _split(xg[t] + round_to(hp, wh.dtype) @ w)
+        tc = torch.tanh(cs[t])
+        dhh = dy[t] + dh
+        d_o = dhh * tc * o * (1 - o)
+        dcc = dc + dhh * o * (1 - tc * tc)
+        d_i = dcc * g * i * (1 - i)
+        d_g = dcc * i * (1 - g * g)
+        d_f = dcc * cp * f * (1 - f)
+        dc = dcc * f
+        dx[t] = torch.cat([d_i, d_f, d_g, d_o], dim=-1)
+        dh = round_to(dx[t], wh.dtype) @ w.t()
+    return dx
+
+
+def lstm_seq_backward_plain(dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf,
+                            whb):
+    """Plain version of kernel 21: each direction in the reverse of its
+    processing order (the forward direction descending in t)."""
+    return (_backward_dir(dyf, xgf, ysf, csf, whf, False),
+            _backward_dir(dyb, xgb, ysb, csb, whb, True))
+
+
+def _check(what, seqs, gates, whf, whb):
+    t_len, b, h4 = gates[0].shape
+    h = h4 // 4
+    dev = gates[0].device
+    for x, shape in [(g, (t_len, b, h4)) for g in gates] + \
+            [(s, (t_len, b, h)) for s in seqs]:
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or \
+                not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{what}: needs contiguous float32 {shape} "
+                             f"tensors on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if h4 % 4 or t_len < 1 or not lstm_seq_supported(b, h):
+        raise ValueError(f"{what}: needs T >= 1, B >= 1 and 1 <= H <= "
+                         f"{MAX_HIDDEN}, got (T, B, 4H) = {(t_len, b, h4)}")
+    for w in (whf, whb):
+        if w.dtype not in (torch.float32, torch.bfloat16) or \
+                w.dtype != whf.dtype or tuple(w.shape) != (h, h4) or \
+                not w.is_contiguous() or w.device != dev:
+            raise ValueError(f"{what}: W_h must be two contiguous float32 "
+                             f"or bfloat16 {(h, h4)} tensors of one type on "
+                             f"{dev}, got {w.dtype} {tuple(w.shape)}")
+    return t_len, b, h
+
+
+def lstm_seq_forward(xgf, xgb, whf, whb):
+    """Kernel 20: (ys_f, cs_f, ys_b, cs_b), each (T, B, H) f32.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (``lstm_seq_forward.launches`` counts those launches).
+    """
+    if xgf.device.type == "cpu":
+        return lstm_seq_forward_plain(xgf, xgb, whf, whb)
+    t_len, b, h = _check("lstm_seq_forward", (), (xgf, xgb), whf, whb)
+    out = [torch.empty((t_len, b, h), dtype=torch.float32, device=xgf.device)
+           for _ in range(4)]
+    _build.launch("lstm_seq", "lstm_fwd_launch", xgf.device, xgf.data_ptr(),
+                  xgb.data_ptr(), whf.data_ptr(), whb.data_ptr(),
+                  *(o.data_ptr() for o in out), t_len, b, h,
+                  int(whf.dtype == torch.bfloat16))
+    lstm_seq_forward.launches += 1
+    return tuple(out)
+
+
+def lstm_seq_backward(dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb):
+    """Kernel 21: (dxg_f, dxg_b), each (T, B, 4H) f32, from the output
+    gradients, the gates and kernel 20's states.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (``lstm_seq_backward.launches`` counts those launches).
+    """
+    if xgf.device.type == "cpu":
+        return lstm_seq_backward_plain(dyf, dyb, xgf, xgb, ysf, ysb, csf,
+                                       csb, whf, whb)
+    seqs = (dyf, dyb, ysf, ysb, csf, csb)
+    t_len, b, h = _check("lstm_seq_backward", seqs, (xgf, xgb), whf, whb)
+    wtf, wtb = whf.t().contiguous(), whb.t().contiguous()
+    dxf, dxb = torch.empty_like(xgf), torch.empty_like(xgb)
+    _build.launch("lstm_seq", "lstm_bwd_launch", xgf.device,
+                  *(x.data_ptr() for x in (dyf, dyb, xgf, xgb, ysf, ysb, csf,
+                                           csb, whf, whb, wtf, wtb, dxf,
+                                           dxb)),
+                  t_len, b, h, int(whf.dtype == torch.bfloat16))
+    lstm_seq_backward.launches += 1
+    return dxf, dxb
+
+
+class _Bidir(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xgf, xgb, whf, whb):
+        ysf, csf, ysb, csb = lstm_seq_forward(xgf, xgb, whf, whb)
+        ctx.save_for_backward(xgf, xgb, whf, whb, ysf, ysb, csf, csb)
+        return ysf, ysb
+
+    @staticmethod
+    def backward(ctx, dyf, dyb):
+        xgf, xgb, whf, whb, ysf, ysb, csf, csb = ctx.saved_tensors
+        dxf, dxb = lstm_seq_backward(dyf.contiguous(), dyb.contiguous(), xgf,
+                                     xgb, ysf, ysb, csf, csb, whf, whb)
+        h = ysf.shape[-1]
+
+        def dwh(hp, dx, w):
+            # h_prev^T dxg over the frames that have a previous state (the
+            # first frame's is zero), on views of the saved states
+            return (hp.reshape(-1, h).t() @ dx.reshape(-1, 4 * h)).to(
+                w.dtype)
+
+        return (dxf, dxb, dwh(ysf[:-1], dxf[1:], whf),
+                dwh(ysb[1:], dxb[:-1], whb))
+
+
+def lstm_seq_bidir(xgf, xgb, whf, whb):
+    """Bidirectional LSTM over pre-projected gates: (ys_f, ys_b), each
+    (T, B, H) f32 in natural time order, differentiable through kernels 20
+    and 21 (their plain versions on CPU tensors).  W_h's gradient comes
+    back in W_h's type, as ``.astype(whf.dtype)`` does (:232-233)."""
+    return _Bidir.apply(xgf, xgb, whf, whb)
+
+
+lstm_seq_forward.launches = 0
+lstm_seq_backward.launches = 0

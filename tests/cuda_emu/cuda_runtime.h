@@ -18,6 +18,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -34,6 +35,9 @@ struct float2 {
   float x, y;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct float4 {
+  float x, y, z, w;
+};
 
 struct dim3 {
   unsigned x, y, z;
@@ -58,6 +62,16 @@ inline char* emu_dyn_smem = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+}
 inline void sincospi(double x, double* s, double* c) {
   *s = std::sin(M_PI * x);
   *c = std::cos(M_PI * x);

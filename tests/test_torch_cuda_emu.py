@@ -9,9 +9,10 @@ the online pair's chunking and EMA, the per-bin solves, the planar
 STFT/iSTFT (n_fft 256 and 1024, center on and off, any length), the
 pair covariance (N = 1, 6 and 8, complement mask or two masks), the
 masked covariance against K classes (warp shuffles), the Jacobi
-regularized inverse and the fused CGMM/CACGMM EM (both models, both
-entries, a frame mask, K = 3) against their plain PyTorch versions
-without a card; it says nothing of
+regularized inverse, the fused CGMM/CACGMM EM (both models, both
+entries, a frame mask, K = 3) and the BLSTM recurrence forward and
+backward (f32 and bf16 weights, T = 1, ragged last row tiles) against
+their plain PyTorch versions without a card; it says nothing of
 speed, and the card's own compiler is checked by chip_smoke.py.  Skips
 when no g++ with C++20 is present (decided inside the fixture).
 """
@@ -35,6 +36,7 @@ from setk_tpu_torch.ops.cuda import covariance as mc
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
 from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
+from setk_tpu_torch.ops.cuda import lstm_seq as ls
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.ops.cuda import planar as pl
 from setk_tpu_torch.ops.cuda import wpe_gram as wg
@@ -684,6 +686,67 @@ def test_wpe_entry_points_reject_bad_arguments(libs):
     # use_g needs G unless lambda is given
     assert lib.wpe_gram_launch(p, None, None, p, 1, 2, 8, 2, 1, 1, 1,
                                None) != 0
+
+
+# kernels 20-21: (T, B, H, weight type); B = 5, 6 and 9 leave the last tile
+# of 4 batch rows ragged, T = 1 is a single step
+LSTM = [(1, 3, 32, "float32"), (1, 5, 32, "bfloat16"),
+        (7, 6, 64, "float32"), (7, 6, 64, "bfloat16"),
+        (5, 9, 40, "bfloat16")]
+# of the peak; f32: TOL, sums in another order; bf16: where two f32 sums
+# round h (or dgates) to bf16 on either side of a rounding boundary the
+# operand moves by one bf16 step, 2^-8 of itself
+LSTM_TOL = {"float32": TOL, "bfloat16": 2e-3}
+
+
+def _lstm_inputs(t, b, h, dtype, seed):
+    rng = np.random.default_rng(seed)
+    xg = [torch.from_numpy(rng.standard_normal((t, b, 4 * h)).astype(
+        np.float32) * 0.5) for _ in "fb"]
+    wh = [torch.from_numpy((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                           .astype(np.float32)).to(getattr(torch, dtype))
+          for _ in "fb"]
+    return xg, wh, rng
+
+
+@pytest.mark.parametrize("t,b,h,dtype", LSTM)
+def test_lstm_fwd_source_matches_plain(libs, t, b, h, dtype):
+    (xgf, xgb), (whf, whb), _ = _lstm_inputs(t, b, h, dtype, t * b + h)
+    out = [torch.empty((t, b, h)) for _ in range(4)]
+    err = libs["lstm_seq"].lstm_fwd_launch(
+        xgf.data_ptr(), xgb.data_ptr(), whf.data_ptr(), whb.data_ptr(),
+        *(o.data_ptr() for o in out), t, b, h, int(dtype == "bfloat16"),
+        None)
+    assert err == 0
+    ref = ls.lstm_seq_forward_plain(xgf, xgb, whf, whb)
+    for got, want in zip(out, ref):
+        assert _rel(got, want) < LSTM_TOL[dtype]
+
+
+@pytest.mark.parametrize("t,b,h,dtype", LSTM)
+def test_lstm_bwd_source_matches_plain(libs, t, b, h, dtype):
+    (xgf, xgb), (whf, whb), rng = _lstm_inputs(t, b, h, dtype, t + b * h)
+    ysf, csf, ysb, csb = ls.lstm_seq_forward_plain(xgf, xgb, whf, whb)
+    dyf, dyb = (torch.from_numpy(rng.standard_normal((t, b, h)).astype(
+        np.float32)) for _ in "fb")
+    wtf, wtb = whf.t().contiguous(), whb.t().contiguous()
+    dxf, dxb = torch.empty_like(xgf), torch.empty_like(xgb)
+    args = (dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb)
+    err = libs["lstm_seq"].lstm_bwd_launch(
+        *(x.data_ptr() for x in args + (wtf, wtb, dxf, dxb)), t, b, h,
+        int(dtype == "bfloat16"), None)
+    assert err == 0
+    rf, rb = ls.lstm_seq_backward_plain(*args)
+    assert _rel(dxf, rf) < LSTM_TOL[dtype]
+    assert _rel(dxb, rb) < LSTM_TOL[dtype]
+
+
+def test_lstm_entry_points_reject_bad_shapes(libs):
+    p = torch.zeros(8).data_ptr()
+    lib = libs["lstm_seq"]
+    for t, b, h in ((0, 2, 8), (2, 0, 8), (2, 2, 0), (2, 2, 1025)):
+        assert lib.lstm_fwd_launch(*[p] * 8, t, b, h, 0, None) != 0
+        assert lib.lstm_bwd_launch(*[p] * 14, t, b, h, 1, None) != 0
 
 
 def test_library_names_follow_sources_and_headers(tmp_path, monkeypatch):

@@ -23,6 +23,7 @@ from setk_tpu_torch.ops.cuda import covariance as mc
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
 from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
+from setk_tpu_torch.ops.cuda import lstm_seq as ls
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.ops.cuda import planar as pl
 from setk_tpu_torch.ops.cuda import wpe_gram as wgr
@@ -519,3 +520,55 @@ def test_wpe_and_wpd_run_kernels_only():
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         wpd(np.zeros((257, 9, 40), np.complex64), taps=2, device="cuda")
     assert torch.cuda.memory_allocated() == before
+
+
+# kernels 20-21 (T, B, H, weight type): T = 1, ragged row tiles, the
+# bench width; bars of the peak as tests/test_torch_cuda_emu.py's
+LSTM_TOL = {"float32": TOL, "bfloat16": 2e-3}
+
+
+@pytest.mark.parametrize("t,b,h,dtype", [
+    (1, 1, 32, "float32"), (9, 5, 100, "bfloat16"), (40, 7, 256, "float32"),
+    (400, 64, 512, "bfloat16"), (16, 3, 1024, "bfloat16")])
+def test_lstm_kernels_match_plain(t, b, h, dtype):
+    dev = _card()
+    rng = np.random.default_rng(t + b)
+    xg = [torch.from_numpy(rng.standard_normal((t, b, 4 * h)).astype(
+        np.float32) * 0.5).to(dev) for _ in "fb"]
+    wh = [torch.from_numpy((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                           .astype(np.float32)).to(dev, getattr(torch, dtype))
+          for _ in "fb"]
+    got = ls.lstm_seq_forward(*xg, *wh)
+    ref = ls.lstm_seq_forward_plain(*xg, *wh)
+    for g, r in zip(got, ref):
+        assert _rel(g, r) < LSTM_TOL[dtype]
+    dy = [torch.from_numpy(rng.standard_normal((t, b, h)).astype(
+        np.float32)).to(dev) for _ in "fb"]
+    args = (*dy, *xg, *ref[::2], *ref[1::2], *wh)
+    for g, r in zip(ls.lstm_seq_backward(*args),
+                    ls.lstm_seq_backward_plain(*args)):
+        assert _rel(g, r) < LSTM_TOL[dtype]
+
+
+def test_masknet_blstm_runs_kernels_only():
+    """blstm forward and backward on the card: kernel 20 and kernel 21
+    once a layer each; a trainer step the same; lstm launches neither."""
+    from setk_tpu_torch.models.mask_net import make_model
+    from setk_tpu_torch.models.trainer import MaskTrainer
+    dev = _card()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3, 50, 65)).astype(
+        np.float32)).to(dev)
+    for arch, want in (("blstm", [3, 3]), ("lstm", [0, 0])):
+        model = make_model(arch, 65, 64, 3).to(dev)
+        ls.lstm_seq_forward.launches = ls.lstm_seq_backward.launches = 0
+        model(x).sum().backward()
+        torch.cuda.synchronize()
+        assert [ls.lstm_seq_forward.launches,
+                ls.lstm_seq_backward.launches] == want, arch
+    trainer = MaskTrainer(make_model("blstm", 65, 64, 2), device="cuda")
+    ls.lstm_seq_forward.launches = ls.lstm_seq_backward.launches = 0
+    loss = trainer.train_batch(x, (x > 0).float(), torch.ones(3, 50))
+    assert np.isfinite(loss)
+    assert [ls.lstm_seq_forward.launches, ls.lstm_seq_backward.launches
+            ] == [2, 2]
