@@ -133,23 +133,27 @@ the CUDA toolkit.  In order it:
      refused with no allocation;
   18. the BLSTM mask estimator at the train CLI's width (MaskNet blstm,
      257 bins, hidden 512, 3 layers) and the JAX training bench's batch
-     (B = 64, T = 400): N1 holds kernels 20 and 21 against their plain
-     versions (f32 and bf16 weights at the full shape, B = 1 and B = 6, a
-     ragged tile of 4 rows; 1e-5 of the peak f32, 2e-3 bf16) and the
-     gradients through lstm_seq_bidir against autograd through the plain
-     forward (2e-4 f32, 1e-2 bf16, where kernel 21 rounds dgates and
-     autograd rounds the products); N2 runs MaskNet's forward (exactly
-     kernel 20, 3 times) against the same call through the plain versions
-     (1e-4); N3 runs 5 MaskTrainer steps with a frame mask (exactly 3 x
-     kernel 20 and 3 x kernel 21 a step, losses finite and within 1e-5 of
-     the plain path from the same init); N4 runs the recipe's chain
+     (B = 64, T = 400): N1 holds both variants of kernel 20 (resident and
+     stream, each through its own entry point) and kernel 21 against their
+     plain versions (f32 and bf16 weights at the full shape, B = 1 and B =
+     6, a ragged tile of 4 rows; 1e-5 of the peak f32, 2e-3 bf16), checks
+     that the gate picks the resident variant at each of those shapes, and
+     holds the gradients through lstm_seq_bidir against autograd through
+     the plain forward (2e-4 f32, 1e-2 bf16, where kernel 21 rounds dgates
+     and autograd rounds the products); N2 runs MaskNet's forward (exactly
+     kernel 20's resident variant, 3 times) against the same call through
+     the plain versions (1e-4); N3 runs 5 MaskTrainer steps with a frame
+     mask (exactly 3 x kernel 20 resident and 3 x kernel 21 a step, losses
+     finite and within 1e-5 of the plain path from the same init); N4 runs
+     the recipe's chain
      (recipes/train_mask.sh:22-27) on 8 utterances: compute_mask on the
      card and with --device cpu, train_mask_estimator --arch blstm on the
      card (2 epochs, exact launch counts), estimate_nn_masks from its
      checkpoint on both devices (targets 2e-6, masks 2e-4); it times
-     kernels 20-21 (bf16, graph
-     replay, eager, plain, cuDNN's nn.LSTM for information) and the
-     serving (B = 64 and B = 1) and training steps with their profiles;
+     kernels 20-21 (bf16, graph replay, eager, plain, kernel 20's stream
+     variant, cuDNN's nn.LSTM for information), the resident variant's
+     per-step floor (H = 8, B = 1) and the serving (B = 64 and B = 1) and
+     training steps with their profiles;
   19. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
@@ -310,6 +314,11 @@ def _ptxas_summary(log: str) -> dict:
             dtype = {"f": ",f32", "s": ",int16"}.get(m.group(5), "")
             key = f"{m.group(1)}<{m.group(2)}{classes}{flag}{dtype}>"
             out[key] = {}
+        lstm = re.search(r"\d(lstm_[a-z_]+?)_kernelINS_\d+(F32|BF16)E",
+                         line)
+        if "Compiling entry function" in line and lstm:
+            key = f"{lstm.group(1)}<{lstm.group(2).lower()}>"
+            out[key] = {}
         elif key and "spill stores" in line:
             out[key]["spill_bytes"] = sum(
                 int(v) for v in re.findall(r"(\d+) bytes spill", line))
@@ -437,7 +446,8 @@ def _all_counted():
             cp.pair_covar_complement, cp.pair_covar, mc.masked_covar,
             es.regularized_inverse, ce.em, ch.hermitian_solve_lanes,
             ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply,
-            ls.lstm_seq_forward, ls.lstm_seq_backward)
+            ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
+            ls.lstm_seq_forward_stream, ls.lstm_seq_backward)
 
 
 def _launched(torch, run, label, want):
@@ -1320,7 +1330,10 @@ N_B, N_T, N_F, N_H, N_L = 64, 400, 257, 512, 3
 N_HOP_S = 0.016
 N_STEPS = 5
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
-LSTM_SET = {"lstm_seq_forward", "lstm_seq_backward"}
+# kernel 20 through its resident variant on every MaskNet call (bf16 W_h)
+LSTM_FWD_SET = {"lstm_seq_forward", "lstm_seq_forward_resident"}
+LSTM_SET = LSTM_FWD_SET | {"lstm_seq_backward"}
+LSTM_FWD_VARIANTS = ("lstm_seq_forward_resident", "lstm_seq_forward_stream")
 # bars, of the peak.  f32: kernels against their plain versions 1e-5 and
 # gradients through lstm_seq_bidir against autograd through the plain
 # forward 2e-4 (tests/test_pallas_lstm.py:56-80).  bf16 weights, from the
@@ -1371,20 +1384,24 @@ def _lstm_args(np, torch, dev, t, b, h, dtype, seed):
 
 
 def _lstm_kernel_errs(torch, xg, wh, dy):
-    """Kernels 20 and 21 against their plain versions: (relative to the
-    peak, absolute) for each, and the plain forward's states."""
+    """Both variants of kernel 20, each through its own entry point, and
+    kernel 21 against their plain versions: (relative to the peak,
+    absolute) for each, and the plain forward's states."""
     from setk_tpu_torch.ops.cuda import lstm_seq as ls
-    got = ls.lstm_seq_forward(*xg, *wh)
     ref = ls.lstm_seq_forward_plain(*xg, *wh)
+    rel, abs_ = {}, {}
+    for name in LSTM_FWD_VARIANTS:
+        got = getattr(ls, name)(*xg, *wh)
+        torch.cuda.synchronize()
+        rel[name] = max(_rel(g, r) for g, r in zip(got, ref))
+        abs_[name] = max(_abs(g, r) for g, r in zip(got, ref))
     args = (*dy, *xg, *ref[::2], *ref[1::2], *wh)
     dx = ls.lstm_seq_backward(*args)
     dx_p = ls.lstm_seq_backward_plain(*args)
     torch.cuda.synchronize()
-    return ({"lstm_seq_forward": max(_rel(g, r) for g, r in zip(got, ref)),
-             "lstm_seq_backward": max(_rel(g, r) for g, r in zip(dx, dx_p))},
-            {"lstm_seq_forward": max(_abs(g, r) for g, r in zip(got, ref)),
-             "lstm_seq_backward": max(_abs(g, r) for g, r in zip(dx, dx_p))},
-            ref)
+    rel["lstm_seq_backward"] = max(_rel(g, r) for g, r in zip(dx, dx_p))
+    abs_["lstm_seq_backward"] = max(_abs(g, r) for g, r in zip(dx, dx_p))
+    return rel, abs_, ref
 
 
 def _lstm_grad_errs(torch, xg, wh, dy):
@@ -1470,19 +1487,27 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
     bf16, f32 = torch.bfloat16, torch.float32
 
     # ---- N1: kernels 20 and 21 against their plain versions ----
-    n1, n1_abs = {}, {}
+    n1, n1_abs, picked = {}, {}, {}
+    limits = ls.device_limits(dev)
     for label, bb, dtype in ((f"B{b}_f32", b, f32), (f"B{b}_bf16", b, bf16),
                              ("B1_bf16", 1, bf16), ("B6_bf16", 6, bf16),
-                             ("B6_f32", 6, f32)):
+                             ("B6_f32", 6, f32), ("B1_f32", 1, f32)):
         xg, wh, dy = _lstm_args(np, torch, dev, t, bb, h, dtype, bb)
         n1[label], n1_abs[label], _ = _lstm_kernel_errs(torch, xg, wh, dy)
+        picked[label] = ls.forward_variant(bb, h, dtype, *limits)
     n1_grad = {}
     for label, dtype in (("float32", f32), ("bfloat16", bf16)):
         xg, wh, dy = _lstm_args(np, torch, dev, t, b, h, dtype, 7)
         n1_grad[label] = _lstm_grad_errs(torch, xg, wh, dy)
     print(json.dumps({"N1_kernel_vs_plain_rel": n1, "N1_abs": n1_abs,
                       "N1_grad_vs_plain_autograd_rel": n1_grad,
+                      "N1_forward_variant": picked,
+                      "device_limits": {"sms": limits[0],
+                                        "smem_optin": limits[1]},
                       "tol": N1_TOL, "grad_tol": N1_GRAD_TOL}))
+    if set(picked.values()) != {"resident"}:
+        raise AssertionError(f"N1: the gate picks {picked}, needs the "
+                             f"resident variant at every N1 shape")
     for label, errs in n1.items():
         key = "float32" if label.endswith("f32") else "bfloat16"
         for name, err in errs.items():
@@ -1504,13 +1529,13 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
     model = model.to(dev)
     with torch.no_grad():
         masks, counts = _launched(torch, lambda: model(feats_d), "N2",
-                                  {"lstm_seq_forward"})
+                                  LSTM_FWD_SET)
         with _PlainLstm():
             masks_p = model(feats_d)
     n2_err = _abs(masks, masks_p)
     print(json.dumps({"N2_masknet_launches": counts,
                       "N2_mask_vs_plain_max_abs": n2_err, "tol": N2_TOL}))
-    if counts != {"lstm_seq_forward": layers} or not torch.isfinite(
+    if counts != dict.fromkeys(LSTM_FWD_SET, layers) or not torch.isfinite(
             masks).all() or tuple(masks.shape) != (b, t, f) or \
             not n2_err <= N2_TOL:
         raise AssertionError(f"N2: launches {counts}, masks "
@@ -1536,9 +1561,8 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
     print(json.dumps({"N3_losses": losses, "N3_plain_losses": losses_p,
                       "N3_loss_rel_err": n3_err, "tol": N3_LOSS_RTOL,
                       "N3_launches": train_launches}))
-    if any(c != {"lstm_seq_forward": layers, "lstm_seq_backward": layers}
-           for c in n3_counts) or not np.isfinite(losses).all() or \
-            not n3_err <= N3_LOSS_RTOL:
+    if any(c != dict.fromkeys(LSTM_SET, layers) for c in n3_counts) or \
+            not np.isfinite(losses).all() or not n3_err <= N3_LOSS_RTOL:
         raise AssertionError(f"N3: launches {n3_counts}, losses {losses} "
                              f"vs plain {losses_p}")
 
@@ -1574,22 +1598,21 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
                 argv)))
             if device == "cuda":
                 _, est_counts = _launched(torch, run, "N4 estimate",
-                                          {"lstm_seq_forward"})
+                                          LSTM_FWD_SET)
             else:
                 run()
             masks_by[device] = {k: np.load(out / f"{k}.npy") for k in keys}
         n4_mask = max(float(np.abs(masks_by["cuda"][k] -
                                    masks_by["cpu"][k]).max()) for k in keys)
-    want_train = {"lstm_seq_forward": layers * batches,
-                  "lstm_seq_backward": layers * batches}
+    want_train = dict.fromkeys(LSTM_SET, layers * batches)
     print(json.dumps({"N4_target_card_vs_cpu_max_abs": n4_target,
                       "N4_mask_card_vs_cpu_max_abs": n4_mask,
                       "tol": [N4_TARGET_TOL, N4_MASK_TOL],
                       "N4_train_launches": train_counts,
                       "N4_estimate_launches": est_counts,
                       "utterances": corpus}))
-    if train_counts != want_train or est_counts != {
-            "lstm_seq_forward": layers * corpus} or \
+    if train_counts != want_train or est_counts != dict.fromkeys(
+            LSTM_FWD_SET, layers * corpus) or \
             not n4_target <= N4_TARGET_TOL or not n4_mask <= N4_MASK_TOL or \
             not all(np.isfinite(m).all() for m in masks_by["cuda"].values()):
         raise AssertionError(f"N4: train launches {train_counts}, estimate "
@@ -1615,23 +1638,31 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
          _bound_mixed(4 * gate + w_bytes + 6 * seq, tc2, f2 * 2))]
     # for information only, never called by the port: cuDNN's
     # bidirectional LSTM at the same (T, B, H) over a layer's 2H-wide input
-    # (it also runs the input projection), f32 as the port's projections
+    # (it also runs the input projection), f32 as the port's projections;
+    # the forward as training runs it and as inference runs it
     cudnn = torch.nn.LSTM(2 * h, h, bidirectional=True).to(dev)
     x_in = torch.randn(t, b, 2 * h, device=dev, requires_grad=True)
     info = {"lstm_seq_forward": _time_ms(torch, lambda: cudnn(x_in)[0],
                                          iters=5),
             "lstm_seq_backward": _time_ms(
                 torch, lambda: cudnn(x_in)[0].sum().backward(), iters=5)}
+    with torch.no_grad():
+        cudnn_inference_ms = _time_ms(torch, lambda: cudnn(x_in)[0], iters=5)
     launches = dict(train_launches)
     abs_errs = n1_abs[f"B{b}_bf16"]
     rel_errs = n1[f"B{b}_bf16"]
+    # kernel 20's row is its resident variant, which every MaskNet call
+    # takes; the stream variant's time and error beside it
+    row_of = {"lstm_seq_forward": "lstm_seq_forward_resident",
+              "lstm_seq_backward": "lstm_seq_backward"}
     kernels = []
     for name, replaces, run_k, run_p, (bound_ms, bound_by) in rows:
-        kernels.append({
+        key = row_of[name]
+        row = {
             "name": name, "route": "cuda",
             "source": "setk_tpu_torch/csrc/lstm_seq.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": abs_errs[name], "max_rel_err": rel_errs[name],
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": abs_errs[key], "max_rel_err": rel_errs[key],
             "ms": _graph_ms(torch, run_k, iters=5),
             "eager_ms": _time_ms(torch, run_k, iters=5, warmup=1),
             "plain_ms": _time_ms(torch, run_p, iters=2, warmup=1),
@@ -1639,7 +1670,31 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
             "peaks": "bf16 products 989 TFLOP/s, gate math 67 TFLOP/s f32",
             "library_ms": None,
             "cudnn_lstm_bidir_ms_info" if name.endswith("forward") else
-            "cudnn_lstm_bidir_fwd_bwd_ms_info": info[name]})
+            "cudnn_lstm_bidir_fwd_bwd_ms_info": info[name]}
+        if name == "lstm_seq_forward":
+            row.update({
+                "variant": "resident",
+                "stream_ms": _graph_ms(
+                    torch, lambda: ls.lstm_seq_forward_stream(*xg, *wh),
+                    iters=5),
+                "stream_max_abs_err": abs_errs["lstm_seq_forward_stream"],
+                "cudnn_lstm_bidir_inference_ms_info": cudnn_inference_ms})
+        kernels.append(row)
+    # the resident variant's latency floor: one step's barrier and
+    # bookkeeping at H = 8, B = 1, which the byte bound does not show; and
+    # B = 1 at the full width, as estimate_nn_masks serves
+    floor = {}
+    for label, bb, hh in (("H8_B1", 1, 8), (f"H{h}_B1", 1, h)):
+        xg1, wh1, _ = _lstm_args(np, torch, dev, t, bb, hh, bf16, 3)
+        ms = _graph_ms(torch, lambda: ls.lstm_seq_forward_resident(
+            *xg1, *wh1), iters=5)
+        floor[label] = {"T": t, "B": bb, "H": hh, "ms": ms,
+                        "us_per_step": ms * 1e3 / t}
+    print(json.dumps({"lstm_fwd_resident_floor": floor,
+                      "lstm_fwd_resident_layout_bench": dict(zip(
+                          ("blocks_per_direction", "units_per_block",
+                           "h_tile_stride", "h_tile_rows", "smem_bytes"),
+                          ls.resident_layout(b, h, 2, *limits)))}))
 
     # ---- the serving and training steps ----
     audio_s = b * t * N_HOP_S

@@ -84,7 +84,9 @@ _SIGNATURES = {
         "wpe_apply_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "lstm_seq": {
-        "lstm_fwd_launch": [_P] * 8 + [_I] * 4 + [_P],
+        "lstm_fwd_stream_launch": [_P] * 8 + [_I] * 4 + [_P],
+        "lstm_fwd_resident_launch": [_P] * 8 + [_I] * 4 + [_P],
+        "lstm_device_limits": [_P],
         "lstm_bwd_launch": [_P] * 14 + [_I] * 4 + [_P],
     },
 }

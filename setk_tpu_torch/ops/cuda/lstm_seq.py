@@ -24,21 +24,97 @@ are the plain PyTorch versions (a loop over T; ``lstm_cell`` and
 scan runs too).  ``lstm_seq_supported`` is the port's gate: any B >= 1
 and 1 <= H <= 1024 (one thread a hidden unit), not the TPU's B % 8 == 0
 and H % 128 == 0.
+
+Kernel 20 has two variants with one contract, each with its own entry
+point and launch count: ``lstm_seq_forward_resident`` (a cooperative grid
+of one block an SM, W_h sliced across the blocks and held in shared
+memory, one grid barrier a step) and ``lstm_seq_forward_stream`` (the
+first design: a block a tile of 4 batch rows streams W_h from L2 every
+step).  ``lstm_seq_forward`` takes the one that ``forward_variant`` picks
+from B, H, the weight type and the device's SM count and opt-in shared
+memory (``device_limits``): the resident one wherever its W_h slice and
+one h tile fit (every bf16 H <= 1024 on an H100; f32 up to H = 891), the
+stream one elsewhere.  A failed launch raises; nothing falls back.
 """
+
+import ctypes
+import functools
 
 import torch
 
 from setk_tpu_torch.ops.cuda import _build
 
 __all__ = ["MAX_HIDDEN", "lstm_seq_supported", "lstm_seq_bidir",
-           "lstm_seq_forward", "lstm_seq_forward_plain", "lstm_seq_backward",
-           "lstm_seq_backward_plain", "lstm_cell", "round_to"]
+           "lstm_seq_forward", "lstm_seq_forward_resident",
+           "lstm_seq_forward_stream", "lstm_seq_forward_plain",
+           "lstm_seq_backward", "lstm_seq_backward_plain", "lstm_cell",
+           "round_to", "resident_layout", "forward_variant",
+           "device_limits"]
 
 MAX_HIDDEN = 1024
+# the resident variant's block and a thread's rows (csrc/lstm_seq.cu
+# kResThreads, kResRows)
+RESIDENT_THREADS = 256
+RESIDENT_ROWS = 8
 
 
 def lstm_seq_supported(batch: int, hidden: int) -> bool:
     return batch >= 1 and 1 <= hidden <= MAX_HIDDEN
+
+
+def resident_layout(batch: int, hidden: int, weight_bytes: int, sms: int,
+                    smem: int):
+    """The resident variant's layout on a device with ``sms`` SMs and
+    ``smem`` bytes of shared memory a block: (blocks a direction, units a
+    block, h-tile row stride in floats, h-tile rows, dynamic shared memory
+    in bytes), or None where it does not fit.  csrc/lstm_seq.cu
+    ``resident_layout`` is the same arithmetic: a thread holds one unit's
+    four gate sums for 8 rows, and the k shares' partial sums reuse the h
+    tile's space."""
+    per_dir = sms // 2
+    if per_dir < 1:
+        return None
+    units = -(-hidden // per_dir)
+    if units > RESIDENT_THREADS:
+        return None
+    w_bytes = -(-hidden * 4 * units * weight_bytes // 16) * 16
+    stride = -(-hidden // 4) * 4
+    if (stride // 4) % 2 == 0:
+        stride += 4
+    red_bytes = 4 * RESIDENT_THREADS * RESIDENT_ROWS * 4
+    if w_bytes + red_bytes > smem:
+        return None
+    rows = min(batch, (smem - w_bytes) // (4 * stride),
+               RESIDENT_ROWS * (RESIDENT_THREADS // units))
+    if rows < 1:
+        return None
+    return (per_dir, units, stride, rows,
+            w_bytes + max(rows * 4 * stride, red_bytes))
+
+
+def forward_variant(batch: int, hidden: int, dtype: torch.dtype, sms: int,
+                    smem: int) -> str:
+    """Kernel 20's variant for (B, H, W_h's type) on a device with ``sms``
+    SMs and ``smem`` bytes of opt-in shared memory a block: "resident"
+    where its layout fits, else "stream"."""
+    return ("resident" if resident_layout(batch, hidden, dtype.itemsize,
+                                          sms, smem) else "stream")
+
+
+def device_limits(device) -> tuple:
+    """(SM count, opt-in shared memory a block in bytes) of the CUDA
+    ``device``, as the kernel library reads them; once per device."""
+    index = torch.device(device).index
+    return _limits(torch.cuda.current_device() if index is None else index)
+
+
+@functools.cache
+def _limits(index: int) -> tuple:
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        _build.check(_build.library("lstm_seq").lstm_device_limits(
+            ctypes.addressof(out)), "lstm_device_limits")
+    return out[0], out[1]
 
 
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -142,23 +218,57 @@ def _check(what, seqs, gates, whf, whb):
     return t_len, b, h
 
 
-def lstm_seq_forward(xgf, xgb, whf, whb):
-    """Kernel 20: (ys_f, cs_f, ys_b, cs_b), each (T, B, H) f32.
-
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (``lstm_seq_forward.launches`` counts those launches).
-    """
-    if xgf.device.type == "cpu":
-        return lstm_seq_forward_plain(xgf, xgb, whf, whb)
-    t_len, b, h = _check("lstm_seq_forward", (), (xgf, xgb), whf, whb)
+def _forward_launch(what, entry, xgf, xgb, whf, whb):
+    t_len, b, h = _check(what, (), (xgf, xgb), whf, whb)
     out = [torch.empty((t_len, b, h), dtype=torch.float32, device=xgf.device)
            for _ in range(4)]
-    _build.launch("lstm_seq", "lstm_fwd_launch", xgf.device, xgf.data_ptr(),
+    _build.launch("lstm_seq", entry, xgf.device, xgf.data_ptr(),
                   xgb.data_ptr(), whf.data_ptr(), whb.data_ptr(),
                   *(o.data_ptr() for o in out), t_len, b, h,
                   int(whf.dtype == torch.bfloat16))
-    lstm_seq_forward.launches += 1
     return tuple(out)
+
+
+def lstm_seq_forward_resident(xgf, xgb, whf, whb):
+    """Kernel 20's resident variant (see ``lstm_seq_forward``); raises
+    where its layout does not fit the device or the grid cannot be
+    co-resident.  ``lstm_seq_forward_resident.launches`` counts its
+    launches."""
+    if xgf.device.type == "cpu":
+        return lstm_seq_forward_plain(xgf, xgb, whf, whb)
+    out = _forward_launch("lstm_seq_forward_resident",
+                          "lstm_fwd_resident_launch", xgf, xgb, whf, whb)
+    lstm_seq_forward_resident.launches += 1
+    return out
+
+
+def lstm_seq_forward_stream(xgf, xgb, whf, whb):
+    """Kernel 20's stream variant (see ``lstm_seq_forward``);
+    ``lstm_seq_forward_stream.launches`` counts its launches."""
+    if xgf.device.type == "cpu":
+        return lstm_seq_forward_plain(xgf, xgb, whf, whb)
+    out = _forward_launch("lstm_seq_forward_stream",
+                          "lstm_fwd_stream_launch", xgf, xgb, whf, whb)
+    lstm_seq_forward_stream.launches += 1
+    return out
+
+
+def lstm_seq_forward(xgf, xgb, whf, whb):
+    """Kernel 20: (ys_f, cs_f, ys_b, cs_b), each (T, B, H) f32.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    variant that ``forward_variant`` picks (``lstm_seq_forward.launches``
+    counts the launches of both, each variant's wrapper its own).
+    """
+    if xgf.device.type == "cpu":
+        return lstm_seq_forward_plain(xgf, xgb, whf, whb)
+    _, b, h = _check("lstm_seq_forward", (), (xgf, xgb), whf, whb)
+    variant = forward_variant(b, h, whf.dtype, *device_limits(xgf.device))
+    run = (lstm_seq_forward_resident if variant == "resident" else
+           lstm_seq_forward_stream)
+    out = run(xgf, xgb, whf, whb)
+    lstm_seq_forward.launches += 1
+    return out
 
 
 def lstm_seq_backward(dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb):
@@ -217,4 +327,6 @@ def lstm_seq_bidir(xgf, xgb, whf, whb):
 
 
 lstm_seq_forward.launches = 0
+lstm_seq_forward_resident.launches = 0
+lstm_seq_forward_stream.launches = 0
 lstm_seq_backward.launches = 0

@@ -12,6 +12,14 @@
 // stream>>>(args)` launch into `emu_launch(grid, block, smem, stream,
 // kernel, args)` before compiling, and each dynamic shared array into a
 // pointer to the block's buffer of `smem` bytes.
+//
+// A cooperative launch (cudaLaunchCooperativeKernel) runs every thread of
+// the grid at once, each block with its own barrier and its own dynamic
+// shared buffer, and cooperative_groups.h's grid.sync() is one barrier over
+// all of them; a kernel launched so must use neither static __shared__
+// arrays nor shuffles, whose exchange is one per process.  The device's SM
+// count and opt-in shared memory are what emu_set_device_attributes set
+// (a test calls it through the library before a resident launch).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -19,7 +27,10 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -38,6 +49,17 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 struct float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+struct uint2 {
+  unsigned x, y;
+};
+// a load that bypasses L1 on the card; a plain load here
+template <typename T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 
 struct dim3 {
   unsigned x, y, z;
@@ -45,7 +67,11 @@ struct dim3 {
 };
 
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorCooperativeLaunchTooLarge = 720
+};
 inline int cudaGetLastError() { return cudaSuccess; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename K>
@@ -53,12 +79,43 @@ inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 
+// one emulated device, whose SM count and opt-in shared memory a test sets
+inline int emu_sm_count = 6;
+inline int emu_smem_optin = 232448;
+extern "C" void emu_set_device_attributes(int sms, int smem_optin) {
+  emu_sm_count = sms;
+  emu_smem_optin = smem_optin;
+}
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
+inline int cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline int cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? emu_sm_count
+                                                  : emu_smem_optin;
+  return cudaSuccess;
+}
+template <typename K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K,
+                                                         int,
+                                                         size_t smem) {
+  *blocks = smem <= (size_t)emu_smem_optin ? 1 : 0;
+  return cudaSuccess;
+}
+
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
-inline std::barrier<>* emu_barrier = nullptr;
-// a block's dynamic shared memory (`extern __shared__ T name[];` is
-// rewritten to `T* name = reinterpret_cast<T*>(emu_dyn_smem);`)
-inline char* emu_dyn_smem = nullptr;
+// the calling thread's block barrier and dynamic shared memory
+// (`extern __shared__ T name[];` is rewritten to
+// `T* name = reinterpret_cast<T*>(emu_dyn_smem);`)
+inline thread_local std::barrier<>* emu_barrier = nullptr;
+inline thread_local char* emu_dyn_smem = nullptr;
+// the grid's barrier during a cooperative launch
+inline std::barrier<>* emu_grid_barrier = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
@@ -100,16 +157,17 @@ void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, K kernel,
   blockDim = dim3(block);
   gridDim = grid;
   std::vector<double> dyn(smem / sizeof(double) + 1);
-  emu_dyn_smem = reinterpret_cast<char*>(dyn.data());
+  char* dyn_smem = reinterpret_cast<char*>(dyn.data());
   for (unsigned by = 0; by < grid.y; ++by) {
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::barrier<> bar(block);
-      emu_barrier = &bar;
       std::vector<std::thread> threads;
       for (int t = 0; t < block; ++t) {
         threads.emplace_back([&, t]() {
           threadIdx = dim3(t);
           blockIdx = dim3(bx, by);
+          emu_barrier = &bar;
+          emu_dyn_smem = dyn_smem;
           kernel(args...);
           bar.arrive_and_drop();  // a thread that returned early
         });
@@ -117,4 +175,56 @@ void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, K kernel,
       for (auto& th : threads) th.join();
     }
   }
+}
+
+// every thread of the grid at once; grid.sync() meets all of them
+template <typename... P, std::size_t... I>
+void emu_launch_cooperative(void (*kernel)(P...), dim3 grid, dim3 block,
+                            void** args, size_t smem,
+                            std::index_sequence<I...>) {
+  blockDim = block;
+  gridDim = grid;
+  const unsigned blocks = grid.x * grid.y * grid.z;
+  const unsigned per_block = block.x * block.y * block.z;
+  std::barrier<> grid_bar(blocks * per_block);
+  emu_grid_barrier = &grid_bar;
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  std::vector<std::vector<double>> dyn(blocks);
+  for (unsigned i = 0; i < blocks; ++i) {
+    bars.push_back(std::make_unique<std::barrier<>>(per_block));
+    dyn[i].resize(smem / sizeof(double) + 1);
+  }
+  std::vector<std::thread> threads;
+  for (unsigned i = 0; i < blocks; ++i) {
+    for (unsigned t = 0; t < per_block; ++t) {
+      threads.emplace_back([&, i, t]() {
+        threadIdx = dim3(t % block.x, t / block.x % block.y,
+                         t / (block.x * block.y));
+        blockIdx = dim3(i % grid.x, i / grid.x % grid.y,
+                        i / (grid.x * grid.y));
+        emu_barrier = bars[i].get();
+        emu_dyn_smem = reinterpret_cast<char*>(dyn[i].data());
+        kernel(*static_cast<std::decay_t<P>*>(args[I])...);
+        bars[i]->arrive_and_drop();
+        grid_bar.arrive_and_drop();
+      });
+    }
+  }
+  for (auto& th : threads) th.join();
+  emu_grid_barrier = nullptr;
+}
+
+template <typename... P>
+void emu_cooperative(void (*kernel)(P...), dim3 grid, dim3 block,
+                     void** args, size_t smem) {
+  emu_launch_cooperative(kernel, grid, block, args, smem,
+                         std::index_sequence_for<P...>{});
+}
+
+// the runtime's template form: F the kernel's function type
+template <typename F>
+int cudaLaunchCooperativeKernel(const F* kernel, dim3 grid, dim3 block,
+                                void** args, size_t smem, cudaStream_t) {
+  emu_cooperative(kernel, grid, block, args, smem);
+  return cudaSuccess;
 }

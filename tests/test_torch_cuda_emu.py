@@ -11,10 +11,12 @@ pair covariance (N = 1, 6 and 8, complement mask or two masks), the
 masked covariance against K classes (warp shuffles), the Jacobi
 regularized inverse, the fused CGMM/CACGMM EM (both models, both
 entries, a frame mask, K = 3) and the BLSTM recurrence forward and
-backward (f32 and bf16 weights, T = 1, ragged last row tiles) against
-their plain PyTorch versions without a card; it says nothing of
-speed, and the card's own compiler is checked by chip_smoke.py.  Skips
-when no g++ with C++20 is present (decided inside the fixture).
+backward (f32 and bf16 weights, T = 1, ragged last row tiles; kernel 20's
+resident variant as a cooperative launch on an emulated card of 6 SMs,
+with ragged unit slices, idle blocks and several h tiles) against their
+plain PyTorch versions without a card; it says nothing of speed, and the
+card's own compiler is checked by chip_smoke.py.  Skips when no g++ with
+C++20 is present (decided inside the fixture).
 """
 
 import ctypes
@@ -47,6 +49,8 @@ TOL = 1e-5   # f32 radix-2 FFT against pocketfft, f32 sums in another order
 # N = 8 Cholesky, each sum in another order than torch's; the bar the
 # kernels are held to on the card
 SOLVE_TOL = 1e-4
+# the emulated card of the resident LSTM variant: 3 blocks a direction
+EMU_SMS, EMU_SMEM = 6, 232448
 _LAUNCH = re.compile(r"(\w+<[^;]*?>)<<<(.*?)>>>\(", re.S)
 _DYNAMIC_SMEM = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
@@ -77,6 +81,7 @@ def libs(tmp_path_factory):
         for fn, argtypes in _build._SIGNATURES[name].items():
             getattr(handle, fn).argtypes = argtypes
             getattr(handle, fn).restype = ctypes.c_int
+        handle.emu_set_device_attributes(EMU_SMS, EMU_SMEM)
         loaded[name] = handle
     return loaded
 
@@ -709,11 +714,33 @@ def _lstm_inputs(t, b, h, dtype, seed):
     return xg, wh, rng
 
 
-@pytest.mark.parametrize("t,b,h,dtype", LSTM)
-def test_lstm_fwd_source_matches_plain(libs, t, b, h, dtype):
+# kernel 20's two variants over LSTM and, for the resident one on the
+# emulated 3 blocks a direction, cases of its own: H = 32, 40 and 64 leave
+# the last block's unit slice ragged (11, 14 and 22 units a block); H = 2
+# leaves a block of each direction idle at every barrier; B = 90 at H =
+# 150 (50 units a block) takes three h tiles of at most 40 rows; T = 1
+# with B = 1; B = 1, 2, 3 and 4 rows hold 1, 2, 4 and 4 of a thread's 8
+# row slots
+RESIDENT = [(4, 3, 2, "float32"), (4, 3, 2, "bfloat16"),
+            (3, 2, 24, "float32"), (5, 4, 36, "bfloat16"),
+            (3, 90, 150, "float32"), (3, 90, 150, "bfloat16"),
+            (1, 1, 32, "float32"), (1, 1, 32, "bfloat16")]
+LSTM_FWD = [pytest.param("stream", *c, id="-".join(map(str, c)))
+            for c in LSTM] + \
+    [pytest.param(v, *c, id="-".join(map(str, (v,) + c)))
+     for v in ("resident", "stream") for c in RESIDENT] + \
+    [pytest.param("resident", *c, id="-".join(map(str, ("resident",) + c)))
+     for c in LSTM]
+
+
+@pytest.mark.parametrize("variant,t,b,h,dtype", LSTM_FWD)
+def test_lstm_fwd_source_matches_plain(libs, variant, t, b, h, dtype):
     (xgf, xgb), (whf, whb), _ = _lstm_inputs(t, b, h, dtype, t * b + h)
     out = [torch.empty((t, b, h)) for _ in range(4)]
-    err = libs["lstm_seq"].lstm_fwd_launch(
+    size = 2 if dtype == "bfloat16" else 4
+    if variant == "resident":
+        assert ls.resident_layout(b, h, size, EMU_SMS, EMU_SMEM)
+    err = getattr(libs["lstm_seq"], f"lstm_fwd_{variant}_launch")(
         xgf.data_ptr(), xgb.data_ptr(), whf.data_ptr(), whb.data_ptr(),
         *(o.data_ptr() for o in out), t, b, h, int(dtype == "bfloat16"),
         None)
@@ -745,8 +772,90 @@ def test_lstm_entry_points_reject_bad_shapes(libs):
     p = torch.zeros(8).data_ptr()
     lib = libs["lstm_seq"]
     for t, b, h in ((0, 2, 8), (2, 0, 8), (2, 2, 0), (2, 2, 1025)):
-        assert lib.lstm_fwd_launch(*[p] * 8, t, b, h, 0, None) != 0
+        assert lib.lstm_fwd_stream_launch(*[p] * 8, t, b, h, 0, None) != 0
+        assert lib.lstm_fwd_resident_launch(*[p] * 8, t, b, h, 0,
+                                            None) != 0
         assert lib.lstm_bwd_launch(*[p] * 14, t, b, h, 1, None) != 0
+    # inside the gate, but the resident layout does not fit the emulated
+    # card (more than 256 units a block; a W_h slice beyond its shared
+    # memory): the resident entry refuses before launching
+    for b, h, bf16 in ((2, 1024, 0), (2, 1024, 1), (2, 700, 0)):
+        assert ls.resident_layout(b, h, 2 if bf16 else 4, EMU_SMS,
+                                  EMU_SMEM) is None
+        assert lib.lstm_fwd_resident_launch(*[p] * 8, 2, b, h, bf16,
+                                            None) != 0
+
+
+def test_lstm_device_limits_read_the_card(libs):
+    out = (ctypes.c_int * 2)()
+    assert libs["lstm_seq"].lstm_device_limits(ctypes.addressof(out)) == 0
+    assert tuple(out) == (EMU_SMS, EMU_SMEM)
+
+
+@pytest.mark.parametrize("h,dtype,want", [
+    (1024, torch.bfloat16, "resident"), (512, torch.float32, "resident"),
+    (1024, torch.float32, "stream"), (891, torch.float32, "resident"),
+    (892, torch.float32, "stream"), (512, torch.bfloat16, "resident")])
+def test_lstm_forward_variant_on_an_h100(h, dtype, want):
+    """132 SMs, 227 KB a block: every bf16 H <= 1024 and f32 up to H = 891
+    run resident, at any B; one h tile holds all 64 bench rows at H =
+    512."""
+    for b in (1, 64, 1000):
+        assert ls.forward_variant(b, h, dtype, 132, 232448) == want
+    assert ls.resident_layout(64, 512, 2, 132, 232448) == (
+        66, 8, 516, 64, 32768 + 64 * 516 * 4)
+    # H = 1024: 16 units, a 128 KB slice, tiles of 24 rows
+    assert ls.resident_layout(64, 1024, 2, 132, 232448)[1:4] == (16, 1028,
+                                                                 24)
+
+
+@pytest.fixture
+def meta_card(monkeypatch):
+    """Meta tensors stand for card tensors: the wrappers check and
+    allocate as on the card and record the entry point they call."""
+    calls = []
+    monkeypatch.setattr(ls, "device_limits", lambda dev: (132, 232448))
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, fn, dev, *args: calls.append(fn))
+    for fn in (ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
+               ls.lstm_seq_forward_stream):
+        monkeypatch.setattr(fn, "launches", 0)
+    return calls
+
+
+@pytest.mark.parametrize("h,dtype,entry", [
+    (512, torch.bfloat16, "lstm_fwd_resident_launch"),
+    (1024, torch.float32, "lstm_fwd_stream_launch")])
+def test_lstm_forward_dispatch_counts_each_variant(meta_card, h, dtype,
+                                                   entry):
+    xg = [torch.empty((3, 5, 4 * h), device="meta") for _ in "fb"]
+    wh = [torch.empty((h, 4 * h), dtype=dtype, device="meta") for _ in "fb"]
+    out = ls.lstm_seq_forward(*xg, *wh)
+    assert meta_card == [entry]
+    assert [tuple(o.shape) for o in out] == [(3, 5, h)] * 4
+    resident = entry == "lstm_fwd_resident_launch"
+    assert (ls.lstm_seq_forward.launches,
+            ls.lstm_seq_forward_resident.launches,
+            ls.lstm_seq_forward_stream.launches) == (1, int(resident),
+                                                     int(not resident))
+
+
+def test_lstm_forward_failed_launch_raises(meta_card, monkeypatch):
+    """A resident launch that fails raises; the stream variant is not
+    tried and nothing is counted."""
+    def refuse(name, fn, dev, *args):
+        meta_card.append(fn)
+        _build.check(720, fn)
+    monkeypatch.setattr(_build, "launch", refuse)
+    xg = [torch.empty((3, 5, 64), device="meta") for _ in "fb"]
+    wh = [torch.empty((16, 64), dtype=torch.bfloat16, device="meta")
+          for _ in "fb"]
+    with pytest.raises(RuntimeError, match="lstm_fwd_resident_launch"):
+        ls.lstm_seq_forward(*xg, *wh)
+    assert meta_card == ["lstm_fwd_resident_launch"]
+    assert (ls.lstm_seq_forward.launches,
+            ls.lstm_seq_forward_resident.launches,
+            ls.lstm_seq_forward_stream.launches) == (0, 0, 0)
 
 
 def test_library_names_follow_sources_and_headers(tmp_path, monkeypatch):

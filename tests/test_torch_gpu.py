@@ -523,14 +523,18 @@ def test_wpe_and_wpd_run_kernels_only():
 
 
 # kernels 20-21 (T, B, H, weight type): T = 1, ragged row tiles, the
-# bench width; bars of the peak as tests/test_torch_cuda_emu.py's
+# bench width; bars of the peak as tests/test_torch_cuda_emu.py's.  Kernel
+# 20 through each variant's own entry point; on an H100 every shape here
+# fits the resident one (B = 70 at H = 1024: three h tiles of 24 rows)
 LSTM_TOL = {"float32": TOL, "bfloat16": 2e-3}
 
 
+@pytest.mark.parametrize("variant", ["resident", "stream"])
 @pytest.mark.parametrize("t,b,h,dtype", [
     (1, 1, 32, "float32"), (9, 5, 100, "bfloat16"), (40, 7, 256, "float32"),
-    (400, 64, 512, "bfloat16"), (16, 3, 1024, "bfloat16")])
-def test_lstm_kernels_match_plain(t, b, h, dtype):
+    (400, 64, 512, "bfloat16"), (16, 3, 1024, "bfloat16"),
+    (16, 70, 1024, "bfloat16"), (20, 3, 891, "float32")])
+def test_lstm_kernels_match_plain(t, b, h, dtype, variant):
     dev = _card()
     rng = np.random.default_rng(t + b)
     xg = [torch.from_numpy(rng.standard_normal((t, b, 4 * h)).astype(
@@ -538,7 +542,7 @@ def test_lstm_kernels_match_plain(t, b, h, dtype):
     wh = [torch.from_numpy((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
                            .astype(np.float32)).to(dev, getattr(torch, dtype))
           for _ in "fb"]
-    got = ls.lstm_seq_forward(*xg, *wh)
+    got = getattr(ls, f"lstm_seq_forward_{variant}")(*xg, *wh)
     ref = ls.lstm_seq_forward_plain(*xg, *wh)
     for g, r in zip(got, ref):
         assert _rel(g, r) < LSTM_TOL[dtype]
@@ -550,25 +554,36 @@ def test_lstm_kernels_match_plain(t, b, h, dtype):
         assert _rel(g, r) < LSTM_TOL[dtype]
 
 
+def _lstm_launches():
+    return [fn.launches for fn in (
+        ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
+        ls.lstm_seq_forward_stream, ls.lstm_seq_backward)]
+
+
+def _zero_lstm_launches():
+    for fn in (ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
+               ls.lstm_seq_forward_stream, ls.lstm_seq_backward):
+        fn.launches = 0
+
+
 def test_masknet_blstm_runs_kernels_only():
-    """blstm forward and backward on the card: kernel 20 and kernel 21
-    once a layer each; a trainer step the same; lstm launches neither."""
+    """blstm forward and backward on the card: kernel 20 (its resident
+    variant) and kernel 21 once a layer each; a trainer step the same;
+    lstm launches neither."""
     from setk_tpu_torch.models.mask_net import make_model
     from setk_tpu_torch.models.trainer import MaskTrainer
     dev = _card()
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((3, 50, 65)).astype(
         np.float32)).to(dev)
-    for arch, want in (("blstm", [3, 3]), ("lstm", [0, 0])):
+    for arch, want in (("blstm", [3, 3, 0, 3]), ("lstm", [0, 0, 0, 0])):
         model = make_model(arch, 65, 64, 3).to(dev)
-        ls.lstm_seq_forward.launches = ls.lstm_seq_backward.launches = 0
+        _zero_lstm_launches()
         model(x).sum().backward()
         torch.cuda.synchronize()
-        assert [ls.lstm_seq_forward.launches,
-                ls.lstm_seq_backward.launches] == want, arch
+        assert _lstm_launches() == want, arch
     trainer = MaskTrainer(make_model("blstm", 65, 64, 2), device="cuda")
-    ls.lstm_seq_forward.launches = ls.lstm_seq_backward.launches = 0
+    _zero_lstm_launches()
     loss = trainer.train_batch(x, (x > 0).float(), torch.ones(3, 50))
     assert np.isfinite(loss)
-    assert [ls.lstm_seq_forward.launches, ls.lstm_seq_backward.launches
-            ] == [2, 2]
+    assert _lstm_launches() == [2, 2, 0, 2]
