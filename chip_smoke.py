@@ -133,26 +133,29 @@ the CUDA toolkit.  In order it:
      refused with no allocation;
   18. the BLSTM mask estimator at the train CLI's width (MaskNet blstm,
      257 bins, hidden 512, 3 layers) and the JAX training bench's batch
-     (B = 64, T = 400): N1 holds both variants of kernel 20 (resident and
-     stream, each through its own entry point) and kernel 21 against their
+     (B = 64, T = 400): N1 holds both variants of kernels 20 and 21
+     (resident and stream, each through its own entry point) against their
      plain versions (f32 and bf16 weights at the full shape, B = 1 and B =
      6, a ragged tile of 4 rows; 1e-5 of the peak f32, 2e-3 bf16), checks
-     that the gate picks the resident variant at each of those shapes, and
+     that both gates pick the resident variants at each of those shapes,
+     and
      holds the gradients through lstm_seq_bidir against autograd through
      the plain forward (2e-4 f32, 1e-2 bf16, where kernel 21 rounds dgates
      and autograd rounds the products); N2 runs MaskNet's forward (exactly
      kernel 20's resident variant, 3 times) against the same call through
      the plain versions (1e-4); N3 runs 5 MaskTrainer steps with a frame
-     mask (exactly 3 x kernel 20 resident and 3 x kernel 21 a step, losses
-     finite and within 1e-5 of the plain path from the same init); N4 runs
+     mask (exactly 3 x kernel 20 resident and 3 x kernel 21 resident a
+     step, losses finite and within 1e-5 of the plain path from the same
+     init); N4 runs
      the recipe's chain
      (recipes/train_mask.sh:22-27) on 8 utterances: compute_mask on the
      card and with --device cpu, train_mask_estimator --arch blstm on the
      card (2 epochs, exact launch counts), estimate_nn_masks from its
      checkpoint on both devices (targets 2e-6, masks 2e-4); it times
-     kernels 20-21 (bf16, graph replay, eager, plain, kernel 20's stream
-     variant, cuDNN's nn.LSTM for information), the resident variant's
-     per-step floor (H = 8, B = 1) and the serving (B = 64 and B = 1) and
+     kernels 20-21 (bf16, graph replay, eager, plain, each one's stream
+     variant, cuDNN's nn.LSTM for information: forward, forward and
+     backward, backward alone), the resident variants' per-step floor (H =
+     8, B = 1) and B = 1 at H = 512, and the serving (B = 64 and B = 1) and
      training steps with their profiles;
   19. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
@@ -447,7 +450,8 @@ def _all_counted():
             es.regularized_inverse, ce.em, ch.hermitian_solve_lanes,
             ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply,
             ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
-            ls.lstm_seq_forward_stream, ls.lstm_seq_backward)
+            ls.lstm_seq_forward_stream, ls.lstm_seq_backward,
+            ls.lstm_seq_backward_resident, ls.lstm_seq_backward_stream)
 
 
 def _launched(torch, run, label, want):
@@ -1330,10 +1334,14 @@ N_B, N_T, N_F, N_H, N_L = 64, 400, 257, 512, 3
 N_HOP_S = 0.016
 N_STEPS = 5
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
-# kernel 20 through its resident variant on every MaskNet call (bf16 W_h)
+# kernels 20 and 21 through their resident variants on every MaskNet call
+# (bf16 W_h)
 LSTM_FWD_SET = {"lstm_seq_forward", "lstm_seq_forward_resident"}
-LSTM_SET = LSTM_FWD_SET | {"lstm_seq_backward"}
+LSTM_SET = LSTM_FWD_SET | {"lstm_seq_backward",
+                           "lstm_seq_backward_resident"}
 LSTM_FWD_VARIANTS = ("lstm_seq_forward_resident", "lstm_seq_forward_stream")
+LSTM_BWD_VARIANTS = ("lstm_seq_backward_resident",
+                     "lstm_seq_backward_stream")
 # bars, of the peak.  f32: kernels against their plain versions 1e-5 and
 # gradients through lstm_seq_bidir against autograd through the plain
 # forward 2e-4 (tests/test_pallas_lstm.py:56-80).  bf16 weights, from the
@@ -1384,23 +1392,21 @@ def _lstm_args(np, torch, dev, t, b, h, dtype, seed):
 
 
 def _lstm_kernel_errs(torch, xg, wh, dy):
-    """Both variants of kernel 20, each through its own entry point, and
-    kernel 21 against their plain versions: (relative to the peak,
-    absolute) for each, and the plain forward's states."""
+    """Both variants of kernels 20 and 21, each through its own entry
+    point, against their plain versions: (relative to the peak, absolute)
+    for each, and the plain forward's states."""
     from setk_tpu_torch.ops.cuda import lstm_seq as ls
     ref = ls.lstm_seq_forward_plain(*xg, *wh)
-    rel, abs_ = {}, {}
-    for name in LSTM_FWD_VARIANTS:
-        got = getattr(ls, name)(*xg, *wh)
-        torch.cuda.synchronize()
-        rel[name] = max(_rel(g, r) for g, r in zip(got, ref))
-        abs_[name] = max(_abs(g, r) for g, r in zip(got, ref))
     args = (*dy, *xg, *ref[::2], *ref[1::2], *wh)
-    dx = ls.lstm_seq_backward(*args)
     dx_p = ls.lstm_seq_backward_plain(*args)
-    torch.cuda.synchronize()
-    rel["lstm_seq_backward"] = max(_rel(g, r) for g, r in zip(dx, dx_p))
-    abs_["lstm_seq_backward"] = max(_abs(g, r) for g, r in zip(dx, dx_p))
+    rel, abs_ = {}, {}
+    for names, run, want in ((LSTM_FWD_VARIANTS, lambda f: f(*xg, *wh), ref),
+                             (LSTM_BWD_VARIANTS, lambda f: f(*args), dx_p)):
+        for name in names:
+            got = run(getattr(ls, name))
+            torch.cuda.synchronize()
+            rel[name] = max(_rel(g, r) for g, r in zip(got, want))
+            abs_[name] = max(_abs(g, r) for g, r in zip(got, want))
     return rel, abs_, ref
 
 
@@ -1494,20 +1500,21 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
                              ("B6_f32", 6, f32), ("B1_f32", 1, f32)):
         xg, wh, dy = _lstm_args(np, torch, dev, t, bb, h, dtype, bb)
         n1[label], n1_abs[label], _ = _lstm_kernel_errs(torch, xg, wh, dy)
-        picked[label] = ls.forward_variant(bb, h, dtype, *limits)
+        picked[label] = [ls.forward_variant(bb, h, dtype, *limits),
+                         ls.backward_variant(bb, h, dtype, *limits)]
     n1_grad = {}
     for label, dtype in (("float32", f32), ("bfloat16", bf16)):
         xg, wh, dy = _lstm_args(np, torch, dev, t, b, h, dtype, 7)
         n1_grad[label] = _lstm_grad_errs(torch, xg, wh, dy)
     print(json.dumps({"N1_kernel_vs_plain_rel": n1, "N1_abs": n1_abs,
                       "N1_grad_vs_plain_autograd_rel": n1_grad,
-                      "N1_forward_variant": picked,
+                      "N1_forward_backward_variant": picked,
                       "device_limits": {"sms": limits[0],
                                         "smem_optin": limits[1]},
                       "tol": N1_TOL, "grad_tol": N1_GRAD_TOL}))
-    if set(picked.values()) != {"resident"}:
-        raise AssertionError(f"N1: the gate picks {picked}, needs the "
-                             f"resident variant at every N1 shape")
+    if {v for pair in picked.values() for v in pair} != {"resident"}:
+        raise AssertionError(f"N1: the gates pick {picked}, need the "
+                             f"resident variants at every N1 shape")
     for label, errs in n1.items():
         key = "float32" if label.endswith("f32") else "bfloat16"
         for name, err in errs.items():
@@ -1639,7 +1646,10 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
     # for information only, never called by the port: cuDNN's
     # bidirectional LSTM at the same (T, B, H) over a layer's 2H-wide input
     # (it also runs the input projection), f32 as the port's projections;
-    # the forward as training runs it and as inference runs it
+    # the forward as training runs it and as inference runs it, forward and
+    # backward, and the backward alone (the forward outside the timed
+    # window): the input's gradient alone, and with the weights' as a
+    # training step takes them
     cudnn = torch.nn.LSTM(2 * h, h, bidirectional=True).to(dev)
     x_in = torch.randn(t, b, 2 * h, device=dev, requires_grad=True)
     info = {"lstm_seq_forward": _time_ms(torch, lambda: cudnn(x_in)[0],
@@ -1648,13 +1658,29 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
                 torch, lambda: cudnn(x_in)[0].sum().backward(), iters=5)}
     with torch.no_grad():
         cudnn_inference_ms = _time_ms(torch, lambda: cudnn(x_in)[0], iters=5)
+    y_in = cudnn(x_in)[0]
+    g_in = torch.randn_like(y_in)
+    cudnn_bwd = {
+        "cudnn_lstm_bidir_bwd_ms_info": _time_ms(
+            torch, lambda: torch.autograd.grad(
+                y_in, [x_in, *cudnn.parameters()], g_in, retain_graph=True),
+            iters=5),
+        "cudnn_lstm_bidir_bwd_data_ms_info": _time_ms(
+            torch, lambda: torch.autograd.grad(y_in, x_in, g_in,
+                                               retain_graph=True), iters=5)}
+    del y_in, g_in
     launches = dict(train_launches)
     abs_errs = n1_abs[f"B{b}_bf16"]
     rel_errs = n1[f"B{b}_bf16"]
-    # kernel 20's row is its resident variant, which every MaskNet call
+    # each row is its kernel's resident variant, which every MaskNet call
     # takes; the stream variant's time and error beside it
     row_of = {"lstm_seq_forward": "lstm_seq_forward_resident",
-              "lstm_seq_backward": "lstm_seq_backward"}
+              "lstm_seq_backward": "lstm_seq_backward_resident"}
+    stream_of = {"lstm_seq_forward": (
+        "lstm_seq_forward_stream", lambda: ls.lstm_seq_forward_stream(
+            *xg, *wh)), "lstm_seq_backward": (
+        "lstm_seq_backward_stream", lambda: ls.lstm_seq_backward_stream(
+            *bargs))}
     kernels = []
     for name, replaces, run_k, run_p, (bound_ms, bound_by) in rows:
         key = row_of[name]
@@ -1671,30 +1697,41 @@ def _blstm_slice(np, torch, dev, b=N_B, t=N_T, f=N_F, h=N_H, layers=N_L,
             "library_ms": None,
             "cudnn_lstm_bidir_ms_info" if name.endswith("forward") else
             "cudnn_lstm_bidir_fwd_bwd_ms_info": info[name]}
-        if name == "lstm_seq_forward":
-            row.update({
-                "variant": "resident",
-                "stream_ms": _graph_ms(
-                    torch, lambda: ls.lstm_seq_forward_stream(*xg, *wh),
-                    iters=5),
-                "stream_max_abs_err": abs_errs["lstm_seq_forward_stream"],
-                "cudnn_lstm_bidir_inference_ms_info": cudnn_inference_ms})
+        stream, run_s = stream_of[name]
+        row.update({"variant": "resident",
+                    "stream_ms": _graph_ms(torch, run_s, iters=5),
+                    "stream_max_abs_err": abs_errs[stream]})
+        row.update({"cudnn_lstm_bidir_inference_ms_info": cudnn_inference_ms}
+                   if name == "lstm_seq_forward" else cudnn_bwd)
         kernels.append(row)
-    # the resident variant's latency floor: one step's barrier and
+    # the resident variants' latency floor: one step's barrier and
     # bookkeeping at H = 8, B = 1, which the byte bound does not show; and
-    # B = 1 at the full width, as estimate_nn_masks serves
-    floor = {}
+    # B = 1 at the full width, as estimate_nn_masks serves (kernel 20) and
+    # a one-utterance batch trains (kernel 21)
+    floor, bfloor = {}, {}
     for label, bb, hh in (("H8_B1", 1, 8), (f"H{h}_B1", 1, h)):
-        xg1, wh1, _ = _lstm_args(np, torch, dev, t, bb, hh, bf16, 3)
+        xg1, wh1, dy1 = _lstm_args(np, torch, dev, t, bb, hh, bf16, 3)
         ms = _graph_ms(torch, lambda: ls.lstm_seq_forward_resident(
             *xg1, *wh1), iters=5)
         floor[label] = {"T": t, "B": bb, "H": hh, "ms": ms,
                         "us_per_step": ms * 1e3 / t}
+        st1 = ls.lstm_seq_forward_plain(*xg1, *wh1)
+        a1 = (*dy1, *xg1, *st1[::2], *st1[1::2], *wh1)
+        ms = _graph_ms(torch, lambda: ls.lstm_seq_backward_resident(*a1),
+                       iters=5)
+        bfloor[label] = {"T": t, "B": bb, "H": hh, "ms": ms,
+                         "us_per_step": ms * 1e3 / t}
     print(json.dumps({"lstm_fwd_resident_floor": floor,
+                      "lstm_bwd_resident_floor": bfloor,
                       "lstm_fwd_resident_layout_bench": dict(zip(
                           ("blocks_per_direction", "units_per_block",
                            "h_tile_stride", "h_tile_rows", "smem_bytes"),
-                          ls.resident_layout(b, h, 2, *limits)))}))
+                          ls.resident_layout(b, h, 2, *limits))),
+                      "lstm_bwd_resident_layout_bench": dict(zip(
+                          ("blocks_per_direction", "units_per_block",
+                           "phase1_rows", "phase1_stride", "phase2_rows",
+                           "phase2_chunk", "phase2_stride", "smem_bytes"),
+                          ls.backward_resident_layout(b, h, 2, *limits)))}))
 
     # ---- the serving and training steps ----
     audio_s = b * t * N_HOP_S

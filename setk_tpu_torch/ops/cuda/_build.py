@@ -87,7 +87,9 @@ _SIGNATURES = {
         "lstm_fwd_stream_launch": [_P] * 8 + [_I] * 4 + [_P],
         "lstm_fwd_resident_launch": [_P] * 8 + [_I] * 4 + [_P],
         "lstm_device_limits": [_P],
-        "lstm_bwd_launch": [_P] * 14 + [_I] * 4 + [_P],
+        "lstm_bwd_stream_launch": [_P] * 14 + [_I] * 4 + [_P],
+        "lstm_bwd_resident_launch": [_P] * 14 + [_I] * 4 + [_P],
+        "lstm_bwd_layout": [_I] * 5 + [_P],
     },
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)

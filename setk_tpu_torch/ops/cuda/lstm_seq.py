@@ -25,16 +25,21 @@ scan runs too).  ``lstm_seq_supported`` is the port's gate: any B >= 1
 and 1 <= H <= 1024 (one thread a hidden unit), not the TPU's B % 8 == 0
 and H % 128 == 0.
 
-Kernel 20 has two variants with one contract, each with its own entry
-point and launch count: ``lstm_seq_forward_resident`` (a cooperative grid
-of one block an SM, W_h sliced across the blocks and held in shared
-memory, one grid barrier a step) and ``lstm_seq_forward_stream`` (the
-first design: a block a tile of 4 batch rows streams W_h from L2 every
-step).  ``lstm_seq_forward`` takes the one that ``forward_variant`` picks
-from B, H, the weight type and the device's SM count and opt-in shared
-memory (``device_limits``): the resident one wherever its W_h slice and
-one h tile fit (every bf16 H <= 1024 on an H100; f32 up to H = 891), the
-stream one elsewhere.  A failed launch raises; nothing falls back.
+Kernels 20 and 21 each have two variants with one contract, each with
+its own entry point and launch count: ``lstm_seq_forward_resident`` and
+``lstm_seq_backward_resident`` (a cooperative grid of one block an SM,
+W_h sliced across the blocks and held in shared memory, one grid barrier
+a step; kernel 21's recomputes the gates of every frame first, off the
+serial chain, and exchanges the rounded dgates between steps through a
+ping-pong buffer) and ``lstm_seq_forward_stream`` and
+``lstm_seq_backward_stream`` (the first design: a block a tile of 4 batch
+rows streams W_h from L2 every step).  ``lstm_seq_forward`` and
+``lstm_seq_backward`` take the one that ``forward_variant`` and
+``backward_variant`` pick from B, H, the weight type and the device's SM
+count and opt-in shared memory (``device_limits``): the resident one
+wherever its layout fits (on an H100 every bf16 H <= 1024 at B = 64, so
+every ``MaskNet`` call; f32 up to H = 891 forward and H = 792 backward),
+the stream one elsewhere.  A failed launch raises; nothing falls back.
 """
 
 import ctypes
@@ -47,19 +52,31 @@ from setk_tpu_torch.ops.cuda import _build
 __all__ = ["MAX_HIDDEN", "lstm_seq_supported", "lstm_seq_bidir",
            "lstm_seq_forward", "lstm_seq_forward_resident",
            "lstm_seq_forward_stream", "lstm_seq_forward_plain",
-           "lstm_seq_backward", "lstm_seq_backward_plain", "lstm_cell",
-           "round_to", "resident_layout", "forward_variant",
-           "device_limits"]
+           "lstm_seq_backward", "lstm_seq_backward_resident",
+           "lstm_seq_backward_stream", "lstm_seq_backward_plain",
+           "lstm_cell", "round_to", "resident_layout", "forward_variant",
+           "backward_resident_layout", "backward_variant", "device_limits"]
 
 MAX_HIDDEN = 1024
-# the resident variant's block and a thread's rows (csrc/lstm_seq.cu
-# kResThreads, kResRows)
+# the resident variants' block, a thread's rows and kernel 21's least
+# dgates columns a chunk (csrc/lstm_seq.cu kResThreads, kResRows, kMinChunk)
 RESIDENT_THREADS = 256
 RESIDENT_ROWS = 8
+RESIDENT_MIN_CHUNK = 64
 
 
 def lstm_seq_supported(batch: int, hidden: int) -> bool:
     return batch >= 1 and 1 <= hidden <= MAX_HIDDEN
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _odd_stride(n: int) -> int:
+    """A tile's row stride for n values (csrc/lstm_seq.cu odd_stride)."""
+    stride = -(-n // 4) * 4
+    return stride + 4 if (stride // 4) % 2 == 0 else stride
 
 
 def resident_layout(batch: int, hidden: int, weight_bytes: int, sms: int,
@@ -77,10 +94,8 @@ def resident_layout(batch: int, hidden: int, weight_bytes: int, sms: int,
     units = -(-hidden // per_dir)
     if units > RESIDENT_THREADS:
         return None
-    w_bytes = -(-hidden * 4 * units * weight_bytes // 16) * 16
-    stride = -(-hidden // 4) * 4
-    if (stride // 4) % 2 == 0:
-        stride += 4
+    w_bytes = _round16(hidden * 4 * units * weight_bytes)
+    stride = _odd_stride(hidden)
     red_bytes = 4 * RESIDENT_THREADS * RESIDENT_ROWS * 4
     if w_bytes + red_bytes > smem:
         return None
@@ -99,6 +114,61 @@ def forward_variant(batch: int, hidden: int, dtype: torch.dtype, sms: int,
     where its layout fits, else "stream"."""
     return ("resident" if resident_layout(batch, hidden, dtype.itemsize,
                                           sms, smem) else "stream")
+
+
+def backward_resident_layout(batch: int, hidden: int, weight_bytes: int,
+                             sms: int, smem: int):
+    """Kernel 21's resident layout on a device with ``sms`` SMs and ``smem``
+    bytes of shared memory a block: (blocks a direction, units a block,
+    phase-1 h-tile rows over the flattened (t, b) index, its stride in
+    floats, phase-2 dgates-tile batch rows, the dgates columns of a chunk
+    (a multiple of 8), its stride in floats, dynamic shared memory in
+    bytes), or None
+    where it does not fit.  csrc/lstm_seq.cu ``bwd_resident_layout`` is the
+    same arithmetic (``lstm_bwd_layout`` returns it): the larger of the
+    column and the row slice of W_h (the row slice in groups of 4 units),
+    the dc carry (B x u f32), then a tile space that the partial sums
+    reuse."""
+    per_dir = sms // 2
+    if per_dir < 1:
+        return None
+    units = -(-hidden // per_dir)
+    if units > RESIDENT_THREADS:
+        return None
+    groups = -(-units // 4)
+    w_bytes = _round16(max(hidden * 4 * units, 16 * hidden * groups) *
+                       weight_bytes)
+    dc_bytes = _round16(4 * batch * units)
+    red_bytes = 4 * RESIDENT_THREADS * RESIDENT_ROWS * 4
+    if w_bytes + dc_bytes + red_bytes > smem:
+        return None
+    budget = smem - w_bytes - dc_bytes
+    stride1 = _odd_stride(hidden)
+    lim1 = min(budget // (4 * stride1),
+               RESIDENT_ROWS * (RESIDENT_THREADS // units))
+    # 8 rows a row group and a power of 2 of row groups
+    rows1 = (lim1 if lim1 < RESIDENT_ROWS else RESIDENT_ROWS *
+             (1 << ((lim1 // RESIDENT_ROWS).bit_length() - 1)))
+    rows2 = min(batch, RESIDENT_ROWS * (RESIDENT_THREADS // groups),
+                budget // (4 * (RESIDENT_MIN_CHUNK + 8)))
+    if rows1 < 1 or rows2 < 1:
+        return None
+    chunk_max = budget // (4 * rows2) // 8 * 8 - 8
+    chunks = -(-4 * hidden // chunk_max)
+    chunk = -(-(-(-4 * hidden // chunks)) // 8) * 8
+    stride2 = _odd_stride(chunk)
+    return (per_dir, units, rows1, stride1, rows2, chunk, stride2,
+            w_bytes + dc_bytes + max(red_bytes, 4 * rows1 * stride1,
+                                     4 * rows2 * stride2))
+
+
+def backward_variant(batch: int, hidden: int, dtype: torch.dtype, sms: int,
+                     smem: int) -> str:
+    """Kernel 21's variant for (B, H, W_h's type) on a device with ``sms``
+    SMs and ``smem`` bytes of opt-in shared memory a block: "resident"
+    where its layout fits, else "stream"."""
+    return ("resident" if backward_resident_layout(
+        batch, hidden, dtype.itemsize, sms, smem) else "stream")
 
 
 def device_limits(device) -> tuple:
@@ -271,27 +341,71 @@ def lstm_seq_forward(xgf, xgb, whf, whb):
     return out
 
 
+def _backward_launch(what, entry, args, scratch):
+    """Kernel 21 through C entry ``entry``: the ten inputs, the two
+    tensors ``scratch(B, H)`` gives, then dxg_f and dxg_b, which it
+    returns."""
+    dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb = args
+    t_len, b, h = _check(what, (dyf, dyb, ysf, ysb, csf, csb), (xgf, xgb),
+                         whf, whb)
+    dx = (torch.empty_like(xgf), torch.empty_like(xgb))
+    _build.launch("lstm_seq", entry, xgf.device,
+                  *(x.data_ptr() for x in (*args, *scratch(b, h), *dx)),
+                  t_len, b, h, int(whf.dtype == torch.bfloat16))
+    return dx
+
+
+def lstm_seq_backward_resident(dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf,
+                               whb):
+    """Kernel 21's resident variant (see ``lstm_seq_backward``); raises
+    where its layout does not fit the device or the grid cannot be
+    co-resident.  ``lstm_seq_backward_resident.launches`` counts its
+    launches."""
+    args = (dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb)
+    if xgf.device.type == "cpu":
+        return lstm_seq_backward_plain(*args)
+    # the rounded dgates' ping-pong exchange of each direction
+    out = _backward_launch(
+        "lstm_seq_backward_resident", "lstm_bwd_resident_launch", args,
+        lambda b, h: [torch.empty((2, b, 4 * h), dtype=whf.dtype,
+                                  device=xgf.device) for _ in "fb"])
+    lstm_seq_backward_resident.launches += 1
+    return out
+
+
+def lstm_seq_backward_stream(dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf,
+                             whb):
+    """Kernel 21's stream variant (see ``lstm_seq_backward``);
+    ``lstm_seq_backward_stream.launches`` counts its launches."""
+    args = (dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb)
+    if xgf.device.type == "cpu":
+        return lstm_seq_backward_plain(*args)
+    out = _backward_launch(
+        "lstm_seq_backward_stream", "lstm_bwd_stream_launch", args,
+        lambda b, h: (whf.t().contiguous(), whb.t().contiguous()))
+    lstm_seq_backward_stream.launches += 1
+    return out
+
+
 def lstm_seq_backward(dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb):
     """Kernel 21: (dxg_f, dxg_b), each (T, B, 4H) f32, from the output
     gradients, the gates and kernel 20's states.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (``lstm_seq_backward.launches`` counts those launches).
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    variant that ``backward_variant`` picks (``lstm_seq_backward.launches``
+    counts the launches of both, each variant's wrapper its own).
     """
+    args = (dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb)
     if xgf.device.type == "cpu":
-        return lstm_seq_backward_plain(dyf, dyb, xgf, xgb, ysf, ysb, csf,
-                                       csb, whf, whb)
-    seqs = (dyf, dyb, ysf, ysb, csf, csb)
-    t_len, b, h = _check("lstm_seq_backward", seqs, (xgf, xgb), whf, whb)
-    wtf, wtb = whf.t().contiguous(), whb.t().contiguous()
-    dxf, dxb = torch.empty_like(xgf), torch.empty_like(xgb)
-    _build.launch("lstm_seq", "lstm_bwd_launch", xgf.device,
-                  *(x.data_ptr() for x in (dyf, dyb, xgf, xgb, ysf, ysb, csf,
-                                           csb, whf, whb, wtf, wtb, dxf,
-                                           dxb)),
-                  t_len, b, h, int(whf.dtype == torch.bfloat16))
+        return lstm_seq_backward_plain(*args)
+    _, b, h = _check("lstm_seq_backward", (dyf, dyb, ysf, ysb, csf, csb),
+                     (xgf, xgb), whf, whb)
+    variant = backward_variant(b, h, whf.dtype, *device_limits(xgf.device))
+    run = (lstm_seq_backward_resident if variant == "resident" else
+           lstm_seq_backward_stream)
+    out = run(*args)
     lstm_seq_backward.launches += 1
-    return dxf, dxb
+    return out
 
 
 class _Bidir(torch.autograd.Function):
@@ -330,3 +444,5 @@ lstm_seq_forward.launches = 0
 lstm_seq_forward_resident.launches = 0
 lstm_seq_forward_stream.launches = 0
 lstm_seq_backward.launches = 0
+lstm_seq_backward_resident.launches = 0
+lstm_seq_backward_stream.launches = 0

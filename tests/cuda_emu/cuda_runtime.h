@@ -55,6 +55,9 @@ inline float4 make_float4(float a, float b, float c, float d) {
 struct uint2 {
   unsigned x, y;
 };
+struct uint4 {
+  unsigned x, y, z, w;
+};
 // a load that bypasses L1 on the card; a plain load here
 template <typename T>
 inline T __ldcg(const T* p) {

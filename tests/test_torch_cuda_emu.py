@@ -11,9 +11,10 @@ pair covariance (N = 1, 6 and 8, complement mask or two masks), the
 masked covariance against K classes (warp shuffles), the Jacobi
 regularized inverse, the fused CGMM/CACGMM EM (both models, both
 entries, a frame mask, K = 3) and the BLSTM recurrence forward and
-backward (f32 and bf16 weights, T = 1, ragged last row tiles; kernel 20's
-resident variant as a cooperative launch on an emulated card of 6 SMs,
-with ragged unit slices, idle blocks and several h tiles) against their
+backward (f32 and bf16 weights, T = 1, ragged last row tiles; kernels 20
+and 21's resident variants as cooperative launches on an emulated card of
+6 SMs, with ragged unit slices, idle blocks, several h tiles and, for
+kernel 21, several dgates chunks and batch tiles) against their
 plain PyTorch versions without a card; it says nothing of speed, and the
 card's own compiler is checked by chip_smoke.py.  Skips when no g++ with
 C++20 is present (decided inside the fixture).
@@ -750,22 +751,72 @@ def test_lstm_fwd_source_matches_plain(libs, variant, t, b, h, dtype):
         assert _rel(got, want) < LSTM_TOL[dtype]
 
 
-@pytest.mark.parametrize("t,b,h,dtype", LSTM)
-def test_lstm_bwd_source_matches_plain(libs, t, b, h, dtype):
-    (xgf, xgb), (whf, whb), rng = _lstm_inputs(t, b, h, dtype, t + b * h)
+def _lstm_bwd_case(t, b, h, dtype, seed):
+    """Kernel 21's inputs from the plain forward's states, numpy-made."""
+    (xgf, xgb), (whf, whb), rng = _lstm_inputs(t, b, h, dtype, seed)
     ysf, csf, ysb, csb = ls.lstm_seq_forward_plain(xgf, xgb, whf, whb)
     dyf, dyb = (torch.from_numpy(rng.standard_normal((t, b, h)).astype(
         np.float32)) for _ in "fb")
-    wtf, wtb = whf.t().contiguous(), whb.t().contiguous()
-    dxf, dxb = torch.empty_like(xgf), torch.empty_like(xgb)
-    args = (dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb)
-    err = libs["lstm_seq"].lstm_bwd_launch(
-        *(x.data_ptr() for x in args + (wtf, wtb, dxf, dxb)), t, b, h,
-        int(dtype == "bfloat16"), None)
-    assert err == 0
+    return (dyf, dyb, xgf, xgb, ysf, ysb, csf, csb, whf, whb)
+
+
+def _check_bwd(args, dxf, dxb, dtype):
     rf, rb = ls.lstm_seq_backward_plain(*args)
     assert _rel(dxf, rf) < LSTM_TOL[dtype]
     assert _rel(dxb, rb) < LSTM_TOL[dtype]
+
+
+@pytest.mark.parametrize("t,b,h,dtype", LSTM)
+def test_lstm_bwd_source_matches_plain(libs, t, b, h, dtype):
+    """Kernel 21's stream variant."""
+    args = _lstm_bwd_case(t, b, h, dtype, t + b * h)
+    whf, whb = args[-2:]
+    wtf, wtb = whf.t().contiguous(), whb.t().contiguous()
+    dxf, dxb = torch.empty_like(args[2]), torch.empty_like(args[3])
+    err = libs["lstm_seq"].lstm_bwd_stream_launch(
+        *(x.data_ptr() for x in args + (wtf, wtb, dxf, dxb)), t, b, h,
+        int(dtype == "bfloat16"), None)
+    assert err == 0
+    _check_bwd(args, dxf, dxb, dtype)
+
+
+# kernel 21's resident variant at every (T, B, H) of RESIDENT and LSTM, in
+# f32 and bf16; on the emulated card H = 150 at B = 90 takes phase-1 tiles
+# of 32 rows over (t, b) and two (bf16) or three (f32) dgates chunks; B =
+# 130 at H = 200 (bf16, 67 units a block) two batch tiles of 120 rows and
+# five chunks a step; an odd H = 33 reads bf16 dgates 4 at a time
+LSTM_BWD_SHAPES = sorted({c[:3] for c in RESIDENT + LSTM}) + [
+    (2, 130, 200), (3, 5, 33)]
+LSTM_BWD = [pytest.param(*c, d, id="-".join(map(str, c + (d,))))
+            for c in LSTM_BWD_SHAPES for d in ("float32", "bfloat16")
+            if ls.backward_resident_layout(c[1], c[2], 4 if d == "float32"
+                                           else 2, EMU_SMS, EMU_SMEM)]
+
+
+def test_lstm_bwd_cases_cover_the_layout():
+    """The resident cases reach what the kernel's layout branches on: every
+    shape but f32 at H = 200 fits the emulated card; several dgates chunks
+    (H = 150) and batch tiles with chunks (B = 130); an idle block (H = 2:
+    one unit a block, 3 blocks a direction)."""
+    def lay(b, h, size):
+        return ls.backward_resident_layout(b, h, size, EMU_SMS, EMU_SMEM)
+    assert len(LSTM_BWD) == 2 * len(LSTM_BWD_SHAPES) - 1
+    assert lay(90, 150, 4)[5] < 600 and lay(90, 150, 2)[5] < 600
+    assert lay(130, 200, 2)[4] < 130 and lay(130, 200, 2)[5] < 800
+    assert lay(3, 2, 4)[:2] == (3, 1)
+
+
+@pytest.mark.parametrize("t,b,h,dtype", LSTM_BWD)
+def test_lstm_bwd_resident_source_matches_plain(libs, t, b, h, dtype):
+    args = _lstm_bwd_case(t, b, h, dtype, t + b * h)
+    dxf, dxb = torch.empty_like(args[2]), torch.empty_like(args[3])
+    ex = [torch.empty((2, b, 4 * h), dtype=getattr(torch, dtype))
+          for _ in "fb"]
+    err = libs["lstm_seq"].lstm_bwd_resident_launch(
+        *(x.data_ptr() for x in args + (*ex, dxf, dxb)), t, b, h,
+        int(dtype == "bfloat16"), None)
+    assert err == 0
+    _check_bwd(args, dxf, dxb, dtype)
 
 
 def test_lstm_entry_points_reject_bad_shapes(libs):
@@ -775,7 +826,10 @@ def test_lstm_entry_points_reject_bad_shapes(libs):
         assert lib.lstm_fwd_stream_launch(*[p] * 8, t, b, h, 0, None) != 0
         assert lib.lstm_fwd_resident_launch(*[p] * 8, t, b, h, 0,
                                             None) != 0
-        assert lib.lstm_bwd_launch(*[p] * 14, t, b, h, 1, None) != 0
+        assert lib.lstm_bwd_stream_launch(*[p] * 14, t, b, h, 1,
+                                          None) != 0
+        assert lib.lstm_bwd_resident_launch(*[p] * 14, t, b, h, 1,
+                                            None) != 0
     # inside the gate, but the resident layout does not fit the emulated
     # card (more than 256 units a block; a W_h slice beyond its shared
     # memory): the resident entry refuses before launching
@@ -783,6 +837,15 @@ def test_lstm_entry_points_reject_bad_shapes(libs):
         assert ls.resident_layout(b, h, 2 if bf16 else 4, EMU_SMS,
                                   EMU_SMEM) is None
         assert lib.lstm_fwd_resident_launch(*[p] * 8, 2, b, h, bf16,
+                                            None) != 0
+    # kernel 21's: those, and f32 at H = 200 (67 units, a 218 KB row
+    # slice), bf16 at H = 300 (a 240 KB slice), and a dc carry of B = 2000
+    # rows at H = 150 beside the bf16 slices
+    for b, h, bf16 in ((2, 1024, 0), (2, 1024, 1), (2, 700, 0),
+                       (2, 200, 0), (2, 300, 1), (2000, 150, 1)):
+        assert ls.backward_resident_layout(b, h, 2 if bf16 else 4, EMU_SMS,
+                                           EMU_SMEM) is None
+        assert lib.lstm_bwd_resident_launch(*[p] * 14, 2, b, h, bf16,
                                             None) != 0
 
 
@@ -809,6 +872,49 @@ def test_lstm_forward_variant_on_an_h100(h, dtype, want):
                                                                  24)
 
 
+@pytest.mark.parametrize("b,h,size,sms,smem", [
+    (64, 512, 2, 132, 232448), (64, 1024, 2, 132, 232448),
+    (64, 512, 4, 132, 232448), (64, 792, 4, 132, 232448),
+    (64, 793, 4, 132, 232448), (1, 8, 2, 132, 232448),
+    (1000, 1024, 2, 132, 232448), (1100, 1024, 2, 132, 232448),
+    (90, 150, 4, EMU_SMS, EMU_SMEM), (130, 200, 2, EMU_SMS, EMU_SMEM),
+    (3, 2, 4, EMU_SMS, EMU_SMEM), (7, 100, 2, 2, 49152),
+    (5, 64, 2, 1, 232448)])
+def test_lstm_bwd_layouts_agree(libs, b, h, size, sms, smem):
+    """csrc/lstm_seq.cu's bwd_resident_layout (through lstm_bwd_layout)
+    and backward_resident_layout: the same layout, or both none."""
+    out = (ctypes.c_int * 8)()
+    err = libs["lstm_seq"].lstm_bwd_layout(b, h, size, sms, smem,
+                                           ctypes.addressof(out))
+    want = ls.backward_resident_layout(b, h, size, sms, smem)
+    assert (tuple(out) if err == 0 else None) == want
+
+
+@pytest.mark.parametrize("h,dtype,want", [
+    (1024, torch.bfloat16, "resident"), (512, torch.float32, "resident"),
+    (792, torch.float32, "resident"), (793, torch.float32, "stream"),
+    (1024, torch.float32, "stream"), (512, torch.bfloat16, "resident")])
+def test_lstm_backward_variant_on_an_h100(h, dtype, want):
+    """132 SMs, 227 KB a block: every bf16 H <= 1024 and f32 up to H = 792
+    run kernel 21 resident at B = 1 and 64 (the row slice takes whole
+    groups of 4 units: f32 at H = 793 has 13 units a block, a 203 KB
+    slice); at the bench shape the dgates are read in three chunks of up
+    to 688 columns, widened into an f32 tile."""
+    for b in (1, 64):
+        assert ls.backward_variant(b, h, dtype, 132, 232448) == want
+    assert ls.backward_resident_layout(64, 512, 2, 132, 232448) == (
+        66, 8, 64, 516, 64, 688, 692, 32768 + 2048 + 64 * 692 * 4)
+    # H = 1024: 16 units, a 128 KB slice, phase-1 tiles of 16 rows, twelve
+    # chunks of up to 344 columns; the dc carry sends B above 1072 to the
+    # stream variant
+    assert ls.backward_resident_layout(64, 1024, 2, 132, 232448)[1:7] == (
+        16, 16, 1028, 64, 344, 348)
+    assert ls.backward_variant(1072, 1024, torch.bfloat16, 132,
+                               232448) == "resident"
+    assert ls.backward_variant(1073, 1024, torch.bfloat16, 132,
+                               232448) == "stream"
+
+
 @pytest.fixture
 def meta_card(monkeypatch):
     """Meta tensors stand for card tensors: the wrappers check and
@@ -818,7 +924,8 @@ def meta_card(monkeypatch):
     monkeypatch.setattr(_build, "launch",
                         lambda name, fn, dev, *args: calls.append(fn))
     for fn in (ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
-               ls.lstm_seq_forward_stream):
+               ls.lstm_seq_forward_stream, ls.lstm_seq_backward,
+               ls.lstm_seq_backward_resident, ls.lstm_seq_backward_stream):
         monkeypatch.setattr(fn, "launches", 0)
     return calls
 
@@ -856,6 +963,51 @@ def test_lstm_forward_failed_launch_raises(meta_card, monkeypatch):
     assert (ls.lstm_seq_forward.launches,
             ls.lstm_seq_forward_resident.launches,
             ls.lstm_seq_forward_stream.launches) == (0, 0, 0)
+
+
+def _meta_bwd_args(t, b, h, dtype):
+    seq = [torch.empty((t, b, h), device="meta") for _ in range(2)]
+    xg = [torch.empty((t, b, 4 * h), device="meta") for _ in "fb"]
+    st = [torch.empty((t, b, h), device="meta") for _ in range(4)]
+    wh = [torch.empty((h, 4 * h), dtype=dtype, device="meta") for _ in "fb"]
+    return (*seq, *xg, *st, *wh)
+
+
+def _bwd_launches():
+    return (ls.lstm_seq_backward.launches,
+            ls.lstm_seq_backward_resident.launches,
+            ls.lstm_seq_backward_stream.launches)
+
+
+@pytest.mark.parametrize("h,dtype,entry", [
+    (512, torch.bfloat16, "lstm_bwd_resident_launch"),
+    (512, torch.float32, "lstm_bwd_resident_launch"),
+    (1024, torch.float32, "lstm_bwd_stream_launch")])
+def test_lstm_backward_dispatch_counts_each_variant(meta_card, h, dtype,
+                                                    entry):
+    out = ls.lstm_seq_backward(*_meta_bwd_args(3, 5, h, dtype))
+    assert meta_card == [entry]
+    assert [tuple(o.shape) for o in out] == [(3, 5, 4 * h)] * 2
+    resident = entry == "lstm_bwd_resident_launch"
+    assert _bwd_launches() == (1, int(resident), int(not resident))
+    # each variant's own entry point launches it alone, whatever the gate
+    # would pick, and counts in its own wrapper only
+    ls.lstm_seq_backward_stream(*_meta_bwd_args(2, 1, 8, torch.bfloat16))
+    assert meta_card[1:] == ["lstm_bwd_stream_launch"]
+    assert _bwd_launches() == (1, int(resident), int(not resident) + 1)
+
+
+def test_lstm_backward_failed_launch_raises(meta_card, monkeypatch):
+    """A resident launch that fails raises; the stream variant is not
+    tried and nothing is counted."""
+    def refuse(name, fn, dev, *args):
+        meta_card.append(fn)
+        _build.check(720, fn)
+    monkeypatch.setattr(_build, "launch", refuse)
+    with pytest.raises(RuntimeError, match="lstm_bwd_resident_launch"):
+        ls.lstm_seq_backward(*_meta_bwd_args(3, 5, 16, torch.bfloat16))
+    assert meta_card == ["lstm_bwd_resident_launch"]
+    assert _bwd_launches() == (0, 0, 0)
 
 
 def test_library_names_follow_sources_and_headers(tmp_path, monkeypatch):
