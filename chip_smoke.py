@@ -80,9 +80,13 @@ the CUDA toolkit.  In order it:
      covariances against their plain versions (1e-4 of the peak, of each
      matrix's peak for kernel 14); the fused EM (kernel 15) against its
      plain version at 4 iterations for cgmm with the Higuchi init,
-     cacgmm from one generator-drawn gamma, cacgmm with the Higuchi init
-     and K=3 cacgmm at B=16 (tests/test_pallas.py's bars: gamma 2e-3, Q
-     rtol 2e-3 + atol 1e-3, alpha 2e-3, covariances 2e-2 of the peak);
+     cacgmm from one generator-drawn gamma, cacgmm with the Higuchi init,
+     K=3 cacgmm at B=16, cgmm at WPD's shape (B = 32, the first 251
+     frames, no frame mask) and cacgmm at M = 8, K = 4, B = 4 (each
+     utterance's mics and two of the next one's) (tests/test_pallas.py's
+     bars: gamma 2e-3, Q rtol 2e-3 + atol 1e-3, alpha 2e-3, covariances
+     2e-2 of the peak); prints em_warp<6,2>'s registers, stack and
+     spills from step 2;
   14. C2, BatchClusterer(device="cuda", batch_size=128) for cgmm and
      cacgmm over the 128 utterances and four shorter ones (buckets of
      512, 384 and 256 frames), counts reset before and read after: exactly
@@ -164,7 +168,8 @@ the CUDA toolkit.  In order it:
      never on the port's path), and enhance_batch for every name, for the
      online path and for P1, P2 and E, and the cgmm/cacgmm EM at B=128
      with CUDA events (warm-up, then 20 calls; fewer for the slow plain
-     versions and the EM), profiles the fused, P1, E and EM steps
+     versions and the EM; kernel 15 also at WPD's shape), profiles the
+     fused, P1, E and EM steps
      (torch.profiler: device time by kernel, the device's idle share)
      and prints the kernels line (kernels 16-19 timed at W's scene, with
      the wpe, wpd and BatchWpe steps and their idle shares, 20-21 and the
@@ -175,6 +180,7 @@ without the setk_tpu_torch package beside this file, it exits 2, says
 which on stdout and stderr, and prints no result.
 """
 
+import ctypes
 import json
 import re
 import subprocess
@@ -308,7 +314,7 @@ def _ptxas_summary(log: str) -> dict:
                       r"|covar_ema|beamform_istft_online|beamform_istft"
                       r"|istft_planar|stft_planar|pair_covar|masked_covar"
                       r"|regularized_inverse|hermitian_solve|gram_solve"
-                      r"|wpe_gram|wpe_apply|em)"
+                      r"|wpe_gram|wpe_apply|em_warp|warp_jacobi)"
                       r"_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?([fs]?)E",
                       line)
         if "Compiling entry function" in line and m:
@@ -325,6 +331,10 @@ def _ptxas_summary(log: str) -> dict:
         elif key and "spill stores" in line:
             out[key]["spill_bytes"] = sum(
                 int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            out[key]["spill_store_bytes"] = int(
+                re.search(r"(\d+) bytes spill stores", line).group(1))
+            out[key]["stack_bytes"] = int(
+                re.search(r"(\d+) bytes stack frame", line).group(1))
         elif key and "registers" in line:
             out[key]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
@@ -565,23 +575,28 @@ def _by_bucket(np, torch, dev, cfg, utts, results, plain):
 
 
 def _device_profile(torch, run, step_ms, iters=5, top=8):
-    """torch.profiler over ``iters`` calls of ``run`` after a warm-up: ms
-    a call of device time by kernel (the ``top`` largest) and their sum;
-    the idle share is the part of the unprofiled step time ``step_ms``
-    (CUDA events, free of the profiler's host overhead) with no kernel
-    running."""
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over ``iters`` calls of ``run`` after a warm-up, and
+    one more warm-up call as the profiler's own warm-up step (traced, not
+    kept): ms a call of device time by kernel (the ``top`` largest) and
+    their sum; the idle share is the part of the unprofiled step time
+    ``step_ms`` (CUDA events, free of the profiler's host overhead) with no
+    kernel running."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters,
+                                   repeat=1)) as prof:
+        for _ in range(iters + 1):
             run()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
+    # the schedule's ProfilerStep ranges come back as device events too
     kernels = sorted(
         ((ev.self_device_time_total / 1e3 / iters, ev.key[:70])
          for ev in prof.key_averages()
-         if ev.device_type == torch.autograd.DeviceType.CUDA),
+         if ev.device_type == torch.autograd.DeviceType.CUDA and
+         not ev.key.startswith("ProfilerStep")),
         reverse=True)
     busy_ms = sum(ms for ms, _ in kernels)
     return {"step_ms": step_ms, "device_ms": busy_ms,
@@ -622,13 +637,14 @@ def _flops_jacobi(m, sweeps):
 
 
 def _flops_em(bins, m, t, k, iters, sweeps):
-    """Per bin: the Higuchi init's covariance pass, then iters M-steps
-    (gamma sums, weights, pair products, K accumulations) and iters + 1
-    E-steps (pair products, K quadratic forms, the posterior), and one
-    Jacobi a class an E-step."""
+    """Per bin, as the fused pass needs it: the Higuchi init's covariance
+    pass (pair products and one accumulation), then iters + 1 E-steps (pair
+    products, K quadratic forms, the posterior, one Jacobi a class), the
+    first iters of which also carry the next M-step's gamma sums, weights
+    and K accumulations on the same pair products."""
     acc = k * (2 * m + 4 * m * (m - 1) // 2)
     quad = k * (2 * m + 5 * m * (m - 1) // 2)
-    m_step = t * (_pair_flops(m) + acc + 6 * k)
+    m_step = t * (acc + 6 * k)
     e_step = t * (_pair_flops(m) + quad + 6 * k + 4) + k * _flops_jacobi(
         m, sweeps)
     init = t * (_pair_flops(m) + acc // k)
@@ -683,6 +699,7 @@ def _em_errs(torch, got, ref):
 # recipes/run_wpe.sh: B = 32, 6 mics, 8 s (WPD 4 s), taps 10, delay 3,
 # context 1, 3 iterations; WPD 3 outer iterations, CGMM 10
 W_B, W_SECS, WPD_SECS = 32, 8, 4
+WPD_T = WPD_SECS * 16000 // 256 + 1   # 251 frames at 512/256
 W_TAPS, W_DELAY, W_CONTEXT, W_ITERS = 10, 3, 1, 3
 WPD_OUTER, WPD_CGMM = 3, 10
 # W3's utterances besides the B 8 s ones: (key, samples, seed); u6.144s
@@ -1827,7 +1844,11 @@ def main() -> int:
     (_build.BUILD_DIR / "ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     print(f"build: {build_s:.1f} s for {len(logs)} libraries")
-    print(json.dumps({"ptxas": _ptxas_summary("\n".join(logs.values()))}))
+    ptxas = _ptxas_summary("\n".join(logs.values()))
+    print(json.dumps({"ptxas": ptxas}))
+    # kernel 15 at the recipes' M = 6, K = 2: registers, stack and spills
+    print(json.dumps({"ptxas_em_warp<6,2>": ptxas.get("em_warp<6,2>",
+                                                      "not built now")}))
 
     # ---- 3. kernels against their plain versions at the bench shape ----
     cfg = StftConfig()
@@ -2330,16 +2351,28 @@ def main() -> int:
     g0 = _uniform_init(2, (B, f_bins, bucket), cobs, gen)
     b3 = min(16, B)
     g3 = _uniform_init(3, (b3, f_bins, bucket), cobs, gen)
+    # WPD's CGMM shape (B = 32 x 4 s, T = 251, no frame mask): the first
+    # 251 frames; M = 8, K = 4 at B = 4: each utterance's 6 mics and the
+    # first 2 of the next one's
+    b8 = min(4, B - 1)
+    obs8 = norm_observation(torch.cat(
+        [cobs[:b8], cobs[1:b8 + 1, :, :2]], dim=-2), axis=-2)
+    g8 = _uniform_init(4, (b8, f_bins, bucket), cobs, gen)
     em_cases = {
         "cgmm_higuchi": (cobs, None, None, "cg", False, "higuchi", 2),
         "cacgmm_operand": (nobs, g0, torch.ones_like(g0), "cacg", True,
                            None, 2),
         "cacgmm_higuchi": (nobs, None, None, "cacg", True, "higuchi", 2),
         "cacgmm_k3_b16": (nobs[:b3].contiguous(), g3, torch.ones_like(g3),
-                          "cacg", True, None, 3)}
+                          "cacg", True, None, 3),
+        "cgmm_wpd_shape": (cobs[:W_B, ..., :WPD_T].contiguous(), None, None,
+                           "cg", False, "higuchi", 2),
+        "cacgmm_m8_k4_b4": (obs8, g8, torch.ones_like(g8), "cacg", True,
+                            None, 4)}
     em_errs = {}
     for label, (o, ga, ka, model, upd, init, k) in em_cases.items():
-        kw = dict(frame_mask=cfm[:o.shape[0]], return_state=True, init=init,
+        fm_k = None if o.shape[-1] != bucket else cfm[:o.shape[0]]
+        kw = dict(frame_mask=fm_k, return_state=True, init=init,
                   num_classes=k)
         em_errs[label] = _em_errs(
             torch, ce.em(o, ga, ka, CL_CHECK_ITERS, model, upd, **kw),
@@ -2711,6 +2744,21 @@ def main() -> int:
             break
         except RuntimeError as exc:
             info["regularized_inverse"] = f"not measured: {str(exc)[:70]}"
+    # kernel 15 at WPD's shape (B = 32 x 4 s, T = 251, CGMM 10 iterations)
+    # beside C1's, with the launch's layout
+    wobs = cobs[:W_B, ..., :WPD_T].contiguous()
+    layout = (ctypes.c_int * 3)()
+    _build.check(_build.library("cacgmm_em").cacgmm_em_layout(
+        N, 2, ctypes.addressof(layout)), "cacgmm_em_layout")
+    bins, lanes, smem = layout
+
+    def em_wpd():
+        return ce.em(wobs, None, None, WPD_CGMM, "cg", False, init="higuchi")
+    info["em"] = {"bins_a_warp": bins, "lanes_a_class": lanes,
+                  "smem_bytes": smem,
+                  "wpd_B32_T251_10it_ms": _graph_ms(torch, em_wpd, iters=5),
+                  "wpd_B32_T251_10it_eager_ms": _time_ms(
+                      torch, em_wpd, iters=5, warmup=1)}
     plain_kw = {"masked_covar": {"iters": 5, "warmup": 1},
                 "regularized_inverse": {"iters": 3, "warmup": 1},
                 "em": {"iters": 2, "warmup": 1}}
@@ -2730,8 +2778,9 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library.get(name)}
         if name in info:
-            label = ("linalg_eigh_ms_info" if name == "regularized_inverse"
-                     else "linalg_solve_ms_info")
+            label = {"regularized_inverse": "linalg_eigh_ms_info",
+                     "em": "layout_and_wpd_shape"}.get(
+                         name, "linalg_solve_ms_info")
             row[label] = info[name]
         kernels.append(row)
     kernels += wpe_kernels + blstm_kernels
@@ -2782,7 +2831,7 @@ def main() -> int:
             gwav_e_d, gmask_e_d, cfg_e, beamformer="pmwf-0"),
             geo_ms["E_512_128_pmwf-0"]["ms"])}
     # the EM steps at B=128 (20 iterations, one 512-frame bucket) and the
-    # fused EM's layout glue (obs into (M, T, bins) planes)
+    # CACGMM's normalisation before its fused EM
     em_steps = {}
     gen = torch.Generator(device=dev)
     for algo, entry in (("cgmm", cgmm_em), ("cacgmm", cacgmm_em)):
@@ -2793,11 +2842,6 @@ def main() -> int:
         em_steps[algo] = {"ms": ms, "audio_s_per_s": B * SECS / (ms / 1e3)}
         profiles[f"{algo}_em_B128"] = _device_profile(torch, run, ms,
                                                       iters=2)
-    nb_cl = B * f_bins
-    em_steps["glue_obs_planes_ms"] = _graph_ms(torch, lambda: [
-        x.contiguous() for x in (cobs.reshape(nb_cl, N, bucket).permute(
-            1, 2, 0).real, cobs.reshape(nb_cl, N, bucket).permute(
-                1, 2, 0).imag)], iters=5)
     em_steps["cacgmm_normalize_ms"] = _time_ms(
         torch, lambda: norm_observation(cobs, axis=-2), iters=5)
     print(json.dumps({"device_profiles": profiles}))

@@ -72,8 +72,10 @@ _SIGNATURES = {
         "regularized_inverse_launch": [_P, _P, _P, _I, _I, _I, _P],
     },
     "cacgmm_em": {
-        "cacgmm_em_launch": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "cacgmm_em_launch": [_P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "cacgmm_em_layout": [_I, _I, _P],
+        "warp_jacobi_launch": [_P, _P, _P, _I, _I, _I, _P],
     },
     "cholesky": {
         "hermitian_solve_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _P],

@@ -2,8 +2,9 @@
 
 Counterpart of ``setk_tpu/ops/pallas/cacgmm_em.py``: ``_em_blocks``
 (:301) via ``cacgmm_em_pallas`` (:483) and ``cgmm_em_pallas`` (:507);
-kernel source ``setk_tpu_torch/csrc/cacgmm_em.cu`` (its Jacobi is
-``csrc/jacobi.cuh``, shared with kernel 14):
+kernel source ``setk_tpu_torch/csrc/cacgmm_em.cu`` (lanes over a bin's
+frames, its Jacobi ``jacobi_regularized_inverse_group`` of
+``csrc/jacobi.cuh`` on lane groups, beside kernel 14's thread Jacobi):
 
   cacgmm_em_fused / cgmm_em_fused: obs (..., F, M, T) complex64 (CACGMM:
       L2-normalised over mics by the caller; CGMM: the raw spectra),
@@ -12,11 +13,12 @@ kernel source ``setk_tpu_torch/csrc/cacgmm_em.cu`` (its Jacobi is
       history (num_iters,), plus with ``return_state`` the state dict
       {covar (K, ..., F, M, M), alpha (K, ..., F)[, phi (K, ..., F, T)]}.
 
-The order and expressions are ``_em_kernel``'s, with the TPU kernel's
-"plane" loop form at every T; the TPU's VMEM gates do not apply.  The
-port's gate (``em_fused_supported``): M <= 8, K <= 4, num_iters >= 1.
-``em_plain`` is the plain PyTorch version of the same function, with the
-Jacobi of ``ops/cuda/eigh_small.py``.
+The expressions are ``_em_kernel``'s; the TPU's VMEM gates do not apply.
+The kernel reads obs, gamma0 and kernel0 in the caller's layout and
+writes gamma and the kernel plane in it, so the wrapper moves no data.
+The port's gate (``em_fused_supported``): M <= 8, K <= 4, num_iters >= 1.
+``em_plain`` is the plain PyTorch version of the same function,
+with the Jacobi of ``ops/cuda/eigh_small.py``.
 """
 
 import math
@@ -202,8 +204,9 @@ def em(obs, gamma0, kernel0, num_iters, model, update_alpha,
     (..., F, M, T); see the module docstring for the shapes.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (``em.launches`` counts those launches), after one transpose of obs
-    into (M, T, bins) planes and of gamma0/kernel0 into (K, T, bins).
+    (``em.launches`` counts those launches) on obs, gamma0 and kernel0 as
+    they lie (a copy only where they are not contiguous complex64 /
+    float32), or raises before any allocation.
     """
     if obs.device.type == "cpu":
         return em_plain(obs, gamma0, kernel0, num_iters, model, update_alpha,
@@ -217,39 +220,32 @@ def em(obs, gamma0, kernel0, num_iters, model, update_alpha,
                          f"K = {k}")
     dev = obs.device
     nb = math.prod(lead) * f
-
-    def planes(x, rows):
-        # (rows, nb, T) -> (rows, T, nb) contiguous float32
-        return x.reshape(rows, nb, t).transpose(1, 2).to(
-            torch.float32).contiguous()
-
-    z = obs.reshape(nb, m, t).permute(1, 2, 0)
-    zre, zim = z.real.contiguous(), z.imag.contiguous()
+    z = obs.reshape(nb, m, t).contiguous()
+    g0 = k0 = None
     if init is None:
-        gamma = planes(gamma0.to(dev), k)
-        kern = planes(kernel0.to(dev), k)
-    else:
-        gamma = torch.empty((k, t, nb), dtype=torch.float32, device=dev)
-        kern = torch.empty_like(gamma)
+        g0, k0 = (x.to(dev, torch.float32).reshape(k, nb, t).contiguous()
+                  for x in (gamma0, kernel0))
     fm_full = _frame_mask(frame_mask, lead, f, t, dev)
     if frame_mask is None:
         fm_ptr, strides = None, (0, 0, 0)
     else:
         fm3 = fm_full.reshape(-1, f, t)
         fm_ptr, strides = fm3.data_ptr(), fm3.stride()
+    gamma = torch.empty((k, nb, t), dtype=torch.float32, device=dev)
+    kern = torch.empty_like(gamma)
     q_bins = torch.empty((num_iters, nb), dtype=torch.float32, device=dev)
     covar = torch.empty((k, nb, m, m), dtype=torch.complex64, device=dev)
     alpha = torch.empty((k, nb), dtype=torch.float32, device=dev)
-    _build.launch("cacgmm_em", "cacgmm_em_launch", dev, zre.data_ptr(),
-                  zim.data_ptr(), fm_ptr, *strides, gamma.data_ptr(),
+    _build.launch("cacgmm_em", "cacgmm_em_launch", dev, z.data_ptr(),
+                  fm_ptr, *strides, None if g0 is None else g0.data_ptr(),
+                  None if k0 is None else k0.data_ptr(), gamma.data_ptr(),
                   kern.data_ptr(), q_bins.data_ptr(), covar.data_ptr(),
                   alpha.data_ptr(), nb, f, t, m, k, num_iters,
                   int(model == "cg"), int(init is not None),
                   int(update_alpha), sweeps)
     em.launches += 1
-    return _results(gamma.transpose(1, 2), kern.transpose(1, 2), q_bins,
-                    covar, alpha, fm_full, lead, f, m, t, k, model,
-                    return_state, obs.dtype)
+    return _results(gamma, kern, q_bins, covar, alpha, fm_full, lead, f, m,
+                    t, k, model, return_state, obs.dtype)
 
 
 em.launches = 0

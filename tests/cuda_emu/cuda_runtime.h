@@ -7,7 +7,10 @@
 // matches CUDA as long as blocks run one at a time (they do here).  A warp
 // shuffle exchanges through such a static between two block-wide barriers,
 // so every thread of the block that has not returned must take part in it
-// (a thread that returned is dropped from the barrier).
+// (a thread that returned is dropped from the barrier).  __syncwarp is the
+// block's barrier too, so a kernel that calls it must keep every thread of
+// the block that has not returned converged through it (a one-warp block
+// makes it the warp's).
 // tests/test_torch_cuda_emu.py rewrites each `kernel<<<grid, block, smem,
 // stream>>>(args)` launch into `emu_launch(grid, block, smem, stream,
 // kernel, args)` before compiling, and each dynamic shared array into a
@@ -121,6 +124,7 @@ inline thread_local char* emu_dyn_smem = nullptr;
 inline std::barrier<>* emu_grid_barrier = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline unsigned __float_as_uint(float x) {
   unsigned u;
@@ -150,6 +154,15 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   __syncthreads();
   const float got =
       exchange[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ lane_mask)];
+  __syncthreads();
+  return got;
+}
+
+inline float __shfl_sync(unsigned, float v, int src_lane) {
+  static float exchange[1024];
+  exchange[threadIdx.x] = v;
+  __syncthreads();
+  const float got = exchange[(threadIdx.x & ~31u) | (src_lane & 31)];
   __syncthreads();
   return got;
 }

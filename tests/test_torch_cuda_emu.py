@@ -490,36 +490,38 @@ def _em_inputs(rng, b, f, m, t, k):
 
 
 # (model, init, K, M, frame mask): both models and entries, K = 3, a
-# (B, 1, T) frame mask read with a zero bin stride
+# (B, 1, T) frame mask read with a zero bin stride; at M = 8 the Higuchi
+# init and four classes (every lane group of the warp's Jacobi busy)
 EM_CASES = [("cg", "higuchi", 2, 3, False), ("cacg", None, 2, 4, True),
-            ("cacg", "higuchi", 2, 2, True), ("cg", None, 3, 3, False)]
+            ("cacg", "higuchi", 2, 2, True), ("cg", None, 3, 3, False),
+            ("cg", "higuchi", 2, 8, False), ("cacg", None, 4, 8, True)]
 
 
-@pytest.mark.parametrize("model,init,k,m,masked", EM_CASES)
-def test_em_source_matches_plain(libs, model, init, k, m, masked):
-    """B = 2, F = 19 (38 bins, two blocks of 32 threads, the second
-    partial), T = 21, 4 iterations."""
-    rng = np.random.default_rng(k * 10 + m)
-    b, f, t, iters = 2, 19, 21, 4
+def _em_source_case(libs, model, init, k, m, masked, b, f, t, iters, seed,
+                    mask_from=None):
+    """Kernel 15's source against em_plain on the caller's layout: obs
+    (B, F, M, T) complex64 and the operands (K, B, F, T) as they are.  A
+    frame mask zeroes the last utterance's frames from ``mask_from`` (by
+    default two thirds of T) on."""
+    rng = np.random.default_rng(seed)
     obs, g0, k0 = _em_inputs(rng, b, f, m, t, k)
     if model == "cacg":
         obs = obs / torch.linalg.vector_norm(obs, dim=-2, keepdim=True)
     fm = None
     if masked:
         fm = torch.ones((b, 1, t))
-        fm[1, 0, 15:] = 0.0
+        fm[-1, 0, 2 * t // 3 if mask_from is None else mask_from:] = 0.0
     nb = b * f
-    zre = obs.real.reshape(nb, m, t).permute(1, 2, 0).contiguous()
-    zim = obs.imag.reshape(nb, m, t).permute(1, 2, 0).contiguous()
-    planes = [x.reshape(k, nb, t).transpose(1, 2).contiguous()
-              for x in (g0, k0)]
+    gamma = torch.empty((k, b, f, t))
+    kern = torch.empty_like(gamma)
     q = torch.empty((iters, nb))
     covar = torch.empty((k, nb, m, m), dtype=torch.complex64)
     alpha = torch.empty((k, nb))
     strides = (0, 0, 0) if fm is None else fm.expand(b, f, t).stride()
+    operands = (None, None) if init else (g0.data_ptr(), k0.data_ptr())
     err = libs["cacgmm_em"].cacgmm_em_launch(
-        zre.data_ptr(), zim.data_ptr(), None if fm is None else fm.data_ptr(),
-        *strides, planes[0].data_ptr(), planes[1].data_ptr(), q.data_ptr(),
+        obs.data_ptr(), None if fm is None else fm.data_ptr(), *strides,
+        *operands, gamma.data_ptr(), kern.data_ptr(), q.data_ptr(),
         covar.data_ptr(), alpha.data_ptr(), nb, f, t, m, k, iters,
         int(model == "cg"), int(init is not None), int(model == "cacg"), 6,
         None)
@@ -528,7 +530,6 @@ def test_em_source_matches_plain(libs, model, init, k, m, masked):
         obs, None if init else g0, None if init else k0, iters, model,
         model == "cacg", frame_mask=fm, return_state=True, init=init,
         num_classes=k)
-    gamma = planes[0].transpose(1, 2).reshape(k, b, f, t)
     assert float((gamma - ref_g).abs().max()) < SOLVE_TOL
     q_hist = q.sum(-1) / (fm.expand(b, f, t).sum() if masked else nb * t)
     assert float((q_hist - ref_q).abs().max()) < SOLVE_TOL * float(
@@ -537,8 +538,132 @@ def test_em_source_matches_plain(libs, model, init, k, m, masked):
     assert float((alpha.reshape(k, b, f) - ref_state["alpha"]).abs().max()) \
         < SOLVE_TOL
     if model == "cg":
-        kern = planes[1].transpose(1, 2).reshape(k, b, f, t)
         assert _rel(kern, ref_state["phi"]) < SOLVE_TOL
+
+
+@pytest.mark.parametrize("model,init,k,m,masked", EM_CASES)
+def test_em_source_matches_plain(libs, model, init, k, m, masked):
+    """B = 2, F = 19 (38 bins; at 8 bins a warp for K = 2, 5 for K = 3,
+    4 for K = 4, a last warp with fewer), T = 21 (lanes with one frame and
+    none), 4 iterations.  At M = 8, T = 64: with fewer than ~8 M frames
+    the f32 EM is ill-conditioned (at T = 21, K = 4 em_plain itself lies
+    0.16 from a float64 run, at T = 64 5e-5)."""
+    t = 64 if m == 8 else 21
+    _em_source_case(libs, model, init, k, m, masked, 2, 19, t, 4,
+                    k * 10 + m, mask_from=15 if t == 21 else None)
+
+
+# (model, init, K, M, F, T) at B = 1, so that a warp's last bins are idle:
+# the bench's M = 6, K = 2 at T = 512 (3 bins in a warp of 8); M = 8, K = 4
+# at T = 400 (3 bins in a warp of 4); K = 1 (16 bins a warp) at T = 45,
+# lanes with one and two frames, over 9 bins; K = 3 at T = 100 over 5
+EM_SHAPES = [("cg", "higuchi", 2, 6, 3, 512), ("cacg", None, 4, 8, 3, 400),
+             ("cacg", None, 1, 5, 9, 45), ("cg", None, 3, 4, 5, 100)]
+
+
+@pytest.mark.parametrize("model,init,k,m,f,t", EM_SHAPES)
+def test_em_source_shapes_match_plain(libs, model, init, k, m, f, t):
+    """B = 1, 3 iterations with a frame mask, at longer T and at bin
+    counts that leave a warp's last bins idle."""
+    _em_source_case(libs, model, init, k, m, True, 1, f, t, 3, t + m)
+
+
+@pytest.mark.parametrize("m", [1, 3, 6, 8])
+def test_warp_jacobi_matches_thread_jacobi(libs, m):
+    """jacobi_regularized_inverse_group (16 matrices a warp, 21 of them:
+    a partial last warp) against kernel 14's thread version on the same
+    matrices: full rank, rank one (the EPSILON floor), and near-diagonal
+    (every off-diagonal entry 1e-20, below the rotation's threshold, so
+    the phase defaults to 1) and exactly diagonal ones; within a few ulps
+    of each matrix's peak."""
+    rng = np.random.default_rng(m + 40)
+    n = 21
+    a = _hermitian(rng, n, m, m + 2)
+    a[:4] = _hermitian(rng, 4, m, 1)
+    diag = torch.diag(torch.arange(1, m + 1, dtype=torch.float32) * 0.7)
+    a[4] = diag + 1e-20 * (1 + 1j) * (1 - torch.eye(m))
+    a[5] = diag.to(torch.complex64)
+    got, ref = torch.empty_like(a), torch.empty_like(a)
+    got_ld, ref_ld = torch.empty(n), torch.empty(n)
+    assert libs["cacgmm_em"].warp_jacobi_launch(
+        a.data_ptr(), got.data_ptr(), got_ld.data_ptr(), n, m, 6, None) == 0
+    assert libs["eigh_small"].regularized_inverse_launch(
+        a.data_ptr(), ref.data_ptr(), ref_ld.data_ptr(), n, m, 6, None) == 0
+    peak = ref.abs().amax(dim=(-1, -2))
+    ulp = float(np.finfo(np.float32).eps)
+    assert float(((got - ref).abs().amax(dim=(-1, -2)) / peak).max()) <= \
+        4 * ulp
+    assert float(((got_ld - ref_ld).abs() /
+                  ref_ld.abs().clamp(min=1.0)).max()) <= 4 * ulp * m
+    # the near-diagonal matrix keeps its eigenvalues: the inverse of the
+    # scaled diagonal
+    w = torch.arange(1, m + 1, dtype=torch.float32) / m
+    assert torch.allclose(got[4].diagonal().real, 1 / w, rtol=1e-6)
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+def test_em_layout_fits_a_block(libs, m):
+    """csrc/cacgmm_em.cu's layout through its C entry cacgmm_em_layout.
+    Lane groups of 2: 16 bins a warp at K = 1, 8 at K = 2, 5 at K = 3 (a
+    group idle), 4 at K = 4; every layout within the 48 KB a block gets
+    without opting in (12,832 bytes at M = 8, K = 4), 9,280 at the
+    recipes' M = 6, K = 2."""
+    out = (ctypes.c_int * 3)()
+    layouts = []
+    for k in range(1, 5):
+        assert libs["cacgmm_em"].cacgmm_em_layout(
+            m, k, ctypes.addressof(out)) == 0
+        layouts.append(tuple(out))
+    assert [lay[:2] for lay in layouts] == [(16, 2), (8, 2), (5, 2), (4, 2)]
+    assert all(lay[2] <= 48 * 1024 for lay in layouts)
+    if m == 6:
+        assert layouts[1][2] == 9280
+    if m == 8:
+        assert layouts[3][2] == 12832
+
+
+@pytest.mark.parametrize("init,masked", [("higuchi", False), (None, True)])
+def test_em_dispatch_launches_on_the_callers_layout(monkeypatch, init,
+                                                    masked):
+    """Meta tensors stand for card tensors: em launches kernel 15 once on
+    obs (B, F, M, T) and the operands (K, B, F, T) as they lie, counts it
+    and shapes its results; nothing is permuted into planes."""
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, fn, dev, *args: calls.append(
+                            (name, fn, args)))
+    monkeypatch.setattr(ce.em, "launches", 0)
+    b, f, m, t, k = 2, 5, 6, 40, 2
+    obs = torch.empty((b, f, m, t), dtype=torch.complex64, device="meta")
+    g0 = None if init else torch.empty((k, b, f, t), device="meta")
+    fm = torch.empty((b, 1, t), device="meta") if masked else None
+    gamma, q_hist, state = ce.em(obs, g0, g0, 3, "cg", False, frame_mask=fm,
+                                 return_state=True, init=init)
+    (name, fn, args), = calls
+    assert (name, fn) == ("cacgmm_em", "cacgmm_em_launch")
+    # nb, F, T, M, K, iters, cg, higuchi, update_alpha, sweeps
+    assert args[12:] == (b * f, f, t, m, k, 3, 1, int(init is not None), 0,
+                         es.SWEEPS)
+    assert (args[1] is None) == (not masked)
+    assert (args[5] is None) == (init is not None)
+    assert ce.em.launches == 1
+    assert gamma.shape == (k, b, f, t) and q_hist.shape == (3,)
+    assert state["covar"].shape == (k, b, f, m, m)
+    assert state["phi"].shape == (k, b, f, t)
+
+
+def test_em_failed_launch_raises(monkeypatch):
+    """A launch that fails raises; nothing falls back to em_plain and
+    nothing is counted."""
+    def refuse(name, fn, dev, *args):
+        _build.check(1, fn)
+    monkeypatch.setattr(_build, "launch", refuse)
+    monkeypatch.setattr(ce, "em_plain", None)
+    monkeypatch.setattr(ce.em, "launches", 0)
+    obs = torch.empty((1, 3, 2, 8), dtype=torch.complex64, device="meta")
+    with pytest.raises(RuntimeError, match="cacgmm_em_launch"):
+        ce.em(obs, None, None, 2, "cacg", True, init="higuchi")
+    assert ce.em.launches == 0
 
 
 def test_clustering_entry_points_reject_bad_arguments(libs):
@@ -558,9 +683,18 @@ def test_clustering_entry_points_reject_bad_arguments(libs):
                                            (4, 4, 4, 2, 5, 1, 0),
                                            (4, 4, 4, 2, 2, 0, 0),
                                            (4, 4, 4, 2, 3, 1, 1)):
-        assert lib.cacgmm_em_launch(p, p, None, 0, 0, 0, p, p, p, p, p, nb,
-                                    f, t, m, k, iters, 0, higuchi, 0, 6,
+        assert lib.cacgmm_em_launch(p, None, 0, 0, 0, p, p, p, p, p, p, p,
+                                    nb, f, t, m, k, iters, 0, higuchi, 0, 6,
                                     None) != 0
+    # operands missing without the Higuchi init; the layout and the warp
+    # Jacobi's entries
+    assert lib.cacgmm_em_launch(p, None, 0, 0, 0, None, None, p, p, p, p, p,
+                                4, 4, 4, 2, 2, 1, 0, 0, 0, 6, None) != 0
+    out = (ctypes.c_int * 3)()
+    for m, k in ((0, 2), (9, 2), (2, 0), (2, 5)):
+        assert lib.cacgmm_em_layout(m, k, ctypes.addressof(out)) != 0
+    for n, m, sweeps in ((0, 2, 6), (1, 9, 6), (1, 0, 6), (1, 2, -1)):
+        assert lib.warp_jacobi_launch(p, p, p, n, m, sweeps, None) != 0
 
 
 def _gram(rng, bins, cols, rank=6, load=0.5):

@@ -408,6 +408,48 @@ def test_em_kernel_matches_plain(model, init, k, masked, m, t):
     assert float((got[2]["alpha"] - ref[2]["alpha"]).abs().max()) < 2e-3
 
 
+@pytest.mark.parametrize("model,k", [("cg", 2), ("cacg", 3)])
+def test_em_kernel_is_deterministic(model, k):
+    """Kernel 15 at the bench's M = 6 and T = 512 over 2 x 257 bins (8 or
+    5 bins a warp, a last warp with fewer): within the bars of
+    test_em_kernel_matches_plain, and two launches equal to the bit (the
+    sums over lanes meet in a fixed order, no atomics)."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    obs = _cplx(rng, 2, 257, 6, 512, dev=dev)
+    obs[:, :, 1:] += 0.5 * obs[:, :, :1]
+    g0 = torch.rand((k, 2, 257, 512), device=dev)
+    g0 = g0 / g0.sum(0)
+    args = (obs, g0, torch.ones_like(g0), 4, model, True)
+    kw = dict(return_state=True, num_classes=k)
+    got = ce.em(*args, **kw)
+    again = ce.em(*args, **kw)
+    ref = ce.em_plain(*args, **kw)
+    assert float((got[0] - ref[0]).abs().max()) < 2e-3
+    assert float(((got[1] - ref[1]).abs() / ref[1].abs()).max()) < 2e-3
+    assert _rel(got[2]["covar"], ref[2]["covar"]) < 2e-2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("m", [1, 6, 8])
+def test_warp_jacobi_matches_thread_jacobi(m):
+    """Kernel 15's lane-group Jacobi (its test entry) against kernel 14's
+    thread Jacobi on the card, on the same matrices: within a few ulps of
+    each matrix's peak where the compiler contracts alike, 1e-5 at most."""
+    from setk_tpu_torch.ops.cuda import _build
+    dev = _card()
+    rng = np.random.default_rng(m)
+    a = _cplx(rng, 1000, m, m + 2, dev=dev)
+    a = (a @ a.conj().transpose(-1, -2)).contiguous()
+    got, got_ld = torch.empty_like(a), torch.empty(1000, device=dev)
+    _build.launch("cacgmm_em", "warp_jacobi_launch", dev, a.data_ptr(),
+                  got.data_ptr(), got_ld.data_ptr(), 1000, m, es.SWEEPS)
+    ref, ref_ld = es.regularized_inverse(a)
+    peak = ref.abs().amax(dim=(-1, -2))
+    assert float(((got - ref).abs().amax(dim=(-1, -2)) / peak).max()) < 1e-5
+    assert float((got_ld - ref_ld).abs().max()) < 1e-5 * m
+
+
 def test_clustering_runs_kernels_only():
     """A fresh cgmm_em / cacgmm_em(cgmm_init) launches kernel 15 alone; a
     resume launches kernels 13 and 14 once an iteration (and 14 once more
