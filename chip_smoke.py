@@ -855,7 +855,8 @@ def _wpe_slice(np, torch, dev, cfg):
         """Record got against ref; how is "peak" (TOL of the peak),
         "solve" (W_FUSED_TOL of the peak: a WPE Gram's solve, which two
         f32 operation orders part by its condition), "eq" (W_EQ_TOL of the
-        peak) or "close" (W_RTOL, W_ATOL elementwise)."""
+        peak) or "close" (W_RTOL, W_ATOL elementwise).  A kernel 18 Gram
+        must also be exactly Hermitian with a real diagonal."""
         rel, ab = _rel(got, ref), _abs(got, ref)
         errs[name] = max(errs[name], rel)
         abs_errs[name] = max(abs_errs[name], ab)
@@ -867,6 +868,12 @@ def _wpe_slice(np, torch, dev, cfg):
         if bad or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"W1 {name} ({how}): kernel vs plain "
                                  f"relative {rel}, absolute {ab}")
+        if name == "wpe_gram" and not (
+                torch.equal(got, got.conj().transpose(-1, -2)) and
+                float(torch.diagonal(got, dim1=-2, dim2=-1).imag.abs().max())
+                == 0.0):
+            raise AssertionError("W1 wpe_gram: the kernel's Gram is not "
+                                 "exactly Hermitian with a real diagonal")
         return rel
 
     scenes = {}

@@ -1,5 +1,6 @@
 // Kernels 16 and 17 (sm_90a): loaded Hermitian Cholesky solves of medium
-// systems (n <= 128), one system a thread block, over cholesky.cuh.
+// systems (n <= 128) over cholesky.cuh: kernel 16 one system a thread block
+// (chol_solve), kernel 17 one system a warp (chol_solve_warp).
 //
 // Kernel 16, hermitian_solve_kernel, replaces setk_tpu/ops/pallas/
 // cholesky.py _solve_lanes (:384, body _solve_kernel :39) via
@@ -25,11 +26,21 @@
 // GFLOP in all (~0.06 ms at 67 TFLOP/s f32), against 237 MB of A for
 // kernel 16 (~0.07 ms at 3.35 TB/s) and the 170 MB of Gram that kernel 17
 // reads.  Neither bound is near: the factorization is a chain of n steps,
-// each a barrier and a triangle update that shrinks to nothing, so a block
-// is latency-bound and the card fills with blocks instead (the packed
-// triangle keeps a 60 x 60 system at 14.6 KB, ~14 blocks an SM).  At
-// n = 128 the triangle is 66 KB: above the 48 KB of static shared memory,
-// so the launch opts in to dynamic shared memory up to 227 KB.
+// each a triangle update that shrinks to nothing.  Kernel 16 gives a
+// system a 128-thread block, two block barriers a step and one a
+// substitution row (240 at n = 60), and fills the card with blocks (the
+// packed triangle keeps a 60 x 60 system at 14.6 KB, ~14 blocks an SM).
+// Kernel 17 gives a system a warp and meets at __syncwarp alone
+// (chol_solve_warp): the factorization left-looking, lanes over a
+// column's rows, each entry's terms summed in a register; the
+// substitutions in place, lanes over rows.  As first written, right-
+// looking with lanes over the trailing triangle's (row, column) pairs, it
+// ran slower than kernel 16's block body: its index arithmetic made it
+// bound by instructions at ~10 warps an SM.  Its floor is shared-memory
+// traffic, ~n^3 / 6 updates of two 8-byte reads a system.  A block holds the systems that let an SM hold
+// the most (6 of 18.0 KB at n = 60, two blocks an SM; systems_per_block).
+// At n = 128 the triangle is 66 KB: above the 48 KB of static shared
+// memory, so the launches opt in to dynamic shared memory up to 227 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,6 +50,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kLoadU = 8;  // kernel 17's global reads in flight a lane
 constexpr float kTiny = 1e-30f;
 
 // The caller's arrays after chol_solve's: low, y, z, dinv, then sc, load.
@@ -94,51 +106,142 @@ hermitian_solve_kernel(const float2* __restrict__ a,
   for (int i = tid; i < n * k; i += kThreads) xb[i] = s.y[i];
 }
 
+// Kernel 17's shared memory a system: low, y, dinv (chol_solve_warp's),
+// then sc, rounded up to 16 bytes.
+size_t system_bytes(int n, int k) {
+  return (setk::chol_warp_smem_bytes(n, k) + sizeof(float) * n + 15) / 16 *
+         16;
+}
+
+// Kernel 17's arrays a system: low, y, dinv, sc.
+struct WarpSmem {
+  float2 *low, *y;
+  float *dinv, *sc;
+};
+
+__device__ WarpSmem carve_warp(float2* base, int n, int k) {
+  WarpSmem s;
+  s.low = base;
+  s.y = s.low + setk::tri(n);
+  s.dinv = reinterpret_cast<float*>(s.y + n * k);
+  s.sc = s.dinv + n;
+  return s;
+}
+
+constexpr int kSmBytes = 233472;     // an H100 SM's shared memory
+constexpr int kBlockReserve = 1024;  // the runtime's share of it a block
+constexpr int kMaxSystems = 8;       // systems (warps) a block
+
+// Kernel 17's systems a block: the count in 1 ... kMaxSystems that lets an
+// SM hold the most systems (the larger on a tie), 0 when none fits.  At
+// n = 60, k = 6 (18,000 bytes a system) 6 a block, two blocks an SM; at
+// n = 128, k = 8 (75,264 bytes) 3 a block, one block.
+int systems_per_block(size_t per) {
+  int best = 0, best_s = 0;
+  for (int s = 1; s <= kMaxSystems && s * per <= 227 * 1024; ++s) {
+    // at most 32 blocks and 64 warps an SM
+    const int cap = 64 / s < 32 ? 64 / s : 32;
+    const int fit = (int)(kSmBytes / (s * per + kBlockReserve));
+    const int blocks = fit < cap ? fit : cap;
+    if (s * blocks >= best) {
+      best = s * blocks;
+      best_s = s;
+    }
+  }
+  return best_s;
+}
+
+// Kernel 17: a warp a system, several systems a block, __syncwarp only.  A
+// warp past the last system solves the last one again and stores nothing,
+// so that every warp of a block runs the same trip counts.
 template <int EQ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kMaxSystems)
 gram_solve_kernel(const float2* __restrict__ gram, float2* __restrict__ x,
-                  int g, int row0, int n, int k, float eps_rel) {
+                  int bins, int g, int row0, int n, int k, float eps_rel,
+                  int per) {
   extern __shared__ float2 smem[];
-  const Smem s = carve(smem, n, k);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float2* gb = gram + (size_t)blockIdx.x * g * g;
+  [[maybe_unused]] long long t = CHOL_CLOCK();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int sys = blockIdx.x * (blockDim.x >> 5) + w;
+  const WarpSmem s = carve_warp(smem + (size_t)w * per, n, k);
+  const float2* gb = gram + (size_t)min(sys, bins - 1) * g * g;
   const float2* corr = gb + (size_t)row0 * g + row0;
-  for (int j = tid; j < n; j += kThreads) {
+  for (int j = lane; j < n; j += 32) {
     const float dj = corr[(size_t)j * g + j].x;
     s.sc[j] = (EQ && dj > kTiny) ? 1.0f / sqrtf(fmaxf(dj, kTiny)) : 1.0f;
   }
-  __syncthreads();
-  for (int i = warp; i < n; i += kThreads / 32) {
-    for (int j = lane; j <= i; j += 32) {
-      float2 v = corr[(size_t)i * g + j];
-      if (EQ) {
-        const float f = s.sc[i] * s.sc[j];
-        v = make_float2(v.x * f, v.y * f);
+  __syncwarp();
+  // the lower triangle, lanes over its packed entries e = tri(i) + c,
+  // kLoadU global reads in flight a lane
+  const int ne = setk::tri(n);
+  for (int e0 = lane; e0 < ne; e0 += 32 * kLoadU) {
+    int at[kLoadU], row[kLoadU], col[kLoadU];
+    float2 v[kLoadU];
+#pragma unroll
+    for (int u = 0; u < kLoadU; ++u) {
+      const int e = e0 + 32 * u;
+      at[u] = -1;
+      if (e < ne) {
+        int i = (int)((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
+        if (setk::tri(i + 1) <= e) ++i;
+        if (setk::tri(i) > e) --i;
+        at[u] = e;
+        row[u] = i;
+        col[u] = e - setk::tri(i);
+        v[u] = corr[(size_t)i * g + col[u]];
       }
-      s.low[setk::tri(i) + j] = v;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadU; ++u) {
+      if (at[u] >= 0) {
+        if (EQ) {
+          const float f = s.sc[row[u]] * s.sc[col[u]];
+          v[u] = make_float2(v[u].x * f, v[u].y * f);
+        }
+        s.low[at[u]] = v[u];
+      }
     }
   }
-  for (int idx = tid; idx < n * k; idx += kThreads) {
-    const int i = idx / k, c = idx - i * k;
-    const float2 v = gb[(size_t)(row0 + i) * g + c];
-    s.y[idx] = make_float2(v.x * s.sc[i], v.y * s.sc[i]);
-  }
-  if (tid == 0) {
-    if (EQ) {
-      *s.load = eps_rel;
-    } else {
-      float tr = 0.0f;
-      for (int j = 0; j < n; ++j) tr += corr[(size_t)j * g + j].x;
-      *s.load = (eps_rel / n) * tr + setk::kCholEps;
+  for (int i0 = lane; i0 < n * k; i0 += 32 * kLoadU) {
+    float2 v[kLoadU];
+#pragma unroll
+    for (int u = 0; u < kLoadU; ++u) {
+      const int idx = i0 + 32 * u;
+      if (idx < n * k) {
+        const int r = idx / k;
+        v[u] = gb[(size_t)(row0 + r) * g + idx - r * k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadU; ++u) {
+      const int idx = i0 + 32 * u;
+      if (idx < n * k) {
+        const float f = s.sc[idx / k];
+        s.y[idx] = make_float2(v[u].x * f, v[u].y * f);
+      }
     }
   }
-  __syncthreads();
-  setk::chol_solve(s.low, s.dinv, s.y, s.z, n, k, *s.load);
-  float2* xb = x + (size_t)blockIdx.x * n * k;
-  for (int idx = tid; idx < n * k; idx += kThreads) {
-    const float f = s.sc[idx / k];
-    xb[idx] = make_float2(s.y[idx].x * f, s.y[idx].y * f);
+  __syncwarp();
+  float load = eps_rel;
+  if (!EQ) {
+    float tr = 0.0f;
+    if (lane == 0) {
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) tr += s.low[setk::tri(j) + j].x;
+    }
+    load = (eps_rel / n) * __shfl_sync(0xffffffffu, tr, 0) + setk::kCholEps;
   }
+  CHOL_PHASE(3, t);
+  setk::chol_solve_warp(s.low, s.dinv, s.y, n, k, load);
+  t = CHOL_CLOCK();
+  if (sys < bins) {
+    float2* xb = x + (size_t)sys * n * k;
+    for (int idx = lane; idx < n * k; idx += 32) {
+      const float f = s.sc[idx / k];
+      xb[idx] = make_float2(s.y[idx].x * f, s.y[idx].y * f);
+    }
+  }
+  CHOL_PHASE(3, t);
 }
 
 template <typename K>
@@ -147,6 +250,17 @@ int opt_in(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// opt_in, and the largest shared-memory carveout, so that an SM holds as
+// many of kernel 17's blocks as its 228 KB allow
+template <typename K>
+int carve_out(K kernel, size_t bytes) {
+  const int err = opt_in(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -186,22 +300,45 @@ extern "C" int gram_solve_launch(const void* gram, void* x, int bins, int g,
   if (bins < 1 || n < 1 || n > 128 || k < 1 || row0 < 0 || k > g ||
       row0 + n > g)
     return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(n, k);
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  const size_t per = system_bytes(n, k);
+  const int spb = systems_per_block(per);
+  if (spb < 1) return cudaErrorInvalidValue;
+  const size_t bytes = per * spb;
+  const int blocks = (bins + spb - 1) / spb, per_f2 = (int)(per / 8);
   auto st = static_cast<cudaStream_t>(stream);
   auto gg = static_cast<const float2*>(gram);
   auto xx = static_cast<float2*>(x);
   int err;
   if (equilibrate) {
-    err = opt_in(gram_solve_kernel<1>, bytes);
+    err = carve_out(gram_solve_kernel<1>, bytes);
     if (err != cudaSuccess) return err;
-    gram_solve_kernel<1><<<bins, kThreads, bytes, st>>>(gg, xx, g, row0, n,
-                                                        k, eps_rel);
+    gram_solve_kernel<1><<<blocks, 32 * spb, bytes, st>>>(
+        gg, xx, bins, g, row0, n, k, eps_rel, per_f2);
   } else {
-    err = opt_in(gram_solve_kernel<0>, bytes);
+    err = carve_out(gram_solve_kernel<0>, bytes);
     if (err != cudaSuccess) return err;
-    gram_solve_kernel<0><<<bins, kThreads, bytes, st>>>(gg, xx, g, row0, n,
-                                                        k, eps_rel);
+    gram_solve_kernel<0><<<blocks, 32 * spb, bytes, st>>>(
+        gg, xx, bins, g, row0, n, k, eps_rel, per_f2);
   }
   return cudaGetLastError();
 }
+
+// Kernel 17's layout at (n, k): out[0] systems a block, out[1] bytes of
+// shared memory a system; nonzero where no system fits a block.
+extern "C" int gram_solve_layout(int n, int k, int* out) {
+  if (n < 1 || n > 128 || k < 1) return cudaErrorInvalidValue;
+  const size_t per = system_bytes(n, k);
+  out[0] = systems_per_block(per);
+  out[1] = (int)per;
+  return out[0] < 1 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+#ifdef SETK_WPE_PHASES
+// the phase counters of the instrumented build: read (4 values) and zero
+extern "C" int chol_phase_read(unsigned long long* out) {
+  int err = cudaMemcpyFromSymbol(out, setk::g_chol_phase, 4 * 8);
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  return cudaMemcpyToSymbol(setk::g_chol_phase, zero, 4 * 8);
+}
+#endif

@@ -10,14 +10,15 @@
 //     (`use_g`; d = y on the first iteration);
 //   * lambda = the context-smoothed mean power of d over mics with the
 //     edge counts of compute_lambda, or the caller's lambda (WPD);
-//   * gram = sum_t A[:, t] A[:, t]^H / max(lambda_t, EPS), each (i <= j)
-//     entry summed once, written at (i, j) and conjugated at (j, i) with a
-//     real diagonal: exactly Hermitian, as the TPU's is.  The sum is
-//     two-level: over a tile's 64 frames in registers, then over the tiles
-//     in shared memory, so its rounding grows with 64 + T / 64 terms, not
-//     T.  A reverberant scene's tap correlation reaches a condition number
-//     of ~2e6, and the Gram's rounding, not the solve's, sets how far the
-//     f32 loop lies from a float64 run (tools/wpe_precision.py).
+//   * gram = sum_t (sw_t A[:, t]) (sw_t A[:, t])^H, sw = 1 / sqrt(max(
+//     lambda, EPS)), each (i <= j) entry summed once, written at (i, j)
+//     and conjugated at (j, i) with a real diagonal: exactly Hermitian, as
+//     the TPU's is.  The sum is two-level: over a tile's 64 frames in
+//     registers, then over the tiles in registers, so its rounding grows
+//     with 64 + T / 64 terms, not T.  A reverberant scene's tap
+//     correlation reaches a condition number of ~2e6, and the Gram's
+//     rounding, not the solve's, sets how far the f32 loop lies from a
+//     float64 run (tools/wpe_precision.py).
 // obs (bins, N, T) complex64, G (bins, N taps, N) complex64, lambda
 // (bins, T) f32 or null -> gram (bins, cols, cols) complex64, cols =
 // (taps + 1) N.
@@ -34,27 +35,71 @@
 // T = 501, 8,224 bins, cols = 66): kernel 18 does 2,211 (i <= j) complex
 // multiply-adds a frame (72.9 GFLOP) plus the dereverberation's 360 a
 // frame (11.9 GFLOP), ~1.26 ms at 67 TFLOP/s, against 198 MB of spectra,
-// 24 MB of G and 287 MB of Gram (~0.15 ms at 3.35 TB/s): operations.  A
-// block owns a bin and walks T in tiles of 64 frames, staged in shared
-// memory with the halo the taps and the context need (any T runs; ~7 KB
-// of shared memory at the scene, plus 32 KB of the threads' tile sums),
-// recomputing lambda on the 2 C frames a tile shares with its
-// neighbours.  Each thread owns a 4 x 4 block of the
-// Gram's upper block triangle (153 blocks at cols = 66, one pass of 256
-// threads; larger cols take more passes), so a frame costs it 8 loads for
-// 16 complex multiply-adds.  Kernel 19 (11.9 GFLOP, 396 MB: ~0.18 ms by
-// operations) gives a block a bin and a tile of 64 frames.
+// 24 MB of G and 287 MB of Gram (~0.15 ms at 3.35 TB/s): operations.
+//
+// Kernel 18's design.  A block owns a bin and walks T in tiles of 64
+// frames; each thread owns a 4 x 4 block of the Gram's upper block
+// triangle, and the block has as many threads as there are such blocks,
+// rounded up to a warp (160 threads for the 153 blocks at cols = 66;
+// above 256 blocks, at cols = 136, passes of up to 256 threads).  A tile
+// runs in four steps, each spread over the whole block:
+//   1. the raw frames (with the halo the taps and the context need) are
+//      already in shared memory: cp.async copied them while the previous
+//      tile's products ran;
+//   2. d = y - G^H taps for the tile's frames and their 2 C neighbours,
+//      a thread a (frame, half of the taps) pair with all N mics' sums in
+//      registers (dereverb_power), then lambda and sw, a thread a frame;
+//   3. the weighted design tile sw_t A[:, t] (64 frames x 4 ceil(cols / 4)
+//      rows, 34.8 KB at the scene) in two planes of float4, rows 4q, 4q + 1
+//      and 4q + 2, 4q + 3 of frame t at plane 0 and 1, so that a thread
+//      reads its four rows of a frame as two conflict-free 16-byte loads;
+//   4. the products: per frame 4 such loads and 64 FFMAs a thread, no
+//      weights left to apply; the tile's sums then join the running sums,
+//      both in registers.  With one pass the Gram leaves through shared
+//      memory in 16-byte stores.
+// What bounds it: a 4 x 4 block reads 64 bytes of shared memory for 64
+// FFMAs, and an SM serves 128 bytes a cycle against 128 FFMAs a cycle, so
+// the products alone fill the shared-memory pipe at the FFMA peak and the
+// staging and dereverberation compete with them for it (PERF.md: on an
+// H100 ~3.1 ms at the scene, ~2.4x the bound).  Producer warps feeding
+// consumer warps through two design tiles were tried and ran slower: two
+// producer warps could not keep up, and the products' 127 registers a
+// thread left room for two blocks an SM.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kGramThreads = 256;
+constexpr int kMaxGramThreads = 256;
 constexpr int kApplyThreads = 128;
 constexpr int kTile = 64;   // frames a tile
 constexpr int kRB = 4;      // Gram rows and columns a thread owns
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 epsilon
+
+#ifdef SETK_WPE_PHASES
+// tools/wpe_phase_profile.py's build: lane 0 of every warp adds the SM
+// cycles of each phase of kernel 18 into device counters: 0 waiting for
+// the frames and the block, 1 d, lambda and sw, 2 the design tile, 3 the
+// barrier after it and the next frames' cp.async, 4 products, 5 tile sums
+// and the Gram's write
+__device__ unsigned long long g_wpe_phase[6];
+#define WPE_PHASE(i)                                                \
+  do {                                                              \
+    if ((threadIdx.x & 31) == 0) {                                  \
+      const long long now_ = clock64();                             \
+      atomicAdd(&g_wpe_phase[i], (unsigned long long)(now_ - t_));  \
+      t_ = now_;                                                    \
+    }                                                               \
+  } while (0)
+#define WPE_PHASE_START long long t_ = clock64()
+#else
+#define WPE_PHASE(i) \
+  do {               \
+  } while (0)
+#define WPE_PHASE_START
+#endif
 
 // Stage frames [f0, f0 + wt) of the bin's n mics into xs (n rows of wt),
 // zero outside [0, t).
@@ -65,6 +110,19 @@ __device__ void stage(float2* xs, const float2* ob, int n, int t, int f0,
     xs[idx] = (f >= 0 && f < t) ? ob[(size_t)m * t + f]
                                 : make_float2(0.0f, 0.0f);
   }
+}
+
+// stage() through cp.async: the copies land while the block goes on; a
+// frame outside [0, t) is zero-filled without a read.
+__device__ void stage_async(float2* xs, const float2* ob, int n, int t,
+                            int f0, int wt) {
+  for (int idx = threadIdx.x; idx < n * wt; idx += blockDim.x) {
+    const int m = idx / wt, f = f0 + idx - m * wt;
+    const bool in = f >= 0 && f < t;
+    __pipeline_memcpy_async(xs + idx, in ? ob + (size_t)m * t + f : ob,
+                            sizeof(float2), in ? 0 : sizeof(float2));
+  }
+  __pipeline_commit();
 }
 
 // d_m at the frame staged at column f: y_m - sum_r conj(G[r][m]) tap_r, tap
@@ -84,45 +142,144 @@ __device__ float2 dereverb(const float2* xs, int wt, const float2* gs, int n,
   return make_float2(y.x - sx, y.y - sy);
 }
 
-// Shared-memory column of design row i at tile frame 0: mic m of the
-// current rows, or the tap row's mic shifted back by delay + k; rows past
-// cols read the zero row.
-__device__ int row_base(int i, int n, int cols, int delay, int wt, int off) {
-  if (i < n) return i * wt + off;
-  if (i >= cols) return n * wt;
-  const int k = (i - n) / n, m = (i - n) - k * n;
-  return m * wt + off - delay - k;
+// The mean power over mics of d = y - G^H taps at the tile's span frames
+// t0 - C ... t0 + tile + C into ps (zero outside [0, t)).  An item is a
+// (frame, half of the taps) pair, the halves in neighbouring lanes: a
+// thread sums its half's taps for all N mics at once (N accumulators, one
+// staged frame read a tap and mic), the pair joins its halves through a
+// shuffle, and the even lane forms the power, summed in mic order.  Every
+// thread runs every round, so that each meets every shuffle.
+template <int N>
+__device__ void dereverb_power(const float2* xs, int wt, const float2* gs,
+                               int taps, int delay, int h, int context,
+                               int span, int t0, int t, float* ps) {
+  const int half = (taps + 1) / 2;
+  const int rounds = (2 * span + blockDim.x - 1) / blockDim.x;
+  for (int r = 0; r < rounds; ++r) {
+    const int item = r * blockDim.x + threadIdx.x;
+    const int u = item >> 1, k0 = (item & 1) ? half : 0;
+    const int k1 = (item & 1) ? taps : half;
+    const int f = t0 - context + u;
+    const bool in = u < span && f >= 0 && f < t;
+    float2 acc[N];
+#pragma unroll
+    for (int m = 0; m < N; ++m) acc[m] = make_float2(0.0f, 0.0f);
+    if (in) {
+      for (int k = k0; k < k1; ++k) {
+#pragma unroll
+        for (int m2 = 0; m2 < N; ++m2) {
+          const float2 x = xs[m2 * wt + u + h - delay - k];
+          const float2* gk = gs + (k * N + m2) * N;
+#pragma unroll
+          for (int m = 0; m < N; ++m) {
+            const float2 g = gk[m];  // conj(g) x
+            acc[m].x = fmaf(g.x, x.x, acc[m].x);
+            acc[m].x = fmaf(g.y, x.y, acc[m].x);
+            acc[m].y = fmaf(g.x, x.y, acc[m].y);
+            acc[m].y = fmaf(-g.y, x.x, acc[m].y);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      acc[m].x += __shfl_xor_sync(0xffffffffu, acc[m].x, 1);
+      acc[m].y += __shfl_xor_sync(0xffffffffu, acc[m].y, 1);
+    }
+    if (u < span && (item & 1) == 0) {
+      float p = 0.0f;
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        const float2 y = xs[m * wt + u + h];
+        const float dx = y.x - acc[m].x, dy = y.y - acc[m].y;
+        p += dx * dx + dy * dy;
+      }
+      ps[u] = in ? p * (1.0f / N) : 0.0f;
+    }
+  }
+}
+
+// Kernel 18's launch shape: nt 4-row blocks a side, ntiles (i <= j) pairs
+// of them, in passes of `threads` (a multiple of 32, at most 256).
+struct GramLayout {
+  int nt, ntiles, passes, threads;
+};
+
+__host__ __device__ GramLayout gram_layout(int cols) {
+  GramLayout l;
+  l.nt = (cols + kRB - 1) / kRB;
+  l.ntiles = l.nt * (l.nt + 1) / 2;
+  l.passes = (l.ntiles + kMaxGramThreads - 1) / kMaxGramThreads;
+  const int per = (l.ntiles + l.passes - 1) / l.passes;
+  l.threads = (per + 31) / 32 * 32;
+  return l;
+}
+
+// Kernel 18's dynamic shared memory: the design tile (2 kTile nt float4;
+// in one pass also the whole Gram at the end, cols^2 float2), the raw
+// frames (n wt float2), G (nk n float2), the span's power (span f32), sw
+// (kTile f32), the design rows' offsets into the raw frames (4 nt int).
+__host__ __device__ size_t gram_tile_bytes(int cols) {
+  const GramLayout l = gram_layout(cols);
+  const size_t tile = 16 * (size_t)(2 * kTile * l.nt);
+  const size_t whole = 8 * (size_t)cols * cols;
+  return l.passes == 1 && whole > tile ? (whole + 15) / 16 * 16 : tile;
+}
+
+size_t gram_smem_bytes(int n, int taps, int delay, int context) {
+  const GramLayout l = gram_layout((taps + 1) * n);
+  const int span = kTile + 2 * context;
+  const int wt = span + delay + taps - 1;
+  return gram_tile_bytes((taps + 1) * n) +
+         8 * ((size_t)n * wt + (size_t)n * taps * n) +
+         4 * ((size_t)span + kTile + kRB * l.nt);
 }
 
 template <int RB>
-__global__ void __launch_bounds__(kGramThreads)
+__global__ void __launch_bounds__(kMaxGramThreads)
 wpe_gram_kernel(const float2* __restrict__ obs, const float2* __restrict__ g,
                 const float* __restrict__ lam, float2* __restrict__ gram,
                 int n, int t, int taps, int delay, int context, int use_g) {
-  extern __shared__ float2 smem[];
-  const int tid = threadIdx.x;
+  static_assert(RB == 4, "a thread's rows are two float4 of the planes");
+  extern __shared__ float4 smem[];
+  WPE_PHASE_START;
+  const int tid = threadIdx.x, nth = blockDim.x;
   const int cols = (taps + 1) * n, nk = n * taps;
+  const GramLayout l = gram_layout(cols);
+  const int nt = l.nt, rows = RB * nt;
   const int h = delay + taps - 1;            // the deepest tap's shift
   const int halo = context + h;              // frames staged before a tile
-  const int wt = kTile + 2 * context + h;    // staged frames a tile
-  float2* xs = smem;                         // n rows + the zero row
-  float2* gs = xs + (n + 1) * wt;            // G (nk, n)
-  float* ps = reinterpret_cast<float*>(gs + nk * n);  // power, tile + 2C
-  float* ws = ps + kTile + 2 * context;      // weights, tile
-  // the tiles' running sums: 2 RB RB floats a thread, strided by thread
-  float* tot = ws + kTile;
+  const int span = kTile + 2 * context;      // frames with a power
+  const int wt = span + h;                   // staged frames a tile
+  float4* as = smem;                         // design tile, 2 planes
+  float2* xs = reinterpret_cast<float2*>(as + gram_tile_bytes(cols) / 16);
+  float2* gs = xs + n * wt;                  // G (nk, n)
+  float* ps = reinterpret_cast<float*>(gs + nk * n);  // the span's power
+  float* sw = ps + span;                     // the tile's weights
+  int* ro = reinterpret_cast<int*>(sw + kTile);       // row offsets
   const size_t bin = blockIdx.x;
   const float2* ob = obs + bin * n * t;
-  for (int i = tid; i < wt; i += blockDim.x)
-    xs[n * wt + i] = make_float2(0.0f, 0.0f);
-  if (use_g && lam == nullptr) {
-    for (int i = tid; i < nk * n; i += blockDim.x) gs[i] = g[bin * nk * n + i];
+  const bool derev = use_g && lam == nullptr;
+  if (derev) {
+    for (int i = tid; i < nk * n; i += nth) gs[i] = g[bin * nk * n + i];
   }
-  const int nt = (cols + RB - 1) / RB;
-  const int ntiles = nt * (nt + 1) / 2;
-  for (int pass = 0; pass * (int)blockDim.x < ntiles; ++pass) {
-    int q = pass * blockDim.x + tid;
-    const bool active = q < ntiles;
+  // design row i at tile frame 0: mic m of the current rows, or the tap
+  // row's mic shifted back by delay + k; -1 past cols (a zero row)
+  for (int i = tid; i < rows; i += nth) {
+    int off = -1;
+    if (i < n) {
+      off = i * wt + halo;
+    } else if (i < cols) {
+      const int k = (i - n) / n, m = (i - n) - k * n;
+      off = m * wt + halo - delay - k;
+    }
+    ro[i] = off;
+  }
+  float2* as2 = reinterpret_cast<float2*>(as);
+  const int phases = nth / rows > 1 ? nth / rows : 1;  // threads a row
+  for (int pass = 0; pass < l.passes; ++pass) {
+    int q = pass * nth + tid;
+    const bool active = q < l.ntiles;
     int bi = 0;
     if (active) {
       while (q >= nt - bi) {
@@ -131,58 +288,93 @@ wpe_gram_kernel(const float2* __restrict__ obs, const float2* __restrict__ g,
       }
     }
     const int bj = bi + q;
-    int rb[RB], cb[RB];
+    float tot_re[RB][RB], tot_im[RB][RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-      rb[r] = row_base(bi * RB + r, n, cols, delay, wt, halo);
-      cb[r] = row_base(bj * RB + r, n, cols, delay, wt, halo);
+#pragma unroll
+      for (int c = 0; c < RB; ++c) tot_re[r][c] = tot_im[r][c] = 0.0f;
     }
-    for (int e = 0; e < 2 * RB * RB; ++e) tot[e * blockDim.x + tid] = 0.0f;
+    stage_async(xs, ob, n, t, -halo, wt);
     for (int t0 = 0; t0 < t; t0 += kTile) {
-      __syncthreads();  // the last tile's readers are done
-      stage(xs, ob, n, t, t0 - halo, wt);
-      __syncthreads();
-      if (lam != nullptr) {
-        for (int u = tid; u < kTile; u += blockDim.x) {
-          const int f = t0 + u;
-          const float sw =
-              f < t ? 1.0f / sqrtf(fmaxf(lam[bin * t + f], kEps)) : 0.0f;
-          ws[u] = sw * sw;
+      __pipeline_wait_prior(0);
+      __syncthreads();  // frames staged, G and ro in, the last products done
+      WPE_PHASE(0);
+      if (derev) {
+        switch (n) {
+#define CASE(N)                                                             \
+  case N:                                                                   \
+    dereverb_power<N>(xs, wt, gs, taps, delay, h, context, span, t0, t, ps); \
+    break;
+          CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
         }
-      } else {
-        // mean power over mics of d at frames t0 - C ... t0 + tile + C
-        for (int u = tid; u < kTile + 2 * context; u += blockDim.x) {
+        __syncthreads();
+      } else if (lam == nullptr) {
+        // the mean power over mics of y at frames t0 - C ... t0 + tile + C
+        for (int u = tid; u < span; u += nth) {
           const int f = t0 - context + u;
           float p = 0.0f;
           if (f >= 0 && f < t) {
             for (int m = 0; m < n; ++m) {
-              const float2 d =
-                  use_g ? dereverb(xs, wt, gs, n, taps, delay, m, u + h)
-                        : xs[m * wt + u + h];
-              p += d.x * d.x + d.y * d.y;
+              const float2 y = xs[m * wt + u + h];
+              p += y.x * y.x + y.y * y.y;
             }
           }
           ps[u] = p * (1.0f / n);
         }
         __syncthreads();
-        for (int u = tid; u < kTile; u += blockDim.x) {
-          const int f = t0 + u;
-          float acc = ps[u + context], cnt = 1.0f;
-          for (int c = 1; c <= context; ++c) {
-            if (f - c >= 0) {
-              acc += ps[u + context - c];
-              cnt += 1.0f;
+      }
+      for (int u = tid; u < kTile; u += nth) {
+        const int f = t0 + u;
+        float s = 0.0f;
+        if (f < t) {
+          float lv;
+          if (lam != nullptr) {
+            lv = lam[bin * t + f];
+          } else {
+            float acc = ps[u + context], cnt = 1.0f;
+            for (int c = 1; c <= context; ++c) {
+              if (f - c >= 0) {
+                acc += ps[u + context - c];
+                cnt += 1.0f;
+              }
+              if (f + c < t) {
+                acc += ps[u + context + c];
+                cnt += 1.0f;
+              }
             }
-            if (f + c < t) {
-              acc += ps[u + context + c];
-              cnt += 1.0f;
-            }
+            lv = acc / cnt;
           }
-          const float sw = 1.0f / sqrtf(fmaxf(acc / cnt, kEps));
-          ws[u] = f < t ? sw * sw : 0.0f;
+          s = 1.0f / sqrtf(fmaxf(lv, kEps));
         }
+        sw[u] = s;
       }
       __syncthreads();
+      WPE_PHASE(1);
+      // the weighted design tile: element (u, i) = sw_u A[i][t0 + u] at
+      // plane (i / 2) % 2, float4 i / 4 of frame u, half i % 2; a thread
+      // holds row i = e % rows at frames e / rows + phases v
+      for (int e = tid; e < phases * rows; e += nth) {
+        const int i = e % rows, ph = e / rows, off = ro[i];
+        float2* dst = as2 + ((2 * ph + ((i >> 1) & 1)) * nt + (i >> 2)) * 2 +
+                      (i & 1);
+        const int step = 4 * phases * nt;  // float2s between its frames
+        if (off >= 0) {
+#pragma unroll 4
+          for (int u = ph; u < kTile; u += phases, dst += step) {
+            const float2 x = xs[off + u];
+            const float w = sw[u];
+            *dst = make_float2(x.x * w, x.y * w);
+          }
+        } else {
+          for (int u = ph; u < kTile; u += phases, dst += step)
+            *dst = make_float2(0.0f, 0.0f);
+        }
+      }
+      WPE_PHASE(2);
+      __syncthreads();  // the tile is built; xs is free
+      if (t0 + kTile < t) stage_async(xs, ob, n, t, t0 + kTile - halo, wt);
+      WPE_PHASE(3);
       if (active) {
         float acc_re[RB][RB], acc_im[RB][RB];
 #pragma unroll
@@ -190,52 +382,89 @@ wpe_gram_kernel(const float2* __restrict__ obs, const float2* __restrict__ g,
 #pragma unroll
           for (int c = 0; c < RB; ++c) acc_re[r][c] = acc_im[r][c] = 0.0f;
         }
-        const int len = min(kTile, t - t0);
-        for (int u = 0; u < len; ++u) {
-          const float w = ws[u];
-          float2 a[RB], b[RB];
-#pragma unroll
-          for (int r = 0; r < RB; ++r) {
-            const float2 v = xs[rb[r] + u];
-            a[r] = make_float2(v.x * w, v.y * w);
-            b[r] = xs[cb[r] + u];
-          }
+        const float4* pa = as + bi;
+        const float4* pb = as + bj;
+        // frames past T carry sw = 0: every tile runs its 64 frames
+#pragma unroll 2
+        for (int u = 0; u < kTile; ++u) {
+          const float4 a01 = pa[2 * u * nt], a23 = pa[(2 * u + 1) * nt];
+          const float4 b01 = pb[2 * u * nt], b23 = pb[(2 * u + 1) * nt];
+          const float2 a[RB] = {make_float2(a01.x, a01.y),
+                                 make_float2(a01.z, a01.w),
+                                 make_float2(a23.x, a23.y),
+                                 make_float2(a23.z, a23.w)};
+          const float2 b[RB] = {make_float2(b01.x, b01.y),
+                                 make_float2(b01.z, b01.w),
+                                 make_float2(b23.x, b23.y),
+                                 make_float2(b23.z, b23.w)};
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
 #pragma unroll
             for (int c = 0; c < RB; ++c) {
-              acc_re[r][c] += a[r].x * b[c].x + a[r].y * b[c].y;
-              acc_im[r][c] += a[r].y * b[c].x - a[r].x * b[c].y;
+              // a_r conj(b_c)
+              acc_re[r][c] = fmaf(a[r].x, b[c].x, acc_re[r][c]);
+              acc_re[r][c] = fmaf(a[r].y, b[c].y, acc_re[r][c]);
+              acc_im[r][c] = fmaf(a[r].y, b[c].x, acc_im[r][c]);
+              acc_im[r][c] = fmaf(-a[r].x, b[c].y, acc_im[r][c]);
             }
           }
         }
+        WPE_PHASE(4);
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
 #pragma unroll
           for (int c = 0; c < RB; ++c) {
-            float* sum = tot + 2 * (r * RB + c) * blockDim.x + tid;
-            sum[0] += acc_re[r][c];
-            sum[blockDim.x] += acc_im[r][c];
+            tot_re[r][c] += acc_re[r][c];
+            tot_im[r][c] += acc_im[r][c];
+          }
+        }
+        WPE_PHASE(5);
+      }
+    }
+    float2* gb = gram + bin * cols * cols;
+    if (l.passes == 1) {
+      // through shared memory: both triangles into the design tile's
+      // room, then the bin's Gram out in coalesced 16-byte stores
+      __syncthreads();  // every thread's products are done with the tile
+      float2* whole = as2;
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+#pragma unroll
+          for (int c = 0; c < RB; ++c) {
+            const int i = bi * RB + r, j = bj * RB + c;
+            if (i < cols && j < cols && i <= j) {
+              const float re = tot_re[r][c];
+              const float im = i == j ? 0.0f : tot_im[r][c];
+              whole[i * cols + j] = make_float2(re, im);
+              whole[j * cols + i] = make_float2(re, -im);
+            }
           }
         }
       }
-    }
-    if (active) {
-      float2* gb = gram + bin * cols * cols;
+      __syncthreads();
+      const int quads = cols * cols / 2;  // cols = (taps + 1) n: whole float4s
+      if ((cols & 1) == 0) {
+        float4* g4 = reinterpret_cast<float4*>(gb);
+        for (int e = tid; e < quads; e += nth) g4[e] = as[e];
+      } else {
+        for (int e = tid; e < cols * cols; e += nth) gb[e] = whole[e];
+      }
+    } else if (active) {
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
 #pragma unroll
         for (int c = 0; c < RB; ++c) {
           const int i = bi * RB + r, j = bj * RB + c;
           if (i < cols && j < cols && i <= j) {
-            const float* sum = tot + 2 * (r * RB + c) * blockDim.x + tid;
-            const float re = sum[0], im = i == j ? 0.0f : sum[blockDim.x];
+            const float re = tot_re[r][c], im = i == j ? 0.0f : tot_im[r][c];
             gb[i * cols + j] = make_float2(re, im);
             gb[j * cols + i] = make_float2(re, -im);
           }
         }
       }
     }
+    WPE_PHASE(5);
   }
 }
 
@@ -244,10 +473,10 @@ __global__ void __launch_bounds__(kApplyThreads)
 wpe_apply_kernel(const float2* __restrict__ obs, const float2* __restrict__ g,
                  float2* __restrict__ out, int n, int t, int taps,
                  int delay) {
-  extern __shared__ float2 smem[];
+  extern __shared__ float2 smem2[];
   const int tid = threadIdx.x, nk = n * taps;
   const int h = delay + taps - 1, wt = TILE + h;
-  float2* xs = smem;
+  float2* xs = smem2;
   float2* gs = xs + n * wt;
   const size_t bin = blockIdx.x;
   const int t0 = blockIdx.y * TILE;
@@ -271,6 +500,17 @@ int opt_in(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// opt_in, and the largest shared-memory carveout, so that an SM holds as
+// many of kernel 18's blocks as its 228 KB allow
+template <typename K>
+int carve_out(K kernel, size_t bytes) {
+  const int err = opt_in(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 bool bad_shape(int bins, int n, int t, int taps, int delay) {
   return bins < 1 || n < 1 || n > 8 || t < 1 || taps < 1 || delay < 0 ||
          n * taps > 128;
@@ -288,16 +528,12 @@ extern "C" int wpe_gram_launch(const void* obs, const void* g,
   if (bad_shape(bins, n, t, taps, delay) || context < 0 ||
       (use_g && g == nullptr && lam == nullptr))
     return cudaErrorInvalidValue;
-  const int wt = kTile + 2 * context + delay + taps - 1;
-  const size_t bytes = sizeof(float2) * ((size_t)(n + 1) * wt +
-                                         (size_t)n * taps * n) +
-                       sizeof(float) * (2 * kTile + 2 * context +
-                                        2 * kRB * kRB * kGramThreads);
+  const size_t bytes = gram_smem_bytes(n, taps, delay, context);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  int err = opt_in(wpe_gram_kernel<kRB>, bytes);
+  int err = carve_out(wpe_gram_kernel<kRB>, bytes);
   if (err != cudaSuccess) return err;
-  wpe_gram_kernel<kRB><<<bins, kGramThreads, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  wpe_gram_kernel<kRB><<<bins, gram_layout((taps + 1) * n).threads, bytes,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(obs), static_cast<const float2*>(g),
       static_cast<const float*>(lam), static_cast<float2*>(gram), n, t, taps,
       delay, context, use_g);
@@ -322,3 +558,13 @@ extern "C" int wpe_apply_launch(const void* obs, const void* g, void* out,
       static_cast<float2*>(out), n, t, taps, delay);
   return cudaGetLastError();
 }
+
+#ifdef SETK_WPE_PHASES
+// the phase counters of the instrumented build: read (6 values) and zero
+extern "C" int wpe_phase_read(unsigned long long* out) {
+  int err = cudaMemcpyFromSymbol(out, g_wpe_phase, 6 * 8);
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero[6] = {};
+  return cudaMemcpyToSymbol(g_wpe_phase, zero, 6 * 8);
+}
+#endif

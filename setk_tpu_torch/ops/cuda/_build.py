@@ -80,6 +80,7 @@ _SIGNATURES = {
     "cholesky": {
         "hermitian_solve_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
         "gram_solve_launch": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "gram_solve_layout": [_I, _I, _P],
     },
     "wpe_gram": {
         "wpe_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -16,6 +16,9 @@
 // kernel, args)` before compiling, and each dynamic shared array into a
 // pointer to the block's buffer of `smem` bytes.
 //
+// cp.async (cuda_pipeline_primitives.h, which includes this file) is a
+// plain copy.
+//
 // A cooperative launch (cudaLaunchCooperativeKernel) runs every thread of
 // the grid at once, each block with its own barrier and its own dynamic
 // shared buffer, and cooperative_groups.h's grid.sync() is one barrier over
@@ -79,7 +82,11 @@ enum {
   cudaErrorCooperativeLaunchTooLarge = 720
 };
 inline int cudaGetLastError() { return cudaSuccess; }
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+enum { cudaSharedmemCarveoutMaxShared = 100 };
 template <typename K>
 inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
@@ -124,6 +131,15 @@ inline thread_local char* emu_dyn_smem = nullptr;
 inline std::barrier<>* emu_grid_barrier = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// cuda_pipeline_primitives.h: cp.async as a plain copy that has landed
+// when it returns; `zfill` trailing bytes are zeroed instead of read
+inline void __pipeline_memcpy_async(void* dst, const void* src,
+                                    size_t size_and_align, size_t zfill = 0) {
+  std::memcpy(dst, src, size_and_align - zfill);
+  std::memset(static_cast<char*>(dst) + size_and_align - zfill, 0, zfill);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline unsigned __float_as_uint(float x) {

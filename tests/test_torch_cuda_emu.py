@@ -704,11 +704,12 @@ def _gram(rng, bins, cols, rank=6, load=0.5):
 
 
 @pytest.mark.parametrize("n,k,herm", [(1, 1, True), (16, 1, True),
-                                      (37, 6, False), (60, 6, True)])
+                                      (37, 6, False), (60, 6, True),
+                                      (128, 8, False)])
 def test_hermitian_solve_source_matches_plain(libs, n, k, herm):
     """Three systems a launch (three blocks), a nudge off Hermitian where
     the kernel hermitianizes on load, n = 37 with rows past one warp's
-    32 lanes."""
+    32 lanes, n = 128 in dynamic shared memory."""
     rng = np.random.default_rng(n + k)
     a = _gram(rng, 3, n, rank=n + 2, load=1.0)
     if herm:
@@ -724,13 +725,23 @@ def test_hermitian_solve_source_matches_plain(libs, n, k, herm):
 
 
 # NK at every residue mod 4 (the TPU's unrolled substitution double-
-# subtracted rows at NK % 4 in {2, 3}), the 3-mic and 6-mic defaults
-@pytest.mark.parametrize("nk", [9, 10, 11, 12, 30, 60])
-def test_gram_solve_source_matches_plain(libs, nk):
+# subtracted rows at NK % 4 in {2, 3}), the 3-mic and 6-mic defaults: (NK,
+# right-hand sides = row0, systems).  Then kernel 17's warp layout: n
+# below, at and past a warp's 32 lanes and up to 128 (two systems a block),
+# k = 1, 6, 8 (k = 8 past 32 / k), 7 systems (5 a block at n = 60, k = 6:
+# a last block with 3 clamped warps; 8 a block at n = 1: one clamped)
+GRAM_SOLVE = [pytest.param(nk, 3 if nk < 60 else 6, 3, id=str(nk))
+              for nk in (9, 10, 11, 12, 30, 60)] + [
+    pytest.param(n, k, 7, id=f"n{n}-k{k}")
+    for n, k in ((1, 1), (1, 8), (9, 6), (31, 8), (32, 1), (33, 6),
+                 (60, 6), (64, 8), (128, 1), (128, 8))]
+
+
+@pytest.mark.parametrize("nk,n0,bins", GRAM_SOLVE)
+def test_gram_solve_source_matches_plain(libs, nk, n0, bins):
     """Kernel 17 on a Gram two columns wider than N + NK, plain and
     equilibrated on a row-scaled Gram with one empty row."""
-    rng = np.random.default_rng(nk)
-    bins, n0 = 3, 3 if nk < 60 else 6
+    rng = np.random.default_rng(nk if bins == 3 else (nk, n0))
     g = n0 + nk + 2
     gram = _gram(rng, bins, g)
     x = torch.empty((bins, nk, n0), dtype=torch.complex64)
@@ -752,15 +763,70 @@ def test_gram_solve_source_matches_plain(libs, nk):
     assert err == 0
     ref = ch.solve_wpe_gram_plain(gram_s, n0, nk, n0, eps, equilibrate=True)
     assert torch.isfinite(x).all() and _rel(x, ref) < SOLVE_TOL
-    assert float(x[:, 2].abs().max()) == 0.0
+    if nk > 2:
+        assert float(x[:, 2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (33, 6), (60, 6), (128, 8)])
+def test_warp_solve_matches_block_solve(libs, n, k):
+    """Kernel 17's warp body and kernel 16's block body (left as it was)
+    give every entry the same terms in the same order: on the CPU, where
+    neither fuses a multiply-add, the same bits.  Kernel 17 reads the
+    system out of a Gram [b | a] at row0 = k."""
+    rng = np.random.default_rng(n + 100 * k)
+    bins = 7
+    a = _gram(rng, bins, n, rank=n + 2, load=1.0)
+    b = _cplx(rng, bins, n, k)
+    gram = torch.zeros((bins, k + n, k + n), dtype=torch.complex64)
+    gram[:, k:, k:] = a
+    gram[:, k:, :k] = b
+    gram = gram.contiguous()
+    x16, x17 = torch.empty_like(b), torch.empty_like(b)
+    lib = libs["cholesky"]
+    assert lib.hermitian_solve_launch(a.data_ptr(), b.data_ptr(),
+                                      x16.data_ptr(), bins, n, k, 1e-6, 0,
+                                      None) == 0
+    assert lib.gram_solve_launch(gram.data_ptr(), x17.data_ptr(), bins,
+                                 k + n, k, n, k, 1e-6, 0, None) == 0
+    assert torch.equal(x16, x17)
+    assert _rel(x16, ch.hermitian_solve_lanes_plain(
+        a, b, assume_hermitian=True)) < SOLVE_TOL
+
+
+@pytest.mark.parametrize("n,k,systems,nbytes", [(60, 6, 6, 18000),
+                                                (128, 8, 3, 75264),
+                                                (1, 1, 8, 32)])
+def test_gram_solve_layout(libs, n, k, systems, nbytes):
+    """Kernel 17's systems a block: the most an H100 SM (228 KB, 32
+    blocks, 64 warps) holds, the larger count on a tie; none past 227 KB
+    a system."""
+    out = (ctypes.c_int * 2)()
+    lib = libs["cholesky"]
+    assert lib.gram_solve_layout(n, k, ctypes.addressof(out)) == 0
+    assert tuple(out) == (systems, nbytes)
+    for n_bad, k_bad in ((0, 1), (129, 1), (1, 0), (128, 2000)):
+        assert lib.gram_solve_layout(n_bad, k_bad,
+                                     ctypes.addressof(out)) != 0
 
 
 # (N, taps, delay, context, T, use_g, external lambda): T past one and two
-# 64-frame tiles, contexts 0-2, cols = 96 > 88 in two passes of the
-# block's 4 x 4 Gram tiles, taps reaching past the first tile
+# 64-frame tiles, contexts 0-2, cols = 96 (300 of the 4 x 4 Gram blocks: two
+# passes of 160 threads), taps reaching past the first tile.  Then: cols
+# not a multiple of 4 (15, 18, 71); T = 1, 63, 64, 65 and 129 (a last tile
+# of one frame); contexts 0-3; the WPE scene's cols = 66 (153 blocks, one
+# pass of 160 threads); cols = 136 (595 blocks: three passes of 224
+# threads, the last partly empty), with use_g and with external lambda;
+# 71 taps of one mic, whose halo (74 frames) reaches past the previous
+# tile; external lambda beside use_g (lambda wins); N = 7, so that every
+# N of the dereverberation's instances runs
 WPE_CASES = [(3, 4, 2, 1, 150, False, False), (3, 4, 2, 1, 150, True, False),
              (2, 3, 3, 2, 70, True, False), (1, 2, 0, 0, 64, True, False),
-             (4, 2, 1, 0, 65, False, True), (8, 11, 3, 1, 40, True, False)]
+             (4, 2, 1, 0, 65, False, True), (8, 11, 3, 1, 40, True, False),
+             (3, 5, 1, 3, 129, True, False), (2, 2, 2, 0, 1, True, False),
+             (4, 3, 3, 2, 63, True, False), (5, 2, 3, 1, 64, False, False),
+             (6, 10, 3, 1, 65, True, False), (8, 16, 3, 1, 70, True, False),
+             (8, 16, 3, 0, 70, False, True), (1, 70, 3, 2, 150, True, False),
+             (2, 6, 2, 1, 129, True, True), (7, 3, 2, 1, 100, True, False)]
 
 
 @pytest.mark.parametrize("n,taps,delay,context,t,use_g,ext", WPE_CASES)
