@@ -13,6 +13,10 @@ the CUDA toolkit.  In order it:
      PyTorch versions on the card at the bench shape (B=128, N=6, 8 s at
      16 kHz, int16 audio, mask uniform on [0, 1) from
      numpy.random.default_rng(0)): max |diff| / max |plain| <= 1e-4;
+     kernel A also at N = 1, 2, 5 and 8, int16 and f32 (an f32 waveform
+     off 16-byte alignment), many runs an utterance, S = 512, and per
+     chunk at chunks 1, 5 and 64; prints kernel A's registers and spills
+     at N = 6 and 8 (step 2) and its layout;
   4. runs BatchEnhancer(device="cuda", batch_size=128) over 128 keyed
      8 s utterances and a few other lengths (buckets of T = 513, 449 and
      193 frames), with the launch counts set to 0 just before and read
@@ -251,14 +255,19 @@ def _bound(nbytes: float, flops: float):
 
 
 # Operation counts of the kernels' own algorithms (see the notes in
-# setk_tpu_torch/csrc): a 512-point complex radix-2 FFT is 9 stages x
-# 256 butterflies x 10 FLOP; each FFT carries two mics.
+# setk_tpu_torch/csrc): a 512-point complex radix-2 FFT (kernel B) is 9
+# stages x 256 butterflies x 10 FLOP; kernel A's radix-8 transform is 3
+# passes x 64 8-point DFTs x 56 FLOP (52 additions, 4 multiplications)
+# and the twiddles that are not 1 (49 x 8 of W64^(b k0) after the first
+# pass, 7 x 63 of W512^(c (k0 + 8 k1)) after the second) at 6 FLOP; each
+# transform carries two mics.
 FFT512_FLOP = 9 * 256 * 10
+FFT512_RADIX8_FLOP = 3 * 64 * 56 + 6 * (49 * 8 + 7 * 63)
 
 
 def _flops_stft_covar(b, n, t):
     pairs = (n + 1) // 2
-    per_frame = n * 512 + pairs * FFT512_FLOP + 257 * (
+    per_frame = n * 512 + pairs * FFT512_RADIX8_FLOP + 257 * (
         pairs * 8 + n * 7 + 14 * n * (n - 1) // 2)
     return b * t * per_frame
 
@@ -303,6 +312,42 @@ def _flops_beamform_istft(b, n, t):
     fwd = n * 512 + pairs * FFT512_FLOP + 257 * (pairs * 8 + n * 8)
     inv = FFT512_FLOP / 2 + 512 * 3
     return b * t * (fwd + inv)
+
+
+def _kernel_a_shapes(np, torch, dev, window, fm):
+    """Kernel A away from the bench shape, against its plain version: N =
+    1, 2, 5 and 8, int16 and f32 (an f32 waveform not 16-byte aligned),
+    B = 4 (many runs an utterance) and B = 1 at S = 512, and per chunk at
+    chunks 1, 5 and 64; raises past TOL, returns the errors."""
+    errs = {}
+    for n, s, int16, chunk in ((1, 39936, True, None), (2, 512, False, None),
+                               (5, 64000, True, 5), (8, 128000, True, None),
+                               (8, 40960, False, 1), (5, 20480, False, None),
+                               (2, 4096, True, 64)):
+        rng = np.random.default_rng(n + s)
+        b = 1 if s == 512 else 4
+        x = rng.standard_normal((b, n, s)).astype(np.float32) * 0.3
+        if int16:
+            x = np.clip(x * 32768, -32768, 32767).astype(np.int16)
+        flat = x.ravel()
+        if not int16:   # f32 4 bytes past a 16-byte boundary
+            flat = np.concatenate([np.zeros(1, flat.dtype), flat])
+        wav = torch.from_numpy(flat).to(dev)[flat.size - x.size:].view(
+            b, n, s)
+        mask = torch.from_numpy(rng.random((b, s // 256 + 1, 257)).astype(
+            np.float32)).to(dev)
+        if chunk is None:
+            got = torch.cat(fm.stft_covar(wav, mask, window), -1)
+            ref = torch.cat(fm.stft_covar_plain(wav, mask, window), -1)
+        else:
+            got = fm.stft_covar_chunks(wav, mask, window, chunk)
+            ref = fm.stft_covar_chunks_plain(wav, mask, window, chunk)
+        key = (f"N{n}_S{s}_{'int16' if int16 else 'f32_unaligned'}"
+               f"_{'offline' if chunk is None else f'chunk{chunk}'}")
+        errs[key] = _rel(got, ref)
+        if not errs[key] <= TOL:
+            raise AssertionError(f"kernel A {key}: {errs[key]} > {TOL}")
+    return errs
 
 
 def _ptxas_summary(log: str) -> dict:
@@ -1856,6 +1901,13 @@ def main() -> int:
     # kernel 15 at the recipes' M = 6, K = 2: registers, stack and spills
     print(json.dumps({"ptxas_em_warp<6,2>": ptxas.get("em_warp<6,2>",
                                                       "not built now")}))
+    # kernel A at the bench's N = 6 and at N = 8, with its layout there
+    print(json.dumps({"ptxas_stft_covar": {
+        key: ptxas.get(key, "not built now") for key in (
+            "stft_covar<6,int16>", "stft_covar<6,f32>",
+            "stft_covar<8,int16>", "stft_covar<8,f32>")},
+        "layout": {n: fm.kernel_a_layout(n, True, torch.device("cuda", 0))
+                   for n in (6, 8)}}))
 
     # ---- 3. kernels against their plain versions at the bench shape ----
     cfg = StftConfig()
@@ -1899,6 +1951,9 @@ def main() -> int:
     for name, err in errs.items():
         if not err <= TOL:
             raise AssertionError(f"{name}: kernel vs plain {err} > {TOL}")
+    print(json.dumps({"kernel_a_other_shapes_max_rel_err":
+                      _kernel_a_shapes(np, torch, dev, window, fm),
+                      "tol": TOL}))
 
     # ---- 4. the main path: BatchEnhancer over keyed utterances ----
     extra = {"x0": 100000, "x1": 100000, "x2": 40000, "x3": 131000,
@@ -2626,10 +2681,12 @@ def main() -> int:
     errs.update(gevd_power=fam_errs["gevd_power_30"],
                 pmwf_solve=fam_errs["pmwf_solve_beta0"],
                 capon=fam_errs["capon"])
-    # for information only: torch.linalg.solve on the same systems (the
-    # port never calls it; it is not the same function, so library_ms
-    # stays null)
-    info = {"pmwf_solve": _time_ms(torch, lambda: torch.linalg.solve(grn,
+    # for information only (the port never calls these; they are not the
+    # same function, so library_ms stays null): torch.linalg.solve on the
+    # same systems, and for kernel A one torch.fft.rfft of the framed,
+    # windowed audio (its transforms alone, no covariance formed)
+    info = {"stft_covar": rfft_ms, "stft_covar_chunks": rfft_ms,
+            "pmwf_solve": _time_ms(torch, lambda: torch.linalg.solve(grn,
                                                                       grs)),
             "capon": _time_ms(torch, lambda: torch.linalg.solve(
                 gry, gsteer[..., None]))}
@@ -2786,7 +2843,9 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": library.get(name)}
         if name in info:
             label = {"regularized_inverse": "linalg_eigh_ms_info",
-                     "em": "layout_and_wpd_shape"}.get(
+                     "em": "layout_and_wpd_shape",
+                     "stft_covar": "rfft_frames_ms_info",
+                     "stft_covar_chunks": "rfft_frames_ms_info"}.get(
                          name, "linalg_solve_ms_info")
             row[label] = info[name]
         kernels.append(row)

@@ -19,29 +19,47 @@
 //   Rs/Rn (~84 us at 3.35 TB/s); kernel B reads the wav, 1.6 MB of
 //   weights and 0.5 MB of wss_inv and writes 65.5 MB (~79 us).  The
 //   TPU kernel's direct matmul DFT needs ~2e11 FLOP per pass (~3 ms at
-//   the f32 peak); the design here does the transform as radix-2 FFTs
-//   in shared memory (~5 N log2 N FLOP per 512 points), two mics per
-//   complex FFT (x = y_a + i y_b, split by Hermitian symmetry), which
-//   cuts the operations ~20x, to about the byte bound (~0.1 ms each).
+//   the f32 peak); here the transforms are FFTs, two mics per complex
+//   transform (x = y_a + i y_b, split by Hermitian symmetry), which cuts
+//   the operations ~20x, to about the byte bound (~0.1 ms each).
 //   Twiddles come from a float64 sincospi table, so the transform stays
-//   f32-grade.  No atomics: kernel A runs one block per (utterance, run
-//   of frames), keeps each bin's N(N+1)/2 pair sums in the registers of
-//   the thread owning that bin and writes them per run; a small second
-//   kernel adds the runs in a fixed order (deterministic).  The wrapper
-//   picks the number of runs so that about two blocks fill each SM.
-//   Kernel B gives each block a run of output hop blocks and computes
-//   the one extra frame its overlap-add needs itself.  Both kernels
-//   transform two frames per pass of the FFT's chain of block barriers,
-//   which sets their time more than bytes or FLOP do.
+//   f32-grade.  No atomics: every sum over frames runs in frame order in
+//   one thread, and runs of frames are added in a fixed order.
 //
+// Kernel A (stft_covar_kernel) was first a chain of block barriers (the
+// radix-2 fft512 below, ~11 barriers a pair of frames) with a bin owner's
+// 2 N (N+1) sums spilling at 96 registers.  Its design now:
+//   - a warp transforms one (frame, mic pair) alone: 512 = 8 x 8 x 8, two
+//     8-point DFTs a lane a pass in registers, two transposes through the
+//     warp's slot of shared memory under __syncwarp, the two mics split in
+//     registers (a lane holds bins k and their mirrors 512 - k);
+//   - a block of 8 SH warps takes TF frames a tile (one transform a warp),
+//     then one block barrier, then each thread adds the tile's frames to
+//     the sums of one share of a bin's pairs (SH shares: at most 9 pairs,
+//     36 f32 a thread at N = 8; bins 0 and 256, both real, share slot 0),
+//     then one block barrier: two barriers a tile of 8 frames;
+//   - each hop block of samples is copied once, by cp.async in 16-byte
+//     vectors into a ring of TF + 1 blocks, the next tile's while this
+//     tile's sums run; the mask while the transforms run; the reflected
+//     edges (blocks -1 and S / 256) sample by sample;
+//   - a block's last segment of frames goes out through the transform
+//     slots, staged by bin and copied in order (a thread's pairs alone
+//     would be 8-byte stores a row apart); the offline entry writes Rs,
+//     Rn so itself when one run of frames an utterance fills the card (no
+//     reduce); the per-chunk entry gives a block one chunk or, for chunks
+//     under 32 frames, several, the earlier ones written when they end.
+// Kernel B gives each block a run of output hop blocks, computes the one
+// extra frame its overlap-add needs itself and still transforms two frames
+// per pass of the radix-2 FFT's chain of block barriers (fft512).
+
 // The online (chunked EMA) pair replaces stft_covar_online_pallas (:651,
 // body _stft_covar_online_kernel :530) and beamform_istft_online_pallas
 // (:771, body :712).  The TPU kernel's EMA-mixing matmuls with hi/lo
 // K-stacks, its lane permutation and its 128-frame quarters are TPU
 // devices and have no counterpart here.  Instead:
-//   - kernel A runs with one block per (utterance, chunk of frames), so
-//     its partial runs are exactly the per-chunk numerators
-//     (stft_covar_chunks_launch, no reduce);
+//   - kernel A sums each chunk of frames as a segment of its own (a block
+//     takes one chunk or several), so its outputs are exactly the
+//     per-chunk numerators (stft_covar_chunks_launch, no reduce);
 //   - covar_ema_kernel walks the chunks in order, one thread per output
 //     entry of a bin's E_s or E_n: it normalizes by the chunk's mask sums
 //     (formed in the block from the mask), carries the EMA
@@ -55,8 +73,11 @@
 // covar_ema is bound by bytes: at B=128, N=6, T=501, chunk 32 it reads
 // 177 MB of sums and 66 MB of mask and writes 303 MB (~0.16 ms).
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -158,79 +179,613 @@ __device__ __forceinline__ void unpack_bin(const float2* buf, int k,
   }
 }
 
-// Adds one frame's masked pair products at bin k: Rs += m X X^H and
-// Rn += max(1 - m, 0) X X^H over the upper triangle (the diagonal is real).
+// ---- kernel A ----
+// A block of W = 8 SH warps sums one (utterance, range of frames) in tiles
+// of TF frames.  Per tile: each warp transforms one (frame, mic pair) of
+// the tile with no block barrier inside the transform (a_transform); one
+// block barrier; every thread adds the tile's frames to the pair sums of
+// its (share, bin slot); one block barrier.  The tile's samples were staged
+// by cp.async during the previous tile's sums, its mask during its own
+// transforms.  Bins 0 and 256 are real, so slot 0's thread sums both (bin
+// 0's products in the real parts, bin 256's in the imaginary parts) and
+// 256 slots cover 257 bins.
 template <int N>
-__device__ __forceinline__ void accumulate_bin(
-    const float2* buf, int k, float ms, cpx (&acc_s)[N * (N + 1) / 2],
-    cpx (&acc_n)[N * (N + 1) / 2]) {
-  const float mn = fmaxf(1.0f - ms, 0.0f);
-  cpx X[N];
-  unpack_bin<N>(buf, k, X);
-  int idx = 0;
+struct ACfg {
+  static constexpr int P = (N + 1) / 2;        // complex transforms a frame
+  static constexpr int NP = N * (N + 1) / 2;   // pairs of the upper triangle
+  // shares of a bin's pairs (one thread each): at most 9 pairs, 36 f32
+  static constexpr int SH = N <= 3 ? 1 : N == 4 ? 2 : N <= 6 ? 3 : 4;
+  static constexpr int W = 8 * SH;             // warps: 256 slots x SH
+  static constexpr int THREADS = 32 * W;
+  static constexpr int TF = W / P;             // frames a tile: a warp each
+  static constexpr int PPS = (NP + SH - 1) / SH;
+  // blocks an SM that shared memory admits (registers follow from it)
+  static constexpr int MIN_BLOCKS = N <= 3 ? 4 : N == 4 ? 2 : 1;
+  static_assert(TF * P == W, "one transform a warp a tile");
+};
+
+// float4s of one transform's slot: the 8 x 33 float4 transposes of
+// a_transform, then the two mics' bins 0..255
+constexpr int kSlot4 = 264;
+constexpr int kNyq = 8;  // bin 256 of a frame's mics (up to 8)
+
+// Byte offsets into kernel A's dynamic shared memory.
+template <int N, typename T>
+struct ALayout {
+  using C = ACfg<N>;
+  static constexpr size_t spec = 0;            // W transform slots
+  static constexpr size_t tw2 = spec + (size_t)C::W * kSlot4 * 16;
+  static constexpr size_t tw1 = tw2 + 256 * 16;  // pass-2, pass-1 twiddles
+  static constexpr size_t win = tw1 + 64 * 8;    // 0.5 x the window
+  static constexpr size_t nyq = win + kNfft * 4;  // the tile's bin 256
+  static constexpr size_t mask = nyq + (size_t)C::TF * kNyq * 4;  // its mask
+  static constexpr size_t ring = mask + ((size_t)C::TF * kBins * 4 + 31) /
+                                            16 * 16;  // TF + 1 hop blocks
+  static constexpr int R = C::TF + 1;
+  static constexpr size_t bytes = ring + (size_t)R * N * kHop * sizeof(T);
+};
+
+#ifdef SETK_FUSED_PHASES
+// tools/fused_phase_profile.py's build: every warp of kernel A adds the SM
+// cycles of each phase in registers and lane 0 adds them into device
+// counters when the block ends: 0 staging (the tables, the mask and sample
+// copies issued), 1 transform, 2 tile barriers (waiting for the copies and
+// the block), 3 accumulation, 4 write
+__device__ unsigned long long g_fused_phase[5];
+#define A_PHASE(i)                      \
+  do {                                  \
+    const long long now_ = clock64();   \
+    ph_[i] += now_ - t_;                \
+    t_ = now_;                          \
+  } while (0)
+#define A_PHASE_START \
+  long long t_ = clock64(), ph_[5] = {0, 0, 0, 0, 0}
+#define A_PHASE_END                                                  \
+  do {                                                               \
+    if ((threadIdx.x & 31) == 0)                                     \
+      for (int i_ = 0; i_ < 5; ++i_)                                 \
+        atomicAdd(&g_fused_phase[i_], (unsigned long long)ph_[i_]);  \
+  } while (0)
+#else
+#define A_PHASE(i) \
+  do {             \
+  } while (0)
+#define A_PHASE_START
+#define A_PHASE_END
+#endif
+
+__device__ __forceinline__ float2 f2add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 f2sub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 f2mul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+__device__ __forceinline__ float2 mul_mi(float2 z) {  // -i z
+  return make_float2(z.y, -z.x);
+}
+
+// Forward 8-point DFT in registers, natural order in and out: three
+// radix-2 stages, 52 additions and 4 multiplications.
+__device__ __forceinline__ void dft8(float2 (&v)[8]) {
+  constexpr float r = 0.70710678118654752f;
+  const float2 a0 = f2add(v[0], v[4]), a4 = f2sub(v[0], v[4]);
+  const float2 a1 = f2add(v[1], v[5]), d5 = f2sub(v[1], v[5]);
+  const float2 a2 = f2add(v[2], v[6]), d6 = f2sub(v[2], v[6]);
+  const float2 a3 = f2add(v[3], v[7]), d7 = f2sub(v[3], v[7]);
+  // d5 W8, d6 W8^2 = -i d6, d7 W8^3
+  const float2 a5 = make_float2(r * (d5.x + d5.y), r * (d5.y - d5.x));
+  const float2 a6 = mul_mi(d6);
+  const float2 a7 = make_float2(r * (d7.y - d7.x), -r * (d7.x + d7.y));
+  const float2 b0 = f2add(a0, a2), b2 = f2sub(a0, a2);
+  const float2 b1 = f2add(a1, a3), b3 = mul_mi(f2sub(a1, a3));
+  const float2 b4 = f2add(a4, a6), b6 = f2sub(a4, a6);
+  const float2 b5 = f2add(a5, a7), b7 = mul_mi(f2sub(a5, a7));
+  v[0] = f2add(b0, b1);
+  v[4] = f2sub(b0, b1);
+  v[2] = f2add(b2, b3);
+  v[6] = f2sub(b2, b3);
+  v[1] = f2add(b4, b5);
+  v[5] = f2sub(b4, b5);
+  v[3] = f2add(b6, b7);
+  v[7] = f2sub(b6, b7);
+}
+
+// Kernel A's twiddles: tw2[k1 32 + l] the pass-2 twiddles of lane l (k0 =
+// l & 7, c = 2 (l >> 3) and c + 1): W512^(c (k0 + 8 k1)); tw1[k0 8 + b] =
+// W64^(b k0); each from the float64 sincospi.
+__device__ __forceinline__ void a_twiddles(float4* tw2, float2* tw1) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    const int k1 = i >> 5, l = i & 31;
+    const int m = (l & 7) + 8 * k1, c = 2 * (l >> 3);
+    double s0, c0, s1, c1;
+    sincospi(-(double)((c * m) & 511) / 256.0, &s0, &c0);
+    sincospi(-(double)(((c + 1) * m) & 511) / 256.0, &s1, &c1);
+    tw2[i] = make_float4((float)c0, (float)s0, (float)c1, (float)s1);
+  }
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) {
+    double s, c;
+    sincospi(-(double)((i >> 3) * (i & 7)) / 32.0, &s, &c);
+    tw1[i] = make_float2((float)c, (float)s);
+  }
+}
+
+// Two consecutive samples (even offset) as floats.  int16 without the
+// conversion unit: x + 32768 in the low mantissa bits of 2^23 is exact,
+// so (2^23 + x + 32768) - (2^23 + 32768) = x.
+__device__ __forceinline__ float2 two_samples(const int16_t* p) {
+  const unsigned v = *reinterpret_cast<const unsigned*>(p) ^ 0x80008000u;
+  constexpr float kBias = 8421376.0f;  // 2^23 + 32768
+  return make_float2(__uint_as_float(0x4b000000u | (v & 0xffffu)) - kBias,
+                     __uint_as_float(0x4b000000u | (v >> 16)) - kBias);
+}
+__device__ __forceinline__ float2 two_samples(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// One warp's 512-point transform of z = w (x_a + i x_b), no block barrier:
+// n = 64 a + 8 b + c, k = k0 + 8 k1 + 64 k2, three passes of two 8-point
+// DFTs a lane (over a, then b, then c) with the twiddles W64^(b k0) and
+// W512^(c (k0 + 8 k1)) between them and two transposes through the warp's
+// slot under __syncwarp (rows of 33 float4: no bank conflicts).  Lane l
+// keeps bins l + 64 m and their mirrors 512 - l - 64 m, so it splits the
+// two mics (Z[k] +- conj Z[-k]) in registers and writes mic a's bins
+// 0..255 to slot plane 0, mic b's to plane 1, and bin 256 (real, as bin 0
+// is) to nyq[0], nyq[1].  h0, h1: mic a's hop blocks under the frame (mic
+// b 256 samples after each); two: mic b exists.  Every lane of the warp
+// must call it.
+template <typename T>
+__device__ __forceinline__ void a_transform(float4* slot, float* nyq,
+                                            const T* h0, const T* h1,
+                                            bool two, const float2* win2,
+                                            const float2* tw1,
+                                            const float4* tw2) {
+  const int l = threadIdx.x & 31;
+  float2 z0[8], z1[8];
+  // pass 1: lane l holds n = 64 a + 2 l + e (b = l >> 2), e = 0, 1
 #pragma unroll
-  for (int a = 0; a < N; ++a) {
+  for (int a = 0; a < 8; ++a) {
+    const T* h = (a < 4 ? h0 : h1) + 64 * (a & 3) + 2 * l;
+    const float2 w = win2[32 * a + l];
+    const float2 xa = two_samples(h);
+    const float2 xb = two ? two_samples(h + kHop) : make_float2(0.0f, 0.0f);
+    z0[a] = make_float2(xa.x * w.x, xb.x * w.x);
+    z1[a] = make_float2(xa.y * w.y, xb.y * w.y);
+  }
+  dft8(z0);
+  dft8(z1);
+  const int b = l >> 2;
+  slot[l] = make_float4(z0[0].x, z0[0].y, z1[0].x, z1[0].y);
 #pragma unroll
-    for (int c = a; c < N; ++c, ++idx) {
-      // X_a conj(X_c)
-      const float pr = X[a].re * X[c].re + X[a].im * X[c].im;
-      acc_s[idx].re += ms * pr;
-      acc_n[idx].re += mn * pr;
-      if (c != a) {
-        const float pi = X[a].im * X[c].re - X[a].re * X[c].im;
-        acc_s[idx].im += ms * pi;
-        acc_n[idx].im += mn * pi;
+  for (int k0 = 1; k0 < 8; ++k0) {
+    const float2 w = tw1[8 * k0 + b];
+    const float2 u = f2mul(z0[k0], w), v = f2mul(z1[k0], w);
+    slot[33 * k0 + l] = make_float4(u.x, u.y, v.x, v.y);
+  }
+  __syncwarp();
+  // pass 2: lane l takes k0 = l & 7 and c = 2 q, 2 q + 1 (q = l >> 3)
+  const int k0 = l & 7, q = l >> 3;
+#pragma unroll
+  for (int bb = 0; bb < 8; ++bb) {
+    const float4 v = slot[33 * k0 + 4 * bb + q];
+    z0[bb] = make_float2(v.x, v.y);
+    z1[bb] = make_float2(v.z, v.w);
+  }
+  __syncwarp();
+  dft8(z0);
+  dft8(z1);
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    const float4 w = tw2[32 * k1 + l];
+    const float2 u = f2mul(z0[k1], make_float2(w.x, w.y));
+    const float2 v = f2mul(z1[k1], make_float2(w.z, w.w));
+    slot[33 * k0 + 4 * k1 + q] = make_float4(u.x, u.y, v.x, v.y);
+  }
+  __syncwarp();
+  // pass 3: lane l takes (k0, k1) = (l & 7, l >> 3), bins l + 64 k2, and
+  // its mirror column, bins 64 - l + 64 k2 (lane 0: (0, 4), bins 32 +
+  // 64 k2, and bin 0's own mirrors in its first column)
+  const bool l0 = l == 0;
+  const int m0 = (8 - k0) & 7;
+  const int m1 = l0 ? 4 : (k0 ? 7 - q : 8 - q);
+  const int kb = l0 ? 32 : 64 - l;
+#pragma unroll
+  for (int cp = 0; cp < 4; ++cp) {
+    const float4 u = slot[33 * k0 + 4 * q + cp];
+    const float4 v = slot[33 * m0 + 4 * m1 + cp];
+    z0[2 * cp] = make_float2(u.x, u.y);
+    z0[2 * cp + 1] = make_float2(u.z, u.w);
+    z1[2 * cp] = make_float2(v.x, v.y);
+    z1[2 * cp + 1] = make_float2(v.z, v.w);
+  }
+  __syncwarp();
+  dft8(z0);  // z0[k2] = Z[l + 64 k2]
+  dft8(z1);  // z1[k2] = Z[kb + 64 k2]
+  float2* pa = reinterpret_cast<float2*>(slot);
+  float2* pb = pa + 256;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    // mic a: Z[k] + conj Z[-k]; mic b: -i (Z[k] - conj Z[-k])
+    float2 zk = z0[m];
+    float2 zm = l0 ? z0[(8 - m) & 7] : z1[7 - m];
+    pa[l + 64 * m] = make_float2(zk.x + zm.x, zk.y - zm.y);
+    pb[l + 64 * m] = make_float2(zk.y + zm.y, zm.x - zk.x);
+    zk = z1[m];
+    zm = l0 ? z1[7 - m] : z0[7 - m];
+    pa[kb + 64 * m] = make_float2(zk.x + zm.x, zk.y - zm.y);
+    pb[kb + 64 * m] = make_float2(zk.y + zm.y, zm.x - zk.x);
+  }
+  if (l0) {  // bin 256: Z[256] is its own mirror
+    nyq[0] = z0[4].x + z0[4].x;
+    if (two) nyq[1] = z0[4].y + z0[4].y;
+  }
+}
+
+// Hop blocks q0..q1 of the utterance's N mics into the ring, block q in
+// slot (q + 1) % R: 16-byte cp.async inside the waveform, sample by
+// sample for the reflected blocks -1 and S / 256 (and for every block of a
+// waveform that is not 16-byte aligned).
+template <int N, typename T>
+__device__ __forceinline__ void a_stage(T* ring, const T* __restrict__ x,
+                                        int S, int q0, int q1, bool aligned) {
+  constexpr int R = ALayout<N, T>::R;
+  constexpr int V = 16 / sizeof(T);    // samples a copy
+  constexpr int PER = kHop / V;        // copies a (block, mic)
+  const int last = S / kHop;
+  const int items = (q1 - q0 + 1) * N * PER;
+  for (int i = threadIdx.x; i < items; i += blockDim.x) {
+    const int v = i % PER, m = (i / PER) % N, q = q0 + i / (PER * N);
+    T* dst = ring + ((size_t)((q + 1) % R) * N + m) * kHop + v * V;
+    if (aligned && q >= 0 && q < last) {
+      __pipeline_memcpy_async(dst, x + (size_t)m * S + q * kHop + v * V, 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        int j = q * kHop + v * V + e;
+        if (j < 0) j = -j;
+        else if (j >= S) j = 2 * S - 2 - j;
+        dst[e] = x[(size_t)m * S + j];
+      }
+    }
+  }
+  __pipeline_commit();
+}
+
+// Rows of `n` frames of the mask into the tile's mask buffer at ms + off,
+// off (0..3 floats) chosen so that source and copy share their alignment
+// and all but at most 3 floats at each end move in 16-byte vectors.
+// Returns off.
+__device__ __forceinline__ int a_stage_mask(float* ms,
+                                            const float* __restrict__ rows,
+                                            int n) {
+  const int total = n * kBins;
+  const int off = (int)((reinterpret_cast<uintptr_t>(rows) >> 2) & 3);
+  const int head = min(total, (4 - off) & 3);
+  const int vecs = (total - head) >> 2, tail = head + 4 * vecs;
+  float* dst = ms + off;
+  for (int i = threadIdx.x; i < vecs; i += blockDim.x)
+    __pipeline_memcpy_async(dst + head + 4 * i, rows + head + 4 * i, 16);
+  for (int i = threadIdx.x; i < head + total - tail; i += blockDim.x) {
+    const int e = i < head ? i : tail + i - head;
+    __pipeline_memcpy_async(dst + e, rows + e, 4);
+  }
+  __pipeline_commit();
+  return off;
+}
+
+// Share H's pairs: [lo, hi) of the upper triangle in row order.
+template <int N, int H>
+struct AShare {
+  static constexpr int lo = H * ACfg<N>::NP / ACfg<N>::SH;
+  static constexpr int hi = (H + 1) * ACfg<N>::NP / ACfg<N>::SH;
+};
+
+// f(std::integral_constant<int, h>) for the thread's share h
+// (warp-uniform), so that each share's code indexes its sums with
+// constants and they stay in registers.
+template <int N, int H = 0, typename F>
+__device__ __forceinline__ void with_share(int h, F&& f) {
+  if constexpr (H + 1 < ACfg<N>::SH) {
+    if (h != H) {
+      with_share<N, H + 1>(h, f);
+      return;
+    }
+  }
+  f(std::integral_constant<int, H>{});
+}
+
+// Frames [f0, f1) of the tile added to share H's pairs at bin slot s:
+// Rs += m X X^H, Rn += max(1 - m, 0) X X^H, frame by frame.  spec: the
+// tile's transform slots (frame f's at f P), ms: its mask rows, nyq: its
+// bin-256 rows (kNyq a frame).  Slot 0 is bin 0, whose spectra are real;
+// its thread then adds bin 256's products (also real) to the imaginary
+// parts, which bin 0 leaves at zero.
+template <int N, int H>
+__device__ __forceinline__ void a_accumulate(
+    const float4* spec, const float* ms, const float* nyq, int s, int f0,
+    int f1, cpx (&acc_s)[ACfg<N>::PPS], cpx (&acc_n)[ACfg<N>::PPS]) {
+  constexpr int lo = AShare<N, H>::lo, hi = AShare<N, H>::hi;
+  for (int f = f0; f < f1; ++f) {
+    const float2* sf =
+        reinterpret_cast<const float2*>(spec + f * ACfg<N>::P * kSlot4) + s;
+    cpx X[N];
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      const float2 v = sf[(a >> 1) * 2 * kSlot4 + (a & 1) * 256];
+      X[a] = {v.x, v.y};
+    }
+    const float m = ms[f * kBins + s], mn = fmaxf(1.0f - m, 0.0f);
+    int idx = 0;
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+#pragma unroll
+      for (int c = a; c < N; ++c, ++idx) {
+        if (idx < lo || idx >= hi) continue;
+        const int i = idx - lo;
+        // X_a conj(X_c)
+        const float pr = X[a].re * X[c].re + X[a].im * X[c].im;
+        acc_s[i].re += m * pr;
+        acc_n[i].re += mn * pr;
+        if (c != a) {
+          const float pi = X[a].im * X[c].re - X[a].re * X[c].im;
+          acc_s[i].im += m * pi;
+          acc_n[i].im += mn * pi;
+        }
+      }
+    }
+  }
+  if (s != 0) return;
+  for (int f = f0; f < f1; ++f) {
+    const float* x = nyq + f * kNyq;
+    const float m = ms[f * kBins + kBins - 1], mn = fmaxf(1.0f - m, 0.0f);
+    int idx = 0;
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+#pragma unroll
+      for (int c = a; c < N; ++c, ++idx) {
+        if (idx < lo || idx >= hi) continue;
+        const float pr = x[a] * x[c];
+        acc_s[idx - lo].im += m * pr;
+        acc_n[idx - lo].im += mn * pr;
       }
     }
   }
 }
 
-// One block per (utterance, run of frames); partial pair sums go to
-// part[b, kc, f, 0..2 NP) (Rs pairs, then Rn pairs, upper triangle in
-// row order) and covar_reduce_kernel adds the runs in a fixed order.
-template <int N, typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-stft_covar_kernel(const T* __restrict__ wav, const float* __restrict__ mask,
-                  const float* __restrict__ window, float2* __restrict__ part,
-                  int S, int n_frames, int frames_per_block) {
-  constexpr int P = (N + 1) / 2;
-  constexpr int NP = N * (N + 1) / 2;
-  __shared__ float2 buf[2 * P * kStride];
-  __shared__ float2 tw[kNfft / 2];
-  __shared__ float win[kNfft];
-  const int b = blockIdx.x;
-  const int kc = blockIdx.y;
-  const int t0 = kc * frames_per_block;
-  const int t1 = min(n_frames, t0 + frames_per_block);
-  const int k = threadIdx.x;  // the bin this thread accumulates
-  init_tables(tw, win, window);
-  const T* x = wav + (size_t)b * N * S;
-  const float* mrow = mask + (size_t)b * n_frames * kBins;
-
-  cpx acc_s[NP], acc_n[NP];
+// Share H's sums of a segment that ends inside the block, straight to
+// its row os of part (B, segments, 257, N (N+1)), then zeroed.
+template <int N, int H>
+__device__ __forceinline__ void a_write(int s, cpx (&acc_s)[ACfg<N>::PPS],
+                                        cpx (&acc_n)[ACfg<N>::PPS],
+                                        float2* os) {
+  constexpr int NP = ACfg<N>::NP;
+  constexpr int lo = AShare<N, H>::lo, hi = AShare<N, H>::hi;
+  int idx = 0;
 #pragma unroll
-  for (int i = 0; i < NP; ++i) acc_s[i] = acc_n[i] = {0.0f, 0.0f};
-
-  // two frames per pass: one chain of FFT barriers transforms both
-  for (int t = t0; t < t1; t += 2) {
-    const bool two = t + 1 < t1;
-    __syncthreads();  // tables ready / last pass's spectra consumed
-    load_frame<N, T>(buf, x, win, S, t);
-    if (two) load_frame<N, T>(buf + P * kStride, x, win, S, t + 1);
-    fft512<2 * P, false>(buf, tw);
-    if (k < kBins) {
-      accumulate_bin<N>(buf, k, mrow[(size_t)t * kBins + k], acc_s, acc_n);
-      if (two)
-        accumulate_bin<N>(buf + P * kStride, k,
-                          mrow[(size_t)(t + 1) * kBins + k], acc_s, acc_n);
+  for (int a = 0; a < N; ++a) {
+#pragma unroll
+    for (int c = a; c < N; ++c, ++idx) {
+      if (idx < lo || idx >= hi) continue;
+      const int i = idx - lo;
+      // slot 0: bin 0 from the real parts, bin 256 from the imaginary
+      if (s == 0) {
+        os[idx] = make_float2(acc_s[i].re, 0.0f);
+        os[NP + idx] = make_float2(acc_n[i].re, 0.0f);
+        os[(size_t)(kBins - 1) * 2 * NP + idx] = make_float2(acc_s[i].im,
+                                                             0.0f);
+        os[(size_t)(kBins - 1) * 2 * NP + NP + idx] =
+            make_float2(acc_n[i].im, 0.0f);
+      } else {
+        os[(size_t)s * 2 * NP + idx] = make_float2(acc_s[i].re, acc_s[i].im);
+        os[(size_t)s * 2 * NP + NP + idx] =
+            make_float2(acc_n[i].re, acc_n[i].im);
+      }
+      acc_s[i] = acc_n[i] = {0.0f, 0.0f};
     }
   }
-  if (k >= kBins) return;
-  float2* out = part + (((size_t)b * gridDim.y + kc) * kBins + k) * 2 * NP;
+}
+
+// One kind (Rs or Rn) of share H's sums into the block's staging rows,
+// bin k's at stage + k ws: each pair at its row-order index or, DIRECT, at
+// a N + c with its conjugate at c N + a.
+template <int N, int H, bool DIRECT>
+__device__ __forceinline__ void a_stage_sums(int s,
+                                             const cpx (&acc)[ACfg<N>::PPS],
+                                             float2* stage, int ws) {
+  constexpr int lo = AShare<N, H>::lo, hi = AShare<N, H>::hi;
+  int idx = 0;
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    out[i] = make_float2(acc_s[i].re, acc_s[i].im);
-    out[NP + i] = make_float2(acc_n[i].re, acc_n[i].im);
+  for (int a = 0; a < N; ++a) {
+#pragma unroll
+    for (int c = a; c < N; ++c, ++idx) {
+      if (idx < lo || idx >= hi) continue;
+      const cpx v = acc[idx - lo];
+      // slot 0: bin 0 from the real parts, bin 256 from the imaginary
+      for (int r = 0; r < (s == 0 ? 2 : 1); ++r) {
+        float2* row = stage + (r ? kBins - 1 : s) * ws;
+        const float2 e = s != 0 ? make_float2(v.re, v.im)
+                                : make_float2(r ? v.im : v.re, 0.0f);
+        if (DIRECT) {
+          row[a * N + c] = e;
+          if (c != a) row[c * N + a] = make_float2(e.x, -e.y);
+        } else {
+          row[idx] = e;
+        }
+      }
+    }
+  }
+}
+
+// One kind of the block's last segment out through shared memory: staged
+// by bin, then copied in order, neighbouring threads on neighbouring
+// entries.  dst: the kind's first entry of bin 0; a bin's W entries there,
+// rows ROW apart.
+template <int N, bool DIRECT>
+__device__ __forceinline__ void a_write_kind(int h, int s,
+                                             const cpx (&acc)[ACfg<N>::PPS],
+                                             float2* stage, float2* dst) {
+  constexpr int W = DIRECT ? N * N : ACfg<N>::NP;
+  constexpr int WS = W | 1;  // odd: a warp's rows in distinct banks
+  constexpr int ROW = DIRECT ? N * N : 2 * ACfg<N>::NP;
+  static_assert((size_t)kBins * WS * 8 <= (size_t)ACfg<N>::W * kSlot4 * 16,
+                "the staging rows fit in the transform slots");
+  __syncthreads();  // the slots are free
+  with_share<N>(h, [&](auto H) {
+    a_stage_sums<N, decltype(H)::value, DIRECT>(s, acc, stage, WS);
+  });
+  __syncthreads();
+  for (int e = threadIdx.x; e < kBins * W; e += blockDim.x) {
+    const int k = e / W, j = e - k * W;
+    dst[(size_t)k * ROW + j] = stage[k * WS + j];
+  }
+}
+
+// Kernel A.  Block (x, b) sums segments [x spb, min(n_segs, (x + 1) spb))
+// of `seg` frames each of utterance b (frames [c seg, min(T, (c + 1) seg))
+// for segment c) and writes each segment's pair sums: part (B, n_segs,
+// 257, N (N+1)) at out_s (Rs pairs, then Rn pairs, upper triangle in row
+// order) or, direct (one segment an utterance), the full Rs, Rn (B, 257,
+// N, N) at out_s, out_n.  Each thread owns the pairs of share h = warp / 8
+// at bin slot s; the sums of a segment are frames in order, so the result
+// does not depend on the launch.
+template <int N, typename T>
+__global__ void __launch_bounds__(ACfg<N>::THREADS, ACfg<N>::MIN_BLOCKS)
+stft_covar_kernel(const T* __restrict__ wav, const float* __restrict__ mask,
+                  const float* __restrict__ window, float2* __restrict__ out_s,
+                  float2* __restrict__ out_n, int S, int n_frames, int seg,
+                  int spb, int n_segs, int aligned, int direct) {
+  using C = ACfg<N>;
+  using L = ALayout<N, T>;
+  extern __shared__ float4 a_smem[];
+  char* sm = reinterpret_cast<char*>(a_smem);
+  float4* spec = reinterpret_cast<float4*>(sm + L::spec);
+  float4* tw2 = reinterpret_cast<float4*>(sm + L::tw2);
+  float2* tw1 = reinterpret_cast<float2*>(sm + L::tw1);
+  float* win = reinterpret_cast<float*>(sm + L::win);
+  float* ms = reinterpret_cast<float*>(sm + L::mask);
+  float* nyq = reinterpret_cast<float*>(sm + L::nyq);
+  T* ring = reinterpret_cast<T*>(sm + L::ring);
+  A_PHASE_START;
+  const int b = blockIdx.y;
+  const int c_lo = blockIdx.x * spb, c_hi = min(n_segs, c_lo + spb);
+  const int t_begin = min(n_frames, c_lo * seg);
+  const int t_end = min(n_frames, c_hi * seg);
+  const int warp = threadIdx.x >> 5;
+  const int h = warp >> 3;
+  // slot 0 of each share in a warp of its own scheduler (h << 5)
+  const int s = (threadIdx.x & 255) ^ (h << 5);
+  const int f_job = warp / C::P, p_job = warp - f_job * C::P;
+  const bool two = 2 * p_job + 1 < N;
+  const T* x = wav + (size_t)b * N * S;
+  const float* mrows = mask + (size_t)b * n_frames * kBins;
+  float2* os = direct ? out_s + (size_t)b * kBins * N * N
+                      : out_s + (size_t)b * n_segs * kBins * 2 * C::NP;
+  float2* on = direct ? out_n + (size_t)b * kBins * N * N : nullptr;
+  const size_t seg_stride = direct ? 0 : (size_t)kBins * 2 * C::NP;
+
+  cpx acc_s[C::PPS], acc_n[C::PPS];
+#pragma unroll
+  for (int i = 0; i < C::PPS; ++i) acc_s[i] = acc_n[i] = {0.0f, 0.0f};
+  a_twiddles(tw2, tw1);
+  // 0.5: the two-mic split's halves folded into the window
+  for (int i = threadIdx.x; i < kNfft; i += blockDim.x)
+    win[i] = 0.5f * window[i];
+  if (t_begin < t_end)
+    a_stage<N, T>(ring, x, S, t_begin - 1, min(t_end, t_begin + C::TF) - 1,
+                  aligned);
+  A_PHASE(0);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  A_PHASE(2);
+  int cur = c_lo;  // the segment being summed
+  for (int t0 = t_begin; t0 < t_end; t0 += C::TF) {
+    const int nv = min(C::TF, t_end - t0);
+    const float* mt = ms + a_stage_mask(ms, mrows + (size_t)t0 * kBins, nv);
+    A_PHASE(0);
+    {
+      // frame t0 + f_job (past the range in a short last tile: transformed
+      // from stale samples and never read)
+      const int t = t0 + f_job;
+      const T* h0 = ring + ((size_t)(t % L::R) * N + 2 * p_job) * kHop;
+      const T* h1 = ring + ((size_t)((t + 1) % L::R) * N + 2 * p_job) * kHop;
+      a_transform<T>(spec + warp * kSlot4, nyq + f_job * kNyq + 2 * p_job,
+                     h0, h1, two, reinterpret_cast<const float2*>(win), tw1,
+                     tw2);
+    }
+    A_PHASE(1);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // spectra whole, mask landed, ring read
+    A_PHASE(2);
+    if (t0 + C::TF < t_end)
+      a_stage<N, T>(ring, x, S, t0 + C::TF,
+                    min(t_end, t0 + 2 * C::TF) - 1, aligned);
+    A_PHASE(0);
+    // the tile's frames in runs that end where a segment ends
+    for (int f = 0; f < nv;) {
+      const int end = min(nv, (cur + 1) * seg - t0);
+      with_share<N>(h, [&](auto H) {
+        a_accumulate<N, decltype(H)::value>(spec, mt, nyq, s, f, end, acc_s,
+                                            acc_n);
+      });
+      f = end;
+      if (t0 + f == (cur + 1) * seg && t0 + f < t_end) {  // cur complete
+        A_PHASE(3);
+        with_share<N>(h, [&](auto H) {
+          a_write<N, decltype(H)::value>(s, acc_s, acc_n,
+                                         os + cur * seg_stride);
+        });
+        ++cur;
+        A_PHASE(4);
+      }
+    }
+    A_PHASE(3);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // spectra and mask consumed, next samples landed
+    A_PHASE(2);
+  }
+  // the block's last segment (zeros for a run past the utterance's end)
+  float2* stage = reinterpret_cast<float2*>(spec);
+  if (direct) {
+    a_write_kind<N, true>(h, s, acc_s, stage, os);
+    a_write_kind<N, true>(h, s, acc_n, stage, on);
+  } else {
+    a_write_kind<N, false>(h, s, acc_s, stage, os + cur * seg_stride);
+    a_write_kind<N, false>(h, s, acc_n, stage,
+                           os + cur * seg_stride + C::NP);
+  }
+  A_PHASE(4);
+  A_PHASE_END;
+}
+
+// Test entry's kernel: a_transform on windowed frames, one warp a pair of
+// rows; spec (count, 2, 257) complex64.
+template <typename T>
+__global__ void stft_covar_transform_kernel(const T* __restrict__ frames,
+                                            float2* __restrict__ spec) {
+  __shared__ float4 slot[kSlot4];
+  __shared__ float4 tw2[256];
+  __shared__ float2 tw1[64];
+  __shared__ float win[kNfft];
+  __shared__ T rows[2 * kNfft];  // hop blocks 0, 1 of rows a, b
+  __shared__ float nyq[2];
+  const T* fr = frames + (size_t)blockIdx.x * 2 * kNfft;
+  for (int i = threadIdx.x; i < 2 * kNfft; i += blockDim.x) {
+    const int r = i >> 9, n = i & (kNfft - 1);
+    rows[(n >> 8) * 2 * kHop + r * kHop + (n & (kHop - 1))] = fr[i];
+  }
+  a_twiddles(tw2, tw1);
+  for (int i = threadIdx.x; i < kNfft; i += blockDim.x) win[i] = 0.5f;
+  __syncthreads();
+  a_transform<T>(slot, nyq, rows, rows + 2 * kHop, true,
+                     reinterpret_cast<const float2*>(win), tw1, tw2);
+  __syncwarp();
+  const float2* p = reinterpret_cast<const float2*>(slot);
+  float2* out = spec + (size_t)blockIdx.x * 2 * kBins;
+  for (int i = threadIdx.x; i < 2 * kBins; i += blockDim.x) {
+    const int r = i / kBins, k = i - r * kBins;
+    out[i] = k == kBins - 1 ? make_float2(nyq[r], 0.0f) : p[r * 256 + k];
   }
 }
 
@@ -504,6 +1059,46 @@ beamform_istft_online_kernel(const T* __restrict__ wav,
                                   nblk_out, chunk, n_chunks);
 }
 
+template <typename K>
+int a_opt_in(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Kernel A's blocks an SM and the current device's SMs.
+template <int N, typename T>
+int a_occupancy(int* per_sm, int* sms) {
+  int err = a_opt_in(stft_covar_kernel<N, T>, ALayout<N, T>::bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, stft_covar_kernel<N, T>, ACfg<N>::THREADS,
+      ALayout<N, T>::bytes);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <int N, typename T>
+int a_launch(const T* x, const float* mask, const float* window,
+             float2* out_s, float2* out_n, int B, int S, int seg, int spb,
+             int n_segs, int direct, cudaStream_t st) {
+  using L = ALayout<N, T>;
+  const int err = a_opt_in(stft_covar_kernel<N, T>, L::bytes);
+  if (err != cudaSuccess) return err;
+  const int aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const dim3 grid((n_segs + spb - 1) / spb, B);
+  stft_covar_kernel<N, T><<<grid, ACfg<N>::THREADS, L::bytes, st>>>(
+      x, mask, window, out_s, out_n, S, S / kHop + 1, seg, spb, n_segs,
+      aligned, direct);
+  return cudaGetLastError();
+}
+
+// Offline: K runs of ceil(T / K) frames, a block each.  One run writes Rs,
+// Rn itself; more are added by covar_reduce_kernel in run order.
 template <typename T>
 int launch_a(const void* wav, const float* mask, const float* window,
              float2* part, float2* rs, float2* rn, int B, int N, int S,
@@ -511,42 +1106,81 @@ int launch_a(const void* wav, const float* mask, const float* window,
   const int nf = S / kHop + 1;
   const int per = (nf + K - 1) / K;
   const T* x = static_cast<const T*>(wav);
-  dim3 grid(B, K);
+  const int direct = K == 1;
   const int rblocks = (B * kBins + 127) / 128;
+  int err = cudaSuccess;
   switch (N) {
-#define CASE(n)                                                              \
-  case n:                                                                    \
-    stft_covar_kernel<n, T><<<grid, kThreads, 0, st>>>(x, mask, window,     \
-                                                       part, S, nf, per);    \
-    covar_reduce_kernel<n><<<rblocks, 128, 0, st>>>(part, rs, rn, B, K);     \
+#define CASE(n)                                                             \
+  case n:                                                                   \
+    err = a_launch<n, T>(x, mask, window, direct ? rs : part,               \
+                         direct ? rn : nullptr, B, S, per, 1, K, direct,    \
+                         st);                                               \
+    if (err == cudaSuccess && !direct)                                      \
+      covar_reduce_kernel<n><<<rblocks, 128, 0, st>>>(part, rs, rn, B, K);  \
     break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Kernel A alone with one run of `chunk` frames per block: part holds the
-// per-chunk numerators, nothing is reduced.
+// Chunks a block of the per-chunk entry: up to 32 frames a block, fewer
+// when the batch's chunks would not fill every SM's blocks.
+int a_chunks_a_block(int B, int n_chunks, int chunk, int slots) {
+  const int cap = max(1, 32 / chunk);
+  const long long want = ((long long)B * n_chunks + slots - 1) / slots;
+  return (int)max(1LL, min((long long)cap, want));
+}
+
+// Kernel A alone, per chunk of frames: part holds the per-chunk
+// numerators, nothing is reduced.
 template <typename T>
 int launch_a_chunks(const void* wav, const float* mask, const float* window,
                     float2* part, int B, int N, int S, int chunk,
                     cudaStream_t st) {
   const int nf = S / kHop + 1;
+  const int n_chunks = (nf + chunk - 1) / chunk;
   const T* x = static_cast<const T*>(wav);
-  dim3 grid(B, (nf + chunk - 1) / chunk);
+  int per_sm = 0, sms = 0, err = cudaSuccess;
   switch (N) {
 #define CASE(n)                                                              \
   case n:                                                                    \
-    stft_covar_kernel<n, T><<<grid, kThreads, 0, st>>>(x, mask, window,     \
-                                                       part, S, nf, chunk);  \
+    err = a_occupancy<n, T>(&per_sm, &sms);                                  \
+    if (err == cudaSuccess)                                                  \
+      err = a_launch<n, T>(                                                  \
+          x, mask, window, part, nullptr, B, S, chunk,                       \
+          a_chunks_a_block(B, n_chunks, chunk, max(1, per_sm * sms)),        \
+          n_chunks, 0, st);                                                  \
     break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+  return err;
+}
+
+// Kernel A's shape for N mics: blocks an SM, threads a block, frames a
+// tile, shared memory bytes, the device's SMs.
+template <typename T>
+int a_layout(int N, int* out) {
+  int per_sm = 0, sms = 0, err = cudaErrorInvalidValue;
+  switch (N) {
+#define CASE(n)                                  \
+  case n:                                        \
+    err = a_occupancy<n, T>(&per_sm, &sms);      \
+    out[1] = ACfg<n>::THREADS;                   \
+    out[2] = ACfg<n>::TF;                        \
+    out[3] = (int)ALayout<n, T>::bytes;          \
+    break;
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
+  out[0] = per_sm;
+  out[4] = sms;
+  return err;
 }
 
 // chunk <= 0: offline kernel B; else the online kernel with one weight row
@@ -586,7 +1220,8 @@ bool geometry_ok(int B, int N, int S) {
 // wav (B, N, S) int16 (is_int16 = 1) or float32; mask (B, S/256+1, 257)
 // f32; window (512,) f32 analysis window with any input scale folded in;
 // part (B, K, 257, N (N+1)) complex64 scratch for K runs of frames
-// (1 <= K <= S/256+1); rs, rn (B, 257, N, N) complex64 numerators.
+// (1 <= K <= S/256+1; not read at K = 1); rs, rn (B, 257, N, N) complex64
+// numerators.
 extern "C" int stft_covar_launch(const void* wav, const void* mask,
                                  const void* window, void* part, void* rs,
                                  void* rn, int B, int N, int S, int K,
@@ -639,6 +1274,34 @@ extern "C" int stft_covar_chunks_launch(const void* wav, const void* mask,
              ? launch_a_chunks<int16_t>(wav, m, win, pt, B, N, S, chunk, st)
              : launch_a_chunks<float>(wav, m, win, pt, B, N, S, chunk, st);
 }
+
+// Kernel A's shape for N mics and the input type: out[0] blocks an SM,
+// out[1] threads a block, out[2] frames a tile, out[3] shared memory
+// bytes, out[4] the current device's SMs.
+extern "C" int stft_covar_layout(int N, int is_int16, int* out) {
+  return is_int16 ? a_layout<int16_t>(N, out) : a_layout<float>(N, out);
+}
+
+// Tests: kernel A's transform alone.  frames (count, 2, 512) f32, already
+// windowed; spec (count, 2, 257) complex64, the real DFT of each row.
+extern "C" int stft_covar_transform_launch(const void* frames, void* spec,
+                                           int count, void* stream) {
+  if (count < 1) return cudaErrorInvalidValue;
+  stft_covar_transform_kernel<float><<<count, 32, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(frames), static_cast<float2*>(spec));
+  return cudaGetLastError();
+}
+
+#ifdef SETK_FUSED_PHASES
+// the phase counters of the instrumented build: read (5 values) and zero
+extern "C" int fused_phase_read(unsigned long long* out) {
+  int err = cudaMemcpyFromSymbol(out, g_fused_phase, 5 * 8);
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero[5] = {};
+  return cudaMemcpyToSymbol(g_fused_phase, zero, 5 * 8);
+}
+#endif
 
 // part as above for T frames, mask (B, T, 257) f32 -> es, en
 // (B, C, 257, N, N) complex64, the EMA state after each chunk.

@@ -55,6 +55,8 @@ _SIGNATURES = {
         "covar_ema_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
         "beamform_istft_online_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _P],
+        "stft_covar_layout": [_I, _I, _P],
+        "stft_covar_transform_launch": [_P, _P, _I, _P],
     },
     "planar_stft": {
         "stft_planar_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

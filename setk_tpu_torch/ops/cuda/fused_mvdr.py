@@ -15,9 +15,11 @@ The online (chunked EMA) pair, counterpart of ``stft_covar_online_pallas``
 and ``beamform_istft_online_pallas``, in three launches (the MVDR solve
 between them is ``ops/cuda/mvdr.mvdr_power`` on every chunk's state):
 
-  kernel A per chunk (stft_covar_chunks): one run of ``chunk`` frames per
-            block -> per-chunk numerators (B, C, 257, N (N+1)) complex64,
-            Rs pairs then Rn pairs of the upper triangle in row order;
+  kernel A per chunk (stft_covar_chunks): each chunk of ``chunk`` frames
+            summed on its own (a block takes one chunk or, for short
+            chunks, several) -> per-chunk numerators (B, C, 257, N (N+1))
+            complex64, Rs pairs then Rn pairs of the upper triangle in row
+            order;
   covar_ema: the chunk sums normalized by the chunk's mask sums and
             carried as E <- alpha E + (1 - alpha) R_c (the first chunk
             initializes) -> Es, En (B, C, 257, N, N) complex64;
@@ -33,6 +35,7 @@ enters as is, with 1/32768 folded into the analysis window.  Each
 kernel has a plain PyTorch version of the same function beside it.
 """
 
+import ctypes
 import math
 
 import torch
@@ -217,12 +220,36 @@ def _launch(fn: str, device: torch.device, *args) -> None:
     _build.launch("fused_mvdr", fn, device, *args)
 
 
-def _frame_runs(batch: int, n_frames: int, device: torch.device) -> int:
-    """Runs of frames kernel A splits each utterance into: the most that
-    keep every block in one wave at two blocks per SM (its register
-    budget), with at least 16 frames a run."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(2 * sms // batch, n_frames // 16))
+_LAYOUTS = {}
+
+
+def kernel_a_layout(num_mics: int, int16: bool, device: torch.device) -> dict:
+    """Kernel A's shape on ``device`` for ``num_mics`` mics: blocks an SM,
+    threads a block, frames a tile, shared memory bytes and the SMs."""
+    key = (device.index, num_mics, int16)
+    if key not in _LAYOUTS:
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(device):
+            _build.check(_build.library("fused_mvdr").stft_covar_layout(
+                num_mics, int(int16), ctypes.addressof(out)),
+                "stft_covar_layout")
+        _LAYOUTS[key] = dict(zip(("blocks_per_sm", "threads",
+                                  "frames_a_tile", "smem_bytes", "sms"),
+                                 out))
+    return _LAYOUTS[key]
+
+
+def frame_runs(batch: int, n_frames: int, slots: int, tile: int) -> int:
+    """Runs of frames kernel A splits each utterance into, a block each:
+    the fewest that fill the card's ``slots`` (blocks an SM x SMs) as well
+    as any count does, each run at least one tile of ``tile`` frames."""
+    most = max(1, min(-(-2 * slots // batch), n_frames // tile))
+
+    def filled(k):
+        blocks = batch * k
+        return blocks / (-(-blocks // slots) * slots)
+
+    return max(range(1, most + 1), key=lambda k: (filled(k), -k))
 
 
 def stft_covar(wav: torch.Tensor, mask: torch.Tensor,
@@ -239,7 +266,9 @@ def stft_covar(wav: torch.Tensor, mask: torch.Tensor,
     _check("mask", mask, wav.device, torch.float32, (b, t, BINS))
     _check("window", window, wav.device, torch.float32, (NFFT,))
     win = (window * input_scale(wav)).contiguous()
-    runs = _frame_runs(b, t, wav.device)
+    layout = kernel_a_layout(n, wav.dtype == torch.int16, wav.device)
+    runs = frame_runs(b, t, layout["blocks_per_sm"] * layout["sms"],
+                      layout["frames_a_tile"])
     part = torch.empty((b, runs, BINS, n * (n + 1)), dtype=torch.complex64,
                        device=wav.device)
     rs = torch.empty((b, BINS, n, n), dtype=torch.complex64,

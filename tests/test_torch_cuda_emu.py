@@ -168,6 +168,123 @@ def test_stft_covar_chunks_source_matches_plain(libs, b, n, s, int16, chunk):
     assert _rel(part, ref) < TOL
 
 
+# kernel A's tiles and segments: N = 1, 2, 5, 7 and 8 (odd N: the last
+# transform carries one mic), T = 3 (S = 512), T that leaves the last
+# tile of 8 frames (4 at N = 3) short, run counts that do not divide T
+# (T = 9 in 4 runs of 3: the last run is empty and written as zeros), one
+# run (Rs, Rn written by kernel A itself) and a waveform and mask that are
+# not 16-byte aligned (the samples copied one by one, the mask's ends)
+KERNEL_A = [(1, 1, 4096, True, 1, 0), (1, 2, 512, False, 1, 0),
+            (1, 2, 512, True, 3, 0), (1, 5, 5120, True, 3, 0),
+            (1, 8, 3072, False, 2, 0), (2, 5, 2560, False, 4, 0),
+            (1, 7, 4096, True, 5, 0), (1, 3, 2048, True, 4, 0),
+            (1, 5, 4096, True, 2, 1), (1, 8, 2560, False, 1, 1)]
+
+
+def _kernel_a_inputs(b, n, s, int16, offset, seed):
+    """_inputs with the waveform and the mask ``offset`` elements into
+    their storage."""
+    cfg, wav, mask = _inputs(b, n, s, int16, seed)
+    if offset:
+        def shifted(x):
+            store = torch.zeros(offset + x.numel(), dtype=x.dtype)
+            store[offset:] = x.reshape(-1)
+            return store[offset:].view(x.shape)
+        wav, mask = shifted(wav), shifted(mask)
+        assert wav.data_ptr() % 16 != 0 and mask.data_ptr() % 16 != 0
+    return cfg, wav, mask
+
+
+@pytest.mark.parametrize("b,n,s,int16,runs,offset", KERNEL_A)
+def test_kernel_a_tiles_and_runs_match_plain(libs, b, n, s, int16, runs,
+                                             offset):
+    cfg, wav, mask = _kernel_a_inputs(b, n, s, int16, offset, seed=n + runs)
+    window = torch.as_tensor(cfg.padded_window)
+    win = (window * fm.input_scale(wav)).contiguous()
+    part = torch.empty((b, runs, 257, n * (n + 1)), dtype=torch.complex64)
+    rs = torch.empty((b, 257, n, n), dtype=torch.complex64)
+    rn = torch.empty_like(rs)
+    assert libs["fused_mvdr"].stft_covar_launch(
+        wav.data_ptr(), mask.data_ptr(), win.data_ptr(), part.data_ptr(),
+        rs.data_ptr(), rn.data_ptr(), b, n, s, runs, int(int16), None) == 0
+    rs_p, rn_p = fm.stft_covar_plain(wav, mask, window)
+    assert _rel(rs, rs_p) < TOL and _rel(rn, rn_p) < TOL
+
+
+# the per-chunk entry: chunks 1, 5, 24 and 64, a chunk larger than T
+# (T = 3 and T = 17), chunks that end inside a tile and blocks that take
+# several chunks (chunk 3 at T = 33: two chunks a block on the emulated
+# card's 6 SMs), an unaligned waveform and mask
+KERNEL_A_CHUNKS = [(1, 1, 2048, True, 1, 0), (1, 5, 4096, False, 5, 0),
+                   (1, 8, 6144, True, 24, 0), (2, 2, 4096, False, 64, 0),
+                   (1, 6, 512, True, 5, 0), (1, 4, 8192, True, 3, 0),
+                   (1, 7, 2560, False, 5, 1)]
+
+
+@pytest.mark.parametrize("b,n,s,int16,chunk,offset", KERNEL_A_CHUNKS)
+def test_kernel_a_chunks_match_plain(libs, b, n, s, int16, chunk, offset):
+    cfg, wav, mask = _kernel_a_inputs(b, n, s, int16, offset, seed=n + chunk)
+    window = torch.as_tensor(cfg.padded_window)
+    win = (window * fm.input_scale(wav)).contiguous()
+    part = torch.empty((b, fm.num_chunks(cfg.num_frames(s), chunk), 257,
+                        n * (n + 1)), dtype=torch.complex64)
+    assert libs["fused_mvdr"].stft_covar_chunks_launch(
+        wav.data_ptr(), mask.data_ptr(), win.data_ptr(), part.data_ptr(), b,
+        n, s, chunk, int(int16), None) == 0
+    ref = fm.stft_covar_chunks_plain(wav, mask, window, chunk)
+    assert _rel(part, ref) < TOL
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_a_transform_matches_rfft(libs, seed):
+    """Kernel A's warp transform alone (stft_covar_transform_launch) on
+    windowed rows: five pairs of rows, a pair a warp, the two rows of a
+    pair split from one complex transform; an impulse at sample 1 and a
+    constant row in the first pair."""
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((5, 2, 512)).astype(np.float32)
+    frames[0, 0] = 0.0
+    frames[0, 0, 1] = 1.0
+    frames[0, 1] = 0.25
+    frames = torch.from_numpy(frames)
+    spec = torch.empty((5, 2, 257), dtype=torch.complex64)
+    assert libs["fused_mvdr"].stft_covar_transform_launch(
+        frames.data_ptr(), spec.data_ptr(), 5, None) == 0
+    ref = torch.fft.rfft(frames.double(), dim=-1)
+    assert _rel(spec.to(torch.complex128), ref) < TOL
+
+
+@pytest.mark.parametrize("n", range(0, 10))
+def test_kernel_a_layout(libs, n):
+    """stft_covar_layout: one transform a warp a tile, the pair shares a
+    thread each at every bin slot, within the card's 227 KB; N outside
+    1..8 refused."""
+    out = (ctypes.c_int * 5)()
+    for int16 in (1, 0):
+        err = libs["fused_mvdr"].stft_covar_layout(n, int16,
+                                                   ctypes.addressof(out))
+        if not 1 <= n <= 8:
+            assert err != 0
+            continue
+        assert err == 0
+        per_sm, threads, tile, smem, sms = out
+        warps, pairs = threads // 32, (n + 1) // 2
+        assert threads % 256 == 0 and tile * pairs == warps
+        shares = threads // 256
+        assert -(-(n * (n + 1) // 2) // shares) <= 9
+        assert smem <= EMU_SMEM and per_sm >= 1 and sms == EMU_SMS
+
+
+@pytest.mark.parametrize("batch,frames,want", [
+    (128, 501, 1), (64, 501, 2), (100, 501, 1), (1, 501, 62), (1, 251, 31),
+    (3, 20, 2), (200, 501, 1), (33, 501, 4)])
+def test_kernel_a_runs_fill_the_card(batch, frames, want):
+    """Runs of frames a block each: the fewest that fill 132 SMs' blocks
+    (one block an SM) as well as any count, a tile of 8 frames a run at
+    least."""
+    assert fm.frame_runs(batch, frames, 132, 8) == want
+
+
 @pytest.mark.parametrize("b,n,s,int16,chunk", ONLINE)
 def test_covar_ema_source_matches_plain(libs, b, n, s, int16, chunk):
     cfg, _, mask = _inputs(b, n, s, int16, seed=chunk)

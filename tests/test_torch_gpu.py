@@ -160,6 +160,41 @@ def test_online_kernels_match_plain(chunk, s):
     assert _rel(out_k, out_p) < TOL
 
 
+@pytest.mark.parametrize("n,s,int16,chunk,offset", [
+    (5, 8192, True, None, 0), (7, 4096, False, 5, 1), (2, 512, True, 1, 0),
+    (4, 20480, False, 3, 1), (8, 2560, True, 64, 1)])
+def test_kernel_a_shapes_match_plain(n, s, int16, chunk, offset):
+    """Kernel A at odd N, T = 3, chunks that end inside a tile, a chunk
+    larger than T and a waveform and mask off 16-byte alignment."""
+    dev = _card()
+    cfg, wav, mask = _inputs(3, n, s, int16, seed=n)
+
+    def on_card(x):
+        flat = np.concatenate([np.zeros(offset, x.dtype), x.ravel()])
+        return torch.from_numpy(flat).to(dev)[offset:].view(x.shape)
+    wav_d, mask_d = on_card(wav), on_card(mask)
+    window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
+                             device=dev)
+    if chunk is None:
+        got = torch.cat(fm.stft_covar(wav_d, mask_d, window), -1)
+        ref = torch.cat(fm.stft_covar_plain(wav_d, mask_d, window), -1)
+    else:
+        got = fm.stft_covar_chunks(wav_d, mask_d, window, chunk)
+        ref = fm.stft_covar_chunks_plain(wav_d, mask_d, window, chunk)
+    assert _rel(got, ref) < TOL
+
+
+def test_kernel_a_layout_on_the_card():
+    """At the recipes' 6 mics kernel A is one block of 768 threads an SM,
+    so a batch of 128 utterances runs one run of frames each."""
+    dev = _card()
+    lay = fm.kernel_a_layout(6, True, dev)
+    assert lay["threads"] == 768 and lay["frames_a_tile"] == 8
+    assert lay["blocks_per_sm"] >= 1
+    slots = lay["blocks_per_sm"] * lay["sms"]
+    assert fm.frame_runs(128, 501, slots, 8) == (1 if slots >= 128 else 2)
+
+
 @pytest.mark.parametrize("b,s,chunk", [(2, 16384, 32), (2, 16384, 24),
                                        (1, 64000, 32)])
 def test_online_enhance_batch_runs_kernels_only(b, s, chunk):
