@@ -16,7 +16,10 @@ the CUDA toolkit.  In order it:
      kernel A also at N = 1, 2, 5 and 8, int16 and f32 (an f32 waveform
      off 16-byte alignment), many runs an utterance, S = 512, and per
      chunk at chunks 1, 5 and 64; prints kernel A's registers and spills
-     at N = 6 and 8 (step 2) and its layout;
+     at N = 6 and 8 (step 2) and its layout; kernel B, offline and online,
+     also at N = 1, 2, 5, 6 and 8, int16 and unaligned f32, B = 1 at
+     S = 512, many runs an utterance and chunks 1, 3, 5 and 32, with its
+     registers, spills and layout (step 2);
   4. runs BatchEnhancer(device="cuda", batch_size=128) over 128 keyed
      8 s utterances and a few other lengths (buckets of T = 513, 449 and
      193 frames), with the launch counts set to 0 just before and read
@@ -255,13 +258,11 @@ def _bound(nbytes: float, flops: float):
 
 
 # Operation counts of the kernels' own algorithms (see the notes in
-# setk_tpu_torch/csrc): a 512-point complex radix-2 FFT (kernel B) is 9
-# stages x 256 butterflies x 10 FLOP; kernel A's radix-8 transform is 3
-# passes x 64 8-point DFTs x 56 FLOP (52 additions, 4 multiplications)
-# and the twiddles that are not 1 (49 x 8 of W64^(b k0) after the first
-# pass, 7 x 63 of W512^(c (k0 + 8 k1)) after the second) at 6 FLOP; each
-# transform carries two mics.
-FFT512_FLOP = 9 * 256 * 10
+# setk_tpu_torch/csrc): kernels A and B's radix-8 transform is 3 passes x
+# 64 8-point DFTs x 56 FLOP (52 additions, 4 multiplications) and the
+# twiddles that are not 1 (49 x 8 of W64^(b k0) after the first pass,
+# 7 x 63 of W512^(c (k0 + 8 k1)) after the second) at 6 FLOP; each
+# forward transform carries two mics, each inverse two frames.
 FFT512_RADIX8_FLOP = 3 * 64 * 56 + 6 * (49 * 8 + 7 * 63)
 
 
@@ -309,9 +310,21 @@ def _flops_covar_ema(b, n, t, chunks):
 
 def _flops_beamform_istft(b, n, t):
     pairs = (n + 1) // 2
-    fwd = n * 512 + pairs * FFT512_FLOP + 257 * (pairs * 8 + n * 8)
-    inv = FFT512_FLOP / 2 + 512 * 3
+    fwd = n * 512 + pairs * FFT512_RADIX8_FLOP + 257 * (pairs * 8 + n * 8)
+    inv = FFT512_RADIX8_FLOP / 2 + 512 * 3
     return b * t * (fwd + inv)
+
+
+def _card_wav(np, torch, dev, rng, b, n, s, int16):
+    """(B, N, S) noise at 0.3 on the card: int16, or f32 4 bytes past a
+    16-byte boundary (the kernels' sample-by-sample staging)."""
+    x = rng.standard_normal((b, n, s)).astype(np.float32) * 0.3
+    if int16:
+        x = np.clip(x * 32768, -32768, 32767).astype(np.int16)
+    flat = x.ravel()
+    if not int16:
+        flat = np.concatenate([np.zeros(1, flat.dtype), flat])
+    return torch.from_numpy(flat).to(dev)[flat.size - x.size:].view(b, n, s)
 
 
 def _kernel_a_shapes(np, torch, dev, window, fm):
@@ -326,14 +339,7 @@ def _kernel_a_shapes(np, torch, dev, window, fm):
                                (2, 4096, True, 64)):
         rng = np.random.default_rng(n + s)
         b = 1 if s == 512 else 4
-        x = rng.standard_normal((b, n, s)).astype(np.float32) * 0.3
-        if int16:
-            x = np.clip(x * 32768, -32768, 32767).astype(np.int16)
-        flat = x.ravel()
-        if not int16:   # f32 4 bytes past a 16-byte boundary
-            flat = np.concatenate([np.zeros(1, flat.dtype), flat])
-        wav = torch.from_numpy(flat).to(dev)[flat.size - x.size:].view(
-            b, n, s)
+        wav = _card_wav(np, torch, dev, rng, b, n, s, int16)
         mask = torch.from_numpy(rng.random((b, s // 256 + 1, 257)).astype(
             np.float32)).to(dev)
         if chunk is None:
@@ -347,6 +353,44 @@ def _kernel_a_shapes(np, torch, dev, window, fm):
         errs[key] = _rel(got, ref)
         if not errs[key] <= TOL:
             raise AssertionError(f"kernel A {key}: {errs[key]} > {TOL}")
+    return errs
+
+
+def _kernel_b_shapes(np, torch, dev, window, fm):
+    """Kernel B away from the bench shape, against its plain version:
+    offline and online, N = 1, 2, 5, 6 and 8, int16 and f32 (an f32
+    waveform not 16-byte aligned), B = 1 at S = 512, B = 4 (many runs an
+    utterance) and online at chunks 1, 3, 5 (chunks that do not divide the
+    tile of 8 frames) and 32; raises past TOL, returns the errors."""
+    from setk_tpu_torch.dsp.window import wss_inverse_blocks
+    errs = {}
+    for n, s, int16, chunk in ((1, 39936, True, None), (2, 512, False, None),
+                               (5, 64000, True, None), (8, 128000, True, None),
+                               (8, 40960, False, None), (5, 20480, False, 5),
+                               (8, 64000, True, 1), (2, 4096, False, 3),
+                               (6, 128000, True, 32), (1, 512, True, 1)):
+        rng = np.random.default_rng(n + s + 7)
+        b = 1 if s == 512 else 4
+        t = s // 256 + 1
+        wav = _card_wav(np, torch, dev, rng, b, n, s, int16)
+        shape = (b, 257, n) if chunk is None else (
+            b, fm.num_chunks(t, chunk), 257, n)
+        w = torch.from_numpy((rng.standard_normal(shape) + 1j *
+                              rng.standard_normal(shape)).astype(
+                                  np.complex64)).to(dev)
+        wss = torch.as_tensor(wss_inverse_blocks(
+            window.cpu().numpy(), t, 256, 512, s), device=dev)
+        if chunk is None:
+            got = fm.beamform_istft(wav, w, wss, window)
+            ref = fm.beamform_istft_plain(wav, w, wss, window)
+        else:
+            got = fm.beamform_istft_online(wav, w, wss, window, chunk)
+            ref = fm.beamform_istft_online_plain(wav, w, wss, window, chunk)
+        key = (f"N{n}_S{s}_B{b}_{'int16' if int16 else 'f32_unaligned'}"
+               f"_{'offline' if chunk is None else f'chunk{chunk}'}")
+        errs[key] = _rel(got, ref)
+        if not errs[key] <= TOL:
+            raise AssertionError(f"kernel B {key}: {errs[key]} > {TOL}")
     return errs
 
 
@@ -1908,6 +1952,15 @@ def main() -> int:
             "stft_covar<8,int16>", "stft_covar<8,f32>")},
         "layout": {n: fm.kernel_a_layout(n, True, torch.device("cuda", 0))
                    for n in (6, 8)}}))
+    # kernel B the same, with its runs an utterance at the bench's B and S
+    print(json.dumps({"ptxas_beamform_istft": {
+        key: ptxas.get(key, "not built now") for key in (
+            "beamform_istft<6,int16>", "beamform_istft<6,f32>",
+            "beamform_istft<8,int16>", "beamform_istft<8,f32>",
+            "beamform_istft_online<6,int16>")},
+        "layout": {f"{n},{'online' if on else 'offline'}": fm.kernel_b_layout(
+            n, True, on, B, S, torch.device("cuda", 0))
+            for n in (6, 8) for on in (False, True)}}))
 
     # ---- 3. kernels against their plain versions at the bench shape ----
     cfg = StftConfig()
@@ -1953,6 +2006,9 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel vs plain {err} > {TOL}")
     print(json.dumps({"kernel_a_other_shapes_max_rel_err":
                       _kernel_a_shapes(np, torch, dev, window, fm),
+                      "tol": TOL}))
+    print(json.dumps({"kernel_b_other_shapes_max_rel_err":
+                      _kernel_b_shapes(np, torch, dev, window, fm),
                       "tol": TOL}))
 
     # ---- 4. the main path: BatchEnhancer over keyed utterances ----

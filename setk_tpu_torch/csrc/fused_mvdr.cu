@@ -21,18 +21,20 @@
 //   TPU kernel's direct matmul DFT needs ~2e11 FLOP per pass (~3 ms at
 //   the f32 peak); here the transforms are FFTs, two mics per complex
 //   transform (x = y_a + i y_b, split by Hermitian symmetry), which cuts
-//   the operations ~20x, to about the byte bound (~0.1 ms each).
-//   Twiddles come from a float64 sincospi table, so the transform stays
-//   f32-grade.  No atomics: every sum over frames runs in frame order in
-//   one thread, and runs of frames are added in a fixed order.
+//   the operations ~20x, to about the byte bound (kernel B: 5.0 GFLOP,
+//   ~75 us, so its bytes bound it).  Twiddles come from float64 sincospi
+//   tables, so the transforms stay f32-grade.  No atomics: every sum over
+//   frames runs in frame order in one thread, runs of frames are added in
+//   a fixed order, and an overlap-add is one addition of two halves.
 //
-// Kernel A (stft_covar_kernel) was first a chain of block barriers (the
-// radix-2 fft512 below, ~11 barriers a pair of frames) with a bin owner's
-// 2 N (N+1) sums spilling at 96 registers.  Its design now:
-//   - a warp transforms one (frame, mic pair) alone: 512 = 8 x 8 x 8, two
-//     8-point DFTs a lane a pass in registers, two transposes through the
-//     warp's slot of shared memory under __syncwarp, the two mics split in
-//     registers (a lane holds bins k and their mirrors 512 - k);
+// Both kernels transform on a warp alone: 512 = 8 x 8 x 8, two 8-point
+// DFTs a lane a pass in registers, two transposes through the warp's slot
+// of shared memory under __syncwarp, no block barrier inside a transform
+// (a_passes).
+//
+// Kernel A (stft_covar_kernel):
+//   - a warp transforms one (frame, mic pair); a lane keeps bins k and
+//     their mirrors 512 - k, so it splits the two mics in registers;
 //   - a block of 8 SH warps takes TF frames a tile (one transform a warp),
 //     then one block barrier, then each thread adds the tile's frames to
 //     the sums of one share of a bin's pairs (SH shares: at most 9 pairs,
@@ -48,9 +50,36 @@
 //     Rn so itself when one run of frames an utterance fills the card (no
 //     reduce); the per-chunk entry gives a block one chunk or, for chunks
 //     under 32 frames, several, the earlier ones written when they end.
-// Kernel B gives each block a run of output hop blocks, computes the one
-// extra frame its overlap-add needs itself and still transforms two frames
-// per pass of the radix-2 FFT's chain of block barriers (fft512).
+//
+// Kernel B (beamform_istft_kernel, and _online_ with a weight row per
+// chunk): a block of W = 4 warps makes one run of output hop blocks
+// [j0, j1) of an utterance from frames j0..j1 (the one frame it shares
+// with the next run is computed by both; the launcher picks the runs an
+// utterance from the kernel's occupancy), in tiles of 2 W frames:
+//   - warp w takes the pair of frames (a, b) = (t0 + 2 w, t0 + 2 w + 1)
+//     through all its P = ceil(N / 2) mic pairs, one a_passes transform
+//     each, and beamforms in registers as each transform ends: lane l
+//     holds the 8 bins l + 64 m and 64 - l + 64 m (m < 4; lane 0 also bin
+//     256) of both mics, so it adds conj(w) X for its bins into 8 complex
+//     sums a frame; offline weights sit in shared memory (one row an
+//     utterance, a float4 a mic pair and bin), online ones are read from
+//     the frame's own chunk row (L1 / L2), so any chunk >= 1 works;
+//   - those sums are the first inverse pass's points: Z = E_a + i E_b and
+//     its Hermitian mirror, columns l and 64 - l of stride 64, so the
+//     inverse (b_inverse: 8 x 8 x 8 with conjugate twiddles, two
+//     transposes through the slot) starts without an exchange and leaves
+//     lane l samples l + 64 n and l + 32 + 64 n of frame a (real part) and
+//     b (imaginary part): it writes output block a = Q[a] + P[b] itself,
+//     in 128-byte rows, and hands P[a] to warp w - 1 through shared memory
+//     (block b = Q[b] + P[b + 1] is warp w's, once warp w + 1 has
+//     published; the last warp's waits for the next tile);
+//   - two block barriers a tile: after the forward transforms (the ring
+//     is free: the next tile's hop blocks go out by cp.async and land
+//     during the inverse) and after the publish;
+//   - shared memory: W warp slots of 576 float2 (4.5 KB), the forward and
+//     inverse twiddles, the analysis and synthesis windows, the published
+//     halves (1 KB a warp), the offline weights (P x 257 float4) and the
+//     ring of 2 W + 1 hop blocks: 75 KB at N = 6 int16, 3 blocks an SM.
 
 // The online (chunked EMA) pair replaces stft_covar_online_pallas (:651,
 // body _stft_covar_online_kernel :530) and beamform_istft_online_pallas
@@ -67,9 +96,7 @@
 //     initializes) and writes the full Hermitian E_s, E_n per chunk for
 //     the mvdr_power kernel;
 //   - beamform_istft_online_kernel is kernel B with one weight row per
-//     chunk: each thread reloads its bin's weights when a frame crosses
-//     into another chunk, so the extra frame a block computes for its
-//     overlap-add takes its own chunk's weights.
+//     chunk: each frame reads its own chunk's row.
 // covar_ema is bound by bytes: at B=128, N=6, T=501, chunk 32 it reads
 // 177 MB of sums and 66 MB of mask and writes 303 MB (~0.16 ms).
 
@@ -84,100 +111,10 @@ namespace {
 constexpr int kNfft = 512;
 constexpr int kHop = 256;
 constexpr int kBins = 257;
-constexpr int kThreads = 288;  // 9 warps: 257 bin owners, 256 butterflies
-constexpr int kStride = kNfft + kNfft / 32;  // padded FFT buffer
-
-// Shared-memory slot of FFT point q: one float2 of padding every 32
-// points, so the bit-reversed scatter of 16 consecutive samples (points
-// 16 apart) lands in 16 distinct bank pairs instead of one.
-__device__ __forceinline__ int slot(int q) { return q + (q >> 5); }
 
 struct cpx {
   float re, im;
 };
-
-__device__ __forceinline__ int bitrev9(int n) {
-  return (int)(__brev((unsigned)n) >> 23);
-}
-
-// tw[j] = exp(-2 pi i j / 512), j < 256
-__device__ __forceinline__ void init_tables(float2* tw, float* win,
-                                            const float* __restrict__ window) {
-  for (int j = threadIdx.x; j < kNfft / 2; j += blockDim.x) {
-    double s, c;
-    sincospi(-(double)j / 256.0, &s, &c);
-    tw[j] = make_float2((float)c, (float)s);
-  }
-  for (int j = threadIdx.x; j < kNfft; j += blockDim.x) win[j] = window[j];
-}
-
-// P in-place radix-2 decimation-in-time FFTs of 512 points over
-// buf[p * kStride + slot(i)], input already in bit-reversed order.
-// Forward uses exp(-i...), inverse exp(+i...) without the 1/512.  Every
-// thread of the block must call it (it synchronizes before each stage and
-// at the end).
-template <int P, bool kInverse>
-__device__ __forceinline__ void fft512(float2* buf, const float2* tw) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int s = 0; s < 9; ++s) {
-    __syncthreads();
-    if (t < kNfft / 2) {
-      const int half = 1 << s;
-      const int pos = t & (half - 1);
-      const int i0 = ((t >> s) << (s + 1)) + pos;
-      const int i1 = i0 + half;
-      float2 w = tw[pos << (8 - s)];
-      if (kInverse) w.y = -w.y;
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float2 u = buf[p * kStride + slot(i0)];
-        const float2 x = buf[p * kStride + slot(i1)];
-        const float2 v = make_float2(x.x * w.x - x.y * w.y,
-                                     x.x * w.y + x.y * w.x);
-        buf[p * kStride + slot(i0)] = make_float2(u.x + v.x, u.y + v.y);
-        buf[p * kStride + slot(i1)] = make_float2(u.x - v.x, u.y - v.y);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Windowed frame t of every mic, two mics per complex buffer
-// (mic 2p real, mic 2p+1 imaginary), written bit-reversed.  Frame t
-// covers samples j = 256 (t - 1) + n, reflected at both ends.
-template <int N, typename T>
-__device__ __forceinline__ void load_frame(float2* buf, const T* __restrict__ x,
-                                           const float* win, int S, int t) {
-  constexpr int P = (N + 1) / 2;
-  for (int i = threadIdx.x; i < P * kNfft; i += kThreads) {
-    const int p = i >> 9;
-    const int n = i & (kNfft - 1);
-    int j = t * kHop + n - kNfft / 2;
-    if (j < 0) j = -j;
-    else if (j >= S) j = 2 * S - 2 - j;
-    const float re = (float)x[(size_t)(2 * p) * S + j] * win[n];
-    const float im =
-        (2 * p + 1 < N) ? (float)x[(size_t)(2 * p + 1) * S + j] * win[n] : 0.0f;
-    buf[p * kStride + slot(bitrev9(n))] = make_float2(re, im);
-  }
-}
-
-// Spectra of all mics at bin k from the packed FFT outputs.
-template <int N>
-__device__ __forceinline__ void unpack_bin(const float2* buf, int k,
-                                           cpx (&X)[N]) {
-  const int km = (kNfft - k) & (kNfft - 1);
-#pragma unroll
-  for (int p = 0; p < (N + 1) / 2; ++p) {
-    const float2 zk = buf[p * kStride + slot(k)];
-    const float2 zm = buf[p * kStride + slot(km)];
-    // mic 2p: (Z[k] + conj Z[-k]) / 2 ; mic 2p+1: (Z[k] - conj Z[-k]) / 2i
-    X[2 * p] = {0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y)};
-    if (2 * p + 1 < N)
-      X[2 * p + 1] = {0.5f * (zk.y + zm.y), 0.5f * (zm.x - zk.x)};
-  }
-}
 
 // ---- kernel A ----
 // A block of W = 8 SH warps sums one (utterance, range of frames) in tiles
@@ -246,12 +183,36 @@ __device__ unsigned long long g_fused_phase[5];
       for (int i_ = 0; i_ < 5; ++i_)                                 \
         atomicAdd(&g_fused_phase[i_], (unsigned long long)ph_[i_]);  \
   } while (0)
+// kernel B's: 0 staging (the tables, the weights and the sample copies
+// issued), 1 forward transform, 2 beamform, 3 inverse transform, 4
+// overlap-add and write, 5 tile barriers (waiting for the copies and the
+// block)
+__device__ unsigned long long g_fused_b_phase[6];
+#define B_PHASE(i)                      \
+  do {                                  \
+    const long long now_ = clock64();   \
+    bph_[i] += now_ - bt_;              \
+    bt_ = now_;                         \
+  } while (0)
+#define B_PHASE_START \
+  long long bt_ = clock64(), bph_[6] = {0, 0, 0, 0, 0, 0}
+#define B_PHASE_END                                                    \
+  do {                                                                 \
+    if ((threadIdx.x & 31) == 0)                                       \
+      for (int i_ = 0; i_ < 6; ++i_)                                   \
+        atomicAdd(&g_fused_b_phase[i_], (unsigned long long)bph_[i_]); \
+  } while (0)
 #else
 #define A_PHASE(i) \
   do {             \
   } while (0)
 #define A_PHASE_START
 #define A_PHASE_END
+#define B_PHASE(i) \
+  do {             \
+  } while (0)
+#define B_PHASE_START
+#define B_PHASE_END
 #endif
 
 __device__ __forceinline__ float2 f2add(float2 a, float2 b) {
@@ -283,6 +244,36 @@ __device__ __forceinline__ void dft8(float2 (&v)[8]) {
   const float2 b1 = f2add(a1, a3), b3 = mul_mi(f2sub(a1, a3));
   const float2 b4 = f2add(a4, a6), b6 = f2sub(a4, a6);
   const float2 b5 = f2add(a5, a7), b7 = mul_mi(f2sub(a5, a7));
+  v[0] = f2add(b0, b1);
+  v[4] = f2sub(b0, b1);
+  v[2] = f2add(b2, b3);
+  v[6] = f2sub(b2, b3);
+  v[1] = f2add(b4, b5);
+  v[5] = f2sub(b4, b5);
+  v[3] = f2add(b6, b7);
+  v[7] = f2sub(b6, b7);
+}
+
+__device__ __forceinline__ float2 mul_pi(float2 z) {  // i z
+  return make_float2(-z.y, z.x);
+}
+
+// Inverse 8-point DFT in registers (dft8 with the conjugate twiddles, no
+// 1/8), natural order in and out.
+__device__ __forceinline__ void idft8(float2 (&v)[8]) {
+  constexpr float r = 0.70710678118654752f;
+  const float2 a0 = f2add(v[0], v[4]), a4 = f2sub(v[0], v[4]);
+  const float2 a1 = f2add(v[1], v[5]), d5 = f2sub(v[1], v[5]);
+  const float2 a2 = f2add(v[2], v[6]), d6 = f2sub(v[2], v[6]);
+  const float2 a3 = f2add(v[3], v[7]), d7 = f2sub(v[3], v[7]);
+  // d5 conj(W8), d6 conj(W8^2) = i d6, d7 conj(W8^3)
+  const float2 a5 = make_float2(r * (d5.x - d5.y), r * (d5.x + d5.y));
+  const float2 a6 = mul_pi(d6);
+  const float2 a7 = make_float2(-r * (d7.x + d7.y), r * (d7.x - d7.y));
+  const float2 b0 = f2add(a0, a2), b2 = f2sub(a0, a2);
+  const float2 b1 = f2add(a1, a3), b3 = mul_pi(f2sub(a1, a3));
+  const float2 b4 = f2add(a4, a6), b6 = f2sub(a4, a6);
+  const float2 b5 = f2add(a5, a7), b7 = mul_pi(f2sub(a5, a7));
   v[0] = f2add(b0, b1);
   v[4] = f2sub(b0, b1);
   v[2] = f2add(b2, b3);
@@ -330,20 +321,19 @@ __device__ __forceinline__ float2 two_samples(const float* p) {
 // DFTs a lane (over a, then b, then c) with the twiddles W64^(b k0) and
 // W512^(c (k0 + 8 k1)) between them and two transposes through the warp's
 // slot under __syncwarp (rows of 33 float4: no bank conflicts).  Lane l
-// keeps bins l + 64 m and their mirrors 512 - l - 64 m, so it splits the
-// two mics (Z[k] +- conj Z[-k]) in registers and writes mic a's bins
-// 0..255 to slot plane 0, mic b's to plane 1, and bin 256 (real, as bin 0
-// is) to nyq[0], nyq[1].  h0, h1: mic a's hop blocks under the frame (mic
-// b 256 samples after each); two: mic b exists.  Every lane of the warp
-// must call it.
+// ends with z0[k2] = Z[l + 64 k2] and z1[k2] = Z[kb + 64 k2], kb = 64 - l
+// (lane 0: 32): bins l + 64 m and their mirrors 512 - l - 64 m.  h0, h1:
+// mic a's hop blocks under the frame (mic b 256 samples after each); two:
+// mic b exists.  Every lane of the warp must call it; the slot is free
+// again when it returns.
 template <typename T>
-__device__ __forceinline__ void a_transform(float4* slot, float* nyq,
-                                            const T* h0, const T* h1,
-                                            bool two, const float2* win2,
-                                            const float2* tw1,
-                                            const float4* tw2) {
+__device__ __forceinline__ void a_passes(float4* slot, const T* h0,
+                                         const T* h1, bool two,
+                                         const float2* win2,
+                                         const float2* tw1,
+                                         const float4* tw2, float2 (&z0)[8],
+                                         float2 (&z1)[8]) {
   const int l = threadIdx.x & 31;
-  float2 z0[8], z1[8];
   // pass 1: lane l holds n = 64 a + 2 l + e (b = l >> 2), e = 0, 1
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
@@ -390,7 +380,6 @@ __device__ __forceinline__ void a_transform(float4* slot, float* nyq,
   const bool l0 = l == 0;
   const int m0 = (8 - k0) & 7;
   const int m1 = l0 ? 4 : (k0 ? 7 - q : 8 - q);
-  const int kb = l0 ? 32 : 64 - l;
 #pragma unroll
   for (int cp = 0; cp < 4; ++cp) {
     const float4 u = slot[33 * k0 + 4 * q + cp];
@@ -403,6 +392,22 @@ __device__ __forceinline__ void a_transform(float4* slot, float* nyq,
   __syncwarp();
   dft8(z0);  // z0[k2] = Z[l + 64 k2]
   dft8(z1);  // z1[k2] = Z[kb + 64 k2]
+}
+
+// a_passes, then the two mics split in registers (Z[k] +- conj Z[-k]):
+// mic a's bins 0..255 to slot plane 0, mic b's to plane 1, and bin 256
+// (real, as bin 0 is) to nyq[0], nyq[1].
+template <typename T>
+__device__ __forceinline__ void a_transform(float4* slot, float* nyq,
+                                            const T* h0, const T* h1,
+                                            bool two, const float2* win2,
+                                            const float2* tw1,
+                                            const float4* tw2) {
+  const int l = threadIdx.x & 31;
+  const bool l0 = l == 0;
+  const int kb = l0 ? 32 : 64 - l;
+  float2 z0[8], z1[8];
+  a_passes<T>(slot, h0, h1, two, win2, tw1, tw2, z0, z1);
   float2* pa = reinterpret_cast<float2*>(slot);
   float2* pb = pa + 256;
 #pragma unroll
@@ -423,14 +428,13 @@ __device__ __forceinline__ void a_transform(float4* slot, float* nyq,
   }
 }
 
-// Hop blocks q0..q1 of the utterance's N mics into the ring, block q in
-// slot (q + 1) % R: 16-byte cp.async inside the waveform, sample by
+// Hop blocks q0..q1 of the utterance's N mics into the ring of R blocks,
+// block q in slot (q + 1) % R: 16-byte cp.async inside the waveform, sample by
 // sample for the reflected blocks -1 and S / 256 (and for every block of a
 // waveform that is not 16-byte aligned).
-template <int N, typename T>
+template <int N, typename T, int R = ALayout<N, T>::R>
 __device__ __forceinline__ void a_stage(T* ring, const T* __restrict__ x,
                                         int S, int q0, int q1, bool aligned) {
-  constexpr int R = ALayout<N, T>::R;
   constexpr int V = 16 / sizeof(T);    // samples a copy
   constexpr int PER = kHop / V;        // copies a (block, mic)
   const int last = S / kHop;
@@ -907,156 +911,406 @@ __global__ void covar_ema_kernel(const float2* __restrict__ part,
   }
 }
 
-// enh = sum_m conj(w_m) X_m at bin k; only the real part of bins 0 and
-// 256 enters the inverse real DFT.
+// ---- kernel B ----
+// A block of W warps makes output hop blocks [j0, j1) of one utterance
+// from frames j0..j1, in tiles of TF = 2 W frames, warp w the pair of
+// frames (t0 + 2 w, t0 + 2 w + 1) of the tile at t0 (see the file's head).
 template <int N>
-__device__ __forceinline__ cpx beamform_bin(const float2* buf, int k,
-                                            const cpx (&wk)[N]) {
-  cpx X[N];
-  unpack_bin<N>(buf, k, X);
-  cpx s = {0.0f, 0.0f};
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    s.re += wk[m].re * X[m].re + wk[m].im * X[m].im;
-    s.im += wk[m].re * X[m].im - wk[m].im * X[m].re;
+struct BCfg {
+  static constexpr int P = (N + 1) / 2;  // complex transforms a frame
+  static constexpr int W = 4;            // warps a block: a pair of frames each
+  static constexpr int THREADS = 32 * W;
+  static constexpr int TF = 2 * W;       // frames a tile
+};
+
+// float2 of a kernel-B warp's slot: a_passes' 264 float4, or the
+// inverse's first transpose (8 rows of 72: each half-warp's two rows in
+// opposite bank halves) and second (8 rows of 66)
+constexpr int kSlotB = 576;
+
+// Byte offsets into kernel B's dynamic shared memory.
+template <int N, typename T, bool kOnline>
+struct BLayout {
+  using C = BCfg<N>;
+  static constexpr size_t slots = 0;            // W warp slots
+  static constexpr size_t tw2 = slots + (size_t)C::W * kSlotB * 8;
+  static constexpr size_t itw2 = tw2 + 256 * 16;  // inverse pass-2 twiddles
+  static constexpr size_t tw1 = itw2 + 256 * 16;  // pass-1 twiddles
+  static constexpr size_t win = tw1 + 64 * 8;     // 0.5 x the window
+  static constexpr size_t syn = win + kNfft * 4;  // synthesis window / 512
+  static constexpr size_t xchg = syn + kNfft * 4;  // each warp's P[a]
+  static constexpr size_t wts = xchg + (size_t)C::W * kHop * 4;
+  // offline weights: float4 (w_2p, w_2p+1) at p 257 + k
+  static constexpr size_t ring =
+      wts + (kOnline ? 0 : (size_t)C::P * kBins * 16);
+  static constexpr int R = C::TF + 1;  // hop blocks under a tile
+  static constexpr size_t bytes = ring + (size_t)R * N * kHop * sizeof(T);
+  // blocks an SM that its 228 KB admit (1 KB a block reserved), at most
+  // 4; the launch bound gives each thread the registers that leave (128
+  // or more)
+  static constexpr size_t FIT = 233472 / (bytes + 1024);
+  static constexpr int MIN_BLOCKS = FIT < 1 ? 1 : FIT > 4 ? 4 : (int)FIT;
+};
+
+// Kernel B's inverse twiddles: itw2[n1 32 + l] = (W512^-((n0 + 8 n1) a),
+// W512^-((n0 + 4 + 8 n1) a)) for lane l's a = l & 7, n0 = l >> 3, from the
+// float64 sincospi.
+__device__ __forceinline__ void b_twiddles(float4* itw2) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    const int n1 = i >> 5, l = i & 31, a = l & 7, n0 = l >> 3;
+    double s0, c0, s1, c1;
+    sincospi((double)(((n0 + 8 * n1) * a) & 511) / 256.0, &s0, &c0);
+    sincospi((double)(((n0 + 4 + 8 * n1) * a) & 511) / 256.0, &s1, &c1);
+    itw2[i] = make_float4((float)c0, (float)s0, (float)c1, (float)s1);
   }
-  if (k == 0 || k == kBins - 1) s.im = 0.0f;
-  return s;
 }
 
-// Output hop blocks per kernel-B block: fewer for N > 6, whose two frame
-// buffers leave less of the 48 KB of static shared memory.
-__host__ __device__ constexpr int chunk_blocks(int n) {
-  return n <= 6 ? 16 : 8;
+// e + conj(w_a) X_a + conj(w_b) X_b, the two mics split from the pair's
+// transform at Z[k], Z[-k]; v = (w_a, w_b).
+__device__ __forceinline__ float2 b_mac(float2 e, float2 zk, float2 zm,
+                                        float4 v) {
+  const float2 xa = make_float2(zk.x + zm.x, zk.y - zm.y);
+  const float2 xb = make_float2(zk.y + zm.y, zm.x - zk.x);
+  e.x += v.x * xa.x + v.y * xa.y + v.z * xb.x + v.w * xb.y;
+  e.y += v.x * xa.y - v.y * xa.x + v.z * xb.y - v.w * xb.x;
+  return e;
 }
 
-// Bin k's weights of one chunk: w[row * N .. row * N + N).
-template <int N>
-__device__ __forceinline__ void load_weights(const float2* __restrict__ w,
-                                             size_t row, cpx (&wk)[N]) {
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    const float2 v = w[row * N + m];
-    wk[m] = {v.x, v.y};
+// Mic pair p's weights at bin k as a float4 (w_2p, w_2p+1): offline from
+// the block's staged row (p 257 + k), online from the frame's chunk row of
+// w (k N + 2 p), w_2p+1 = 0 past the last mic.
+template <int N, bool kOnline>
+struct BWeights {
+  const float4* wts;
+  const float2* row;
+  int p;
+  __device__ __forceinline__ float4 operator()(int k) const {
+    if (!kOnline) return wts[p * kBins + k];
+    const float2 wa = row[k * N + 2 * p];
+    const float2 wb =
+        2 * p + 1 < N ? row[k * N + 2 * p + 1] : make_float2(0.0f, 0.0f);
+    return make_float4(wa.x, wa.y, wb.x, wb.y);
   }
+};
+
+// One mic pair's a_passes output added into the frame's beamformed bins:
+// e[m] at bin l + 64 m, e[4 + m] at bin kb + 64 m (m < 4); lane 0 also
+// e256, bin 256's real part (bin 0's imaginary part is never read).
+template <int N, bool kOnline>
+__device__ __forceinline__ void b_beamform(const float2 (&z0)[8],
+                                           const float2 (&z1)[8],
+                                           const BWeights<N, kOnline>& wk,
+                                           float2 (&e)[8], float& e256) {
+  const int l = threadIdx.x & 31;
+  const bool l0 = l == 0;
+  const int kb = l0 ? 32 : 64 - l;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    e[m] = b_mac(e[m], z0[m], l0 ? z0[(8 - m) & 7] : z1[7 - m],
+                 wk(l + 64 * m));
+    e[4 + m] = b_mac(e[4 + m], z1[m], l0 ? z1[7 - m] : z0[7 - m],
+                     wk(kb + 64 * m));
+  }
+  if (l0) {
+    const float4 v = wk(kBins - 1);
+    e256 += v.x * (z0[4].x + z0[4].x) + v.z * (z0[4].y + z0[4].y);
+  }
+}
+
+// Z = E_a + i E_b at the inverse's first-pass points: z0[k2] = Z[l + 64 k2]
+// and z1[k2] = Z[kb + 64 k2] (kb = 64 - l, lane 0: 32), from the frames'
+// bins as b_beamform holds them; above bin 255, Z[512 - k] = conj(E_a[k])
+// + i conj(E_b[k]); bins 0 and 256 take the real parts alone.
+__device__ __forceinline__ void b_columns(const float2 (&ea)[8],
+                                          const float2 (&eb)[8], float na,
+                                          float nb, float2 (&z0)[8],
+                                          float2 (&z1)[8]) {
+  const bool l0 = (threadIdx.x & 31) == 0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    z0[m] = make_float2(ea[m].x - eb[m].y, ea[m].y + eb[m].x);
+    z1[m] = make_float2(ea[4 + m].x - eb[4 + m].y,
+                        ea[4 + m].y + eb[4 + m].x);
+  }
+  if (l0) z0[0] = make_float2(ea[0].x, eb[0].x);
+#pragma unroll
+  for (int k2 = 4; k2 < 8; ++k2) {
+    // the mirror bins: column kb's (m = 7 - k2) for column l, column l's
+    // for column kb; lane 0's columns are their own mirrors (values picked,
+    // not indices, so that the sums stay in registers)
+    const float2 a0 = l0 ? ea[(8 - k2) & 7] : ea[11 - k2];
+    const float2 b0 = l0 ? eb[(8 - k2) & 7] : eb[11 - k2];
+    const float2 a1 = l0 ? ea[11 - k2] : ea[7 - k2];
+    const float2 b1 = l0 ? eb[11 - k2] : eb[7 - k2];
+    z0[k2] = make_float2(a0.x + b0.y, b0.x - a0.y);
+    z1[k2] = make_float2(a1.x + b1.y, b1.x - a1.y);
+  }
+  if (l0) z0[4] = make_float2(na, nb);
+}
+
+// One warp's inverse 512-point transform of the columns from b_columns,
+// no block barrier: k = a + 8 c + 64 k2, n = n0 + 8 n1 + 64 n2, three
+// passes of two inverse 8-point DFTs a lane (over k2, then c, then a) with
+// the twiddles W64^-(c n0) and W512^-((n0 + 8 n1) a) between them and two
+// transposes through the warp's slot under __syncwarp.  Lane l ends with
+// z0[n2] = z[l + 64 n2] and z1[n2] = z[l + 32 + 64 n2], unscaled.  Every
+// lane of the warp must call it; the slot is free again when it returns.
+__device__ __forceinline__ void b_inverse(float2* slot, float2 (&z0)[8],
+                                          float2 (&z1)[8],
+                                          const float2* tw1,
+                                          const float4* itw2) {
+  const int l = threadIdx.x & 31;
+  const int r1 = l == 0 ? 32 : 64 - l;  // z1's column
+  // pass 1 over k2: Y1[a + 8 c, n0] to row n0 (72 float2 a row)
+  idft8(z0);
+  idft8(z1);
+  slot[l] = z0[0];
+  slot[r1] = z1[0];
+#pragma unroll
+  for (int n0 = 1; n0 < 8; ++n0) {
+    const float2 w0 = tw1[8 * n0 + (l >> 3)], w1 = tw1[8 * n0 + (r1 >> 3)];
+    slot[72 * n0 + l] = f2mul(z0[n0], make_float2(w0.x, -w0.y));
+    slot[72 * n0 + r1] = f2mul(z1[n0], make_float2(w1.x, -w1.y));
+  }
+  __syncwarp();
+  // pass 2 over c: lane l takes a = l & 7 and n0 = q, q + 4 (q = l >> 3)
+  const int a = l & 7, q = l >> 3;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    z0[c] = slot[72 * q + a + 8 * c];
+    z1[c] = slot[72 * (q + 4) + a + 8 * c];
+  }
+  __syncwarp();
+  idft8(z0);
+  idft8(z1);
+  // Y2[a, n0, n1] to row a (66 float2 a row), column n0 + 8 n1
+#pragma unroll
+  for (int n1 = 0; n1 < 8; ++n1) {
+    const float4 w = itw2[32 * n1 + l];
+    slot[66 * a + q + 8 * n1] = f2mul(z0[n1], make_float2(w.x, w.y));
+    slot[66 * a + q + 4 + 8 * n1] = f2mul(z1[n1], make_float2(w.z, w.w));
+  }
+  __syncwarp();
+  // pass 3 over a: lane l takes n0 + 8 n1 = l and l + 32
+#pragma unroll
+  for (int aa = 0; aa < 8; ++aa) {
+    z0[aa] = slot[66 * aa + l];
+    z1[aa] = slot[66 * aa + l + 32];
+  }
+  __syncwarp();
+  idft8(z0);
+  idft8(z1);
 }
 
 // The body of kernel B.  Offline (kOnline false) one weight row per
 // utterance, w (B, 257, N); online, w (B, n_chunks, 257, N) and frame f
-// takes chunk f / chunk's row.
+// takes chunk f / chunk's row.  Block (x, b) makes output hop blocks
+// [x per, min(S / 256, (x + 1) per)) of utterance b.
 template <int N, typename T, bool kOnline>
 __device__ __forceinline__ void beamform_istft_body(
     const T* __restrict__ wav, const float2* __restrict__ w,
     const float* __restrict__ wss_inv, const float* __restrict__ window,
     const float* __restrict__ synth, float* __restrict__ out, int S,
-    int nblk_out, int chunk, int n_chunks) {
-  constexpr int P = (N + 1) / 2;
-  constexpr int CH = chunk_blocks(N);
-  __shared__ float2 buf[2 * P * kStride];
-  float2* zbuf = buf;  // the inverse FFT reuses the first buffer
-  __shared__ float2 tw[kNfft / 2];
-  __shared__ float win[kNfft];
-  __shared__ float syn[kNfft];
-  __shared__ float acc[CH * kHop];
+    int per, int chunk, int n_chunks, int aligned) {
+  using C = BCfg<N>;
+  using L = BLayout<N, T, kOnline>;
+  extern __shared__ float4 b_smem[];
+  char* sm = reinterpret_cast<char*>(b_smem);
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  float2* slot = reinterpret_cast<float2*>(sm + L::slots) + warp * kSlotB;
+  float4* tw2 = reinterpret_cast<float4*>(sm + L::tw2);
+  float4* itw2 = reinterpret_cast<float4*>(sm + L::itw2);
+  float2* tw1 = reinterpret_cast<float2*>(sm + L::tw1);
+  float* win = reinterpret_cast<float*>(sm + L::win);
+  float* syn = reinterpret_cast<float*>(sm + L::syn);
+  float* xchg = reinterpret_cast<float*>(sm + L::xchg);
+  float4* wts = reinterpret_cast<float4*>(sm + L::wts);
+  T* ring = reinterpret_cast<T*>(sm + L::ring);
+  B_PHASE_START;
   const int b = blockIdx.y;
-  const int j0 = blockIdx.x * CH;
-  const int nj = min(CH, nblk_out - j0);
-  const int k = threadIdx.x;
-  init_tables(tw, win, window);
-  for (int j = threadIdx.x; j < kNfft; j += kThreads) syn[j] = synth[j];
-  for (int i = threadIdx.x; i < nj * kHop; i += kThreads) acc[i] = 0.0f;
+  const int j0 = blockIdx.x * per, j1 = min(S / kHop, j0 + per);
+  if (j0 >= j1) return;
   const T* x = wav + (size_t)b * N * S;
-
-  cpx wk[N];
-  int cur = 0;  // the chunk whose weights wk holds
-  if (k < kBins) load_weights<N>(w, ((size_t)b * n_chunks) * kBins + k, wk);
-  // before beamforming frame f: its chunk's weights (online only; frames
-  // only increase within a block)
-  auto weights_for = [&](int f) {
-    if (!kOnline) return;
-    const int c = f / chunk;
-    if (c != cur) {
-      load_weights<N>(w, ((size_t)b * n_chunks + c) * kBins + k, wk);
-      cur = c;
-    }
-  };
-
-  // frames j0 .. j0 + nj feed output blocks j0 .. j0 + nj - 1; they run
-  // in pairs (fa, fb): one chain of FFT barriers transforms both, and one
-  // complex inverse FFT synthesizes both (z = x_fa + i x_fb)
-  for (int fa = j0; fa <= j0 + nj; fa += 2) {
-    const int fb = fa + 1;
-    const bool has_b = fb <= j0 + nj;
-    __syncthreads();  // buffers free, tables ready
-    load_frame<N, T>(buf, x, win, S, fa);
-    if (has_b) load_frame<N, T>(buf + P * kStride, x, win, S, fb);
-    fft512<2 * P, false>(buf, tw);
-    cpx e[2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-    if (k < kBins) {
-      weights_for(fa);
-      e[0] = beamform_bin<N>(buf, k, wk);
-      if (has_b) {
-        weights_for(fb);
-        e[1] = beamform_bin<N>(buf + P * kStride, k, wk);
-      }
-    }
-    __syncthreads();  // spectra consumed: zbuf (= buf) is free
-    if (k < kBins) {
-      // Z = E_a + i E_b, Hermitian-extended to 512 bins
-      zbuf[slot(bitrev9(k & (kNfft - 1)))] =
-          make_float2(e[0].re - e[1].im, e[0].im + e[1].re);
-      if (k > 0 && k < kBins - 1)
-        zbuf[slot(bitrev9(kNfft - k))] =
-            make_float2(e[0].re + e[1].im, e[1].re - e[0].im);
-    }
-    fft512<1, true>(zbuf, tw);
-    // synthesis frame f, sample n: first half (P) -> block f - 1 at n,
-    // second half (Q) -> block f at n - 256.  One thread per offset o
-    // adds every contribution to that offset, so no two threads collide.
-    const float inv_n = 1.0f / kNfft;
-    for (int o = threadIdx.x; o < kHop; o += kThreads) {
-      const float2 zp = zbuf[slot(o)];
-      const float2 zq = zbuf[slot(o + kHop)];
-      const float pa = zp.x * inv_n * syn[o];
-      const float qa = zq.x * inv_n * syn[o + kHop];
-      const float pb = zp.y * inv_n * syn[o];
-      const float qb = zq.y * inv_n * syn[o + kHop];
-      const int la = fa - j0;  // local block of fa's second half
-      if (la - 1 >= 0) acc[(la - 1) * kHop + o] += pa;
-      if (la < nj) acc[la * kHop + o] += qa + (has_b ? pb : 0.0f);
-      if (has_b && la + 1 < nj) acc[(la + 1) * kHop + o] += qb;
+  float* ob = out + (size_t)b * S;
+  a_twiddles(tw2, tw1);
+  b_twiddles(itw2);
+  for (int i = threadIdx.x; i < kNfft; i += blockDim.x) {
+    win[i] = 0.5f * window[i];  // the two-mic split's halves
+    syn[i] = synth[i] * (1.0f / kNfft);
+  }
+  if (!kOnline) {
+    const float2* wr = w + (size_t)b * kBins * N;
+    for (int i = threadIdx.x; i < C::P * kBins; i += blockDim.x) {
+      const int p = i / kBins, k = i - p * kBins;
+      const float2 wa = wr[k * N + 2 * p];
+      const float2 wb = 2 * p + 1 < N ? wr[k * N + 2 * p + 1]
+                                      : make_float2(0.0f, 0.0f);
+      wts[i] = make_float4(wa.x, wa.y, wb.x, wb.y);
     }
   }
+  a_stage<N, T, L::R>(ring, x, S, j0 - 1, min(j1, j0 + C::TF - 1),
+                      aligned);
+  B_PHASE(0);
+  __pipeline_wait_prior(0);
   __syncthreads();
-  const size_t obase = (size_t)b * nblk_out * kHop + (size_t)j0 * kHop;
-  for (int i = threadIdx.x; i < nj * kHop; i += kThreads)
-    out[obase + i] = acc[i] * wss_inv[(size_t)j0 * kHop + i];
+  B_PHASE(5);
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  float pend[8];  // the last warp's Q[b], until the next tile's P[b + 1]
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pend[i] = 0.0f;
+  for (int t0 = j0; t0 <= j1; t0 += C::TF) {
+    // frames fa, fb (past j1 in a short last tile: transformed from stale
+    // samples and never written)
+    const int fa = t0 + 2 * warp, fb = fa + 1;
+    float2 ea[8], eb[8];
+    float na = 0.0f, nb = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ea[i] = eb[i] = make_float2(0.0f, 0.0f);
+#pragma unroll 1
+    for (int i = 0; i < 2 * C::P; ++i) {
+      const int f = i < C::P ? fa : fb, p = i < C::P ? i : i - C::P;
+      const bool two = 2 * p + 1 < N;
+      float2 z0[8], z1[8];
+      a_passes<T>(reinterpret_cast<float4*>(slot),
+                  ring + ((size_t)(f % L::R) * N + 2 * p) * kHop,
+                  ring + ((size_t)((f + 1) % L::R) * N + 2 * p) * kHop, two,
+                  win2, tw1, tw2, z0, z1);
+      B_PHASE(1);
+      const BWeights<N, kOnline> wk{
+          wts,
+          w + ((size_t)b * n_chunks + min(f / chunk, n_chunks - 1)) *
+                  kBins * N,
+          p};
+      if (i < C::P) {
+        b_beamform(z0, z1, wk, ea, na);
+      } else {
+        b_beamform(z0, z1, wk, eb, nb);
+      }
+      B_PHASE(2);
+    }
+    if (fb > j1) {  // frame b lies past the run: its sums may be garbage
+#pragma unroll
+      for (int i = 0; i < 8; ++i) eb[i] = make_float2(0.0f, 0.0f);
+      nb = 0.0f;
+    }
+    __syncthreads();  // the ring's samples consumed
+    B_PHASE(5);
+    if (t0 + C::TF <= j1)
+      a_stage<N, T, L::R>(ring, x, S, t0 + C::TF,
+                          min(j1, t0 + 2 * C::TF - 1), aligned);
+    B_PHASE(0);
+    float2 z0[8], z1[8];
+    b_columns(ea, eb, na, nb, z0, z1);
+    b_inverse(slot, z0, z1, tw1, itw2);
+    B_PHASE(3);
+    // sample n = m + 64 n2 (m = l, l + 32) of frame fa (real parts) and fb
+    // (imaginary): block fa = Q[fa] + P[fb] here, P[fa] published, Q[fb]
+    // kept for block fb
+    float q[8];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        const int o = l + 32 * k + 64 * n2;
+        const float2 u = k ? z1[n2] : z0[n2];
+        const float2 v = k ? z1[n2 + 4] : z0[n2 + 4];
+        const float sp = syn[o], sq = syn[o + kHop];
+        xchg[warp * kHop + o] = u.x * sp;
+        q[4 * k + n2] = v.y * sq;
+        if (fa < j1)
+          ob[(size_t)fa * kHop + o] =
+              (v.x * sq + u.y * sp) * wss_inv[(size_t)fa * kHop + o];
+      }
+    }
+    B_PHASE(4);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // P halves published, the next tile's samples landed
+    B_PHASE(5);
+    // block fb = Q[fb] + P[fb + 1] (warp w + 1's P); the last warp's block
+    // t0 - 1 = Q[t0 - 1] (the previous tile's) + P[t0] (warp 0's)
+    const bool last = warp == C::W - 1;
+    const int j = last ? t0 - 1 : fb;
+    const float* pn = xchg + (last ? 0 : (warp + 1) * kHop);
+    if (j < j1 && j >= j0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int o = l + 32 * (i >> 2) + 64 * (i & 3);
+        ob[(size_t)j * kHop + o] =
+            ((last ? pend[i] : q[i]) + pn[o]) * wss_inv[(size_t)j * kHop + o];
+      }
+    }
+    if (last) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pend[i] = q[i];
+    }
+    B_PHASE(4);
+  }
+  B_PHASE_END;
 }
 
-// At most 56 registers a thread, so four blocks share an SM (measured
-// faster than three blocks without spills, PERF.md).
 template <int N, typename T>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(BCfg<N>::THREADS,
+                                  BLayout<N, T, false>::MIN_BLOCKS)
 beamform_istft_kernel(const T* __restrict__ wav, const float2* __restrict__ w,
                       const float* __restrict__ wss_inv,
                       const float* __restrict__ window,
                       const float* __restrict__ synth, float* __restrict__ out,
-                      int S, int nblk_out) {
+                      int S, int per, int chunk, int n_chunks, int aligned) {
   beamform_istft_body<N, T, false>(wav, w, wss_inv, window, synth, out, S,
-                                   nblk_out, 1, 1);
+                                   per, chunk, n_chunks, aligned);
 }
 
 template <int N, typename T>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(BCfg<N>::THREADS,
+                                  BLayout<N, T, true>::MIN_BLOCKS)
 beamform_istft_online_kernel(const T* __restrict__ wav,
                              const float2* __restrict__ w,
                              const float* __restrict__ wss_inv,
                              const float* __restrict__ window,
                              const float* __restrict__ synth,
-                             float* __restrict__ out, int S, int nblk_out,
-                             int chunk, int n_chunks) {
+                             float* __restrict__ out, int S, int per,
+                             int chunk, int n_chunks, int aligned) {
   beamform_istft_body<N, T, true>(wav, w, wss_inv, window, synth, out, S,
-                                  nblk_out, chunk, n_chunks);
+                                  per, chunk, n_chunks, aligned);
+}
+
+// Test entry's kernel: b_columns and b_inverse on pairs of real spectra,
+// one warp a pair; spec (count, 2, 257) complex64 (the imaginary parts at
+// bins 0 and 256 ignored) -> frames (count, 2, 512) f32, the inverse real
+// DFTs with the 1/512.
+template <typename T>
+__global__ void beamform_istft_inverse_kernel(const float2* __restrict__ spec,
+                                              T* __restrict__ frames) {
+  __shared__ float2 slot[kSlotB];
+  __shared__ float4 tw2[256];
+  __shared__ float4 itw2[256];
+  __shared__ float2 tw1[64];
+  a_twiddles(tw2, tw1);
+  b_twiddles(itw2);
+  __syncthreads();
+  const int l = threadIdx.x & 31;
+  const int kb = l == 0 ? 32 : 64 - l;
+  const float2* sa = spec + (size_t)blockIdx.x * 2 * kBins;
+  const float2* sb = sa + kBins;
+  float2 ea[8], eb[8];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    ea[m] = sa[l + 64 * m];
+    eb[m] = sb[l + 64 * m];
+    ea[4 + m] = sa[kb + 64 * m];
+    eb[4 + m] = sb[kb + 64 * m];
+  }
+  float2 z0[8], z1[8];
+  b_columns(ea, eb, sa[kBins - 1].x, sb[kBins - 1].x, z0, z1);
+  b_inverse(slot, z0, z1, tw1, itw2);
+  T* fa = frames + (size_t)blockIdx.x * 2 * kNfft;
+#pragma unroll
+  for (int n2 = 0; n2 < 8; ++n2) {
+    fa[l + 64 * n2] = z0[n2].x * (1.0f / kNfft);
+    fa[l + 32 + 64 * n2] = z1[n2].x * (1.0f / kNfft);
+    fa[kNfft + l + 64 * n2] = z0[n2].y * (1.0f / kNfft);
+    fa[kNfft + l + 32 + 64 * n2] = z1[n2].y * (1.0f / kNfft);
+  }
 }
 
 template <typename K>
@@ -1183,32 +1437,119 @@ int a_layout(int N, int* out) {
   return err;
 }
 
+// Kernel B's blocks an SM and the current device's SMs.
+template <int N, typename T, bool kOnline>
+int b_occupancy(int* per_sm, int* sms) {
+  using L = BLayout<N, T, kOnline>;
+  int err;
+  if constexpr (kOnline) {
+    err = a_opt_in(beamform_istft_online_kernel<N, T>, L::bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          per_sm, beamform_istft_online_kernel<N, T>, BCfg<N>::THREADS,
+          L::bytes);
+  } else {
+    err = a_opt_in(beamform_istft_kernel<N, T>, L::bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          per_sm, beamform_istft_kernel<N, T>, BCfg<N>::THREADS, L::bytes);
+  }
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Runs of output hop blocks an utterance, a block each: the fewest that
+// fill the card's slots (blocks an SM x SMs) as well as any count does,
+// each run at least one tile of frames (fused_mvdr.frame_runs' rule).
+int b_runs(int B, int nblk, int slots, int tile) {
+  const long long most = max(
+      1LL, min((2LL * slots + B - 1) / B, (long long)(nblk / tile)));
+  long long best = 1, best_blocks = B;
+  long long best_cap = (best_blocks + slots - 1) / slots * slots;
+  for (long long k = 2; k <= most; ++k) {
+    const long long blocks = B * k, cap = (blocks + slots - 1) / slots * slots;
+    if (blocks * best_cap > best_blocks * cap) {  // a better filled card
+      best = k;
+      best_blocks = blocks;
+      best_cap = cap;
+    }
+  }
+  return (int)best;
+}
+
+template <int N, typename T, bool kOnline>
+int b_launch(const T* x, const float2* w, const float* wss_inv,
+             const float* window, const float* synth, float* out, int B,
+             int S, int chunk, int n_chunks, cudaStream_t st) {
+  using L = BLayout<N, T, kOnline>;
+  int per_sm = 0, sms = 0;
+  const int err = b_occupancy<N, T, kOnline>(&per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  const int nblk = S / kHop;
+  const int runs = b_runs(B, nblk, max(1, per_sm * sms), BCfg<N>::TF);
+  const int per = (nblk + runs - 1) / runs;
+  const dim3 grid((nblk + per - 1) / per, B);
+  const int aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  if constexpr (kOnline)
+    beamform_istft_online_kernel<N, T><<<grid, BCfg<N>::THREADS, L::bytes,
+                                         st>>>(x, w, wss_inv, window, synth,
+                                               out, S, per, chunk, n_chunks,
+                                               aligned);
+  else
+    beamform_istft_kernel<N, T><<<grid, BCfg<N>::THREADS, L::bytes, st>>>(
+        x, w, wss_inv, window, synth, out, S, per, 1, 1, aligned);
+  return cudaGetLastError();
+}
+
 // chunk <= 0: offline kernel B; else the online kernel with one weight row
 // per chunk of frames.
 template <typename T>
 int launch_b(const void* wav, const float2* w, const float* wss_inv,
              const float* window, const float* synth, float* out, int B, int N,
              int S, int chunk, cudaStream_t st) {
-  const int nblk_out = S / kHop;
-  const int n_chunks = chunk > 0 ? (nblk_out + chunk) / chunk : 1;
+  const int n_chunks = chunk > 0 ? (S / kHop + chunk) / chunk : 1;
   const T* x = static_cast<const T*>(wav);
-  dim3 grid((nblk_out + chunk_blocks(N) - 1) / chunk_blocks(N), B);
   switch (N) {
-#define CASE(n)                                                          \
-  case n:                                                                \
-    if (chunk > 0)                                                       \
-      beamform_istft_online_kernel<n, T><<<grid, kThreads, 0, st>>>(    \
-          x, w, wss_inv, window, synth, out, S, nblk_out, chunk,         \
-          n_chunks);                                                     \
-    else                                                                 \
-      beamform_istft_kernel<n, T><<<grid, kThreads, 0, st>>>(           \
-          x, w, wss_inv, window, synth, out, S, nblk_out);               \
+#define CASE(n)                                                           \
+  case n:                                                                 \
+    return chunk > 0 ? b_launch<n, T, true>(x, w, wss_inv, window, synth, \
+                                            out, B, S, chunk, n_chunks,   \
+                                            st)                           \
+                     : b_launch<n, T, false>(x, w, wss_inv, window,       \
+                                             synth, out, B, S, 1, 1, st);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Kernel B's shape for N mics, the input type and the entry: blocks an
+// SM, threads a block, frames a tile, shared memory bytes, the device's
+// SMs and the runs an utterance at batch B and S samples.
+template <typename T>
+int b_layout(int N, int online, int B, int S, int* out) {
+  int per_sm = 0, sms = 0, err = cudaErrorInvalidValue;
+  switch (N) {
+#define CASE(n)                                                    \
+  case n:                                                          \
+    err = online ? b_occupancy<n, T, true>(&per_sm, &sms)          \
+                 : b_occupancy<n, T, false>(&per_sm, &sms);        \
+    out[1] = BCfg<n>::THREADS;                                     \
+    out[2] = BCfg<n>::TF;                                          \
+    out[3] = (int)(online ? BLayout<n, T, true>::bytes             \
+                          : BLayout<n, T, false>::bytes);          \
     break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+  out[0] = per_sm;
+  out[4] = sms;
+  out[5] = b_runs(B, S / kHop, max(1, per_sm * sms), out[2]);
+  return err;
 }
 
 bool geometry_ok(int B, int N, int S) {
@@ -1293,6 +1634,31 @@ extern "C" int stft_covar_transform_launch(const void* frames, void* spec,
   return cudaGetLastError();
 }
 
+// Kernel B's shape for N mics, the input type and the entry (online: the
+// per-chunk one): out[0] blocks an SM, out[1] threads a block, out[2]
+// frames a tile, out[3] shared memory bytes, out[4] the current device's
+// SMs, out[5] the runs of output blocks an utterance the launch takes at
+// batch B and S samples.
+extern "C" int beamform_istft_layout(int N, int is_int16, int online, int B,
+                                     int S, int* out) {
+  if (B < 1 || S < kNfft) return cudaErrorInvalidValue;
+  return is_int16 ? b_layout<int16_t>(N, online, B, S, out)
+                  : b_layout<float>(N, online, B, S, out);
+}
+
+// Tests: kernel B's inverse transform alone.  spec (count, 2, 257)
+// complex64 pairs of real spectra; frames (count, 2, 512) f32, the
+// inverse real DFT of each (with the 1/512).
+extern "C" int beamform_istft_inverse_launch(const void* spec, void* frames,
+                                             int count, void* stream) {
+  if (count < 1) return cudaErrorInvalidValue;
+  beamform_istft_inverse_kernel<float><<<count, 32, 0,
+                                         static_cast<cudaStream_t>(
+                                             stream)>>>(
+      static_cast<const float2*>(spec), static_cast<float*>(frames));
+  return cudaGetLastError();
+}
+
 #ifdef SETK_FUSED_PHASES
 // the phase counters of the instrumented build: read (5 values) and zero
 extern "C" int fused_phase_read(unsigned long long* out) {
@@ -1300,6 +1666,14 @@ extern "C" int fused_phase_read(unsigned long long* out) {
   if (err != cudaSuccess) return err;
   const unsigned long long zero[5] = {};
   return cudaMemcpyToSymbol(g_fused_phase, zero, 5 * 8);
+}
+
+// kernel B's (6 values)
+extern "C" int fused_b_phase_read(unsigned long long* out) {
+  int err = cudaMemcpyFromSymbol(out, g_fused_b_phase, 6 * 8);
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero[6] = {};
+  return cudaMemcpyToSymbol(g_fused_b_phase, zero, 6 * 8);
 }
 #endif
 

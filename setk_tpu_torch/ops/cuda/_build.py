@@ -57,6 +57,8 @@ _SIGNATURES = {
                                          _I, _I, _P],
         "stft_covar_layout": [_I, _I, _P],
         "stft_covar_transform_launch": [_P, _P, _I, _P],
+        "beamform_istft_layout": [_I, _I, _I, _I, _I, _P],
+        "beamform_istft_inverse_launch": [_P, _P, _I, _P],
     },
     "planar_stft": {
         "stft_planar_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

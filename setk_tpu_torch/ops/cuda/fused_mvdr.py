@@ -239,6 +239,22 @@ def kernel_a_layout(num_mics: int, int16: bool, device: torch.device) -> dict:
     return _LAYOUTS[key]
 
 
+def kernel_b_layout(num_mics: int, int16: bool, online: bool, batch: int,
+                    nsamps: int, device: torch.device) -> dict:
+    """Kernel B's shape on ``device`` (``online``: the per-chunk entry):
+    blocks an SM, threads a block, frames a tile, shared memory bytes, the
+    SMs, and the runs of output blocks an utterance that its launch takes
+    for ``batch`` utterances of ``nsamps`` samples (the launcher picks
+    them with frame_runs' rule)."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        _build.check(_build.library("fused_mvdr").beamform_istft_layout(
+            num_mics, int(int16), int(online), batch, nsamps,
+            ctypes.addressof(out)), "beamform_istft_layout")
+    return dict(zip(("blocks_per_sm", "threads", "frames_a_tile",
+                     "smem_bytes", "sms", "runs"), out))
+
+
 def frame_runs(batch: int, n_frames: int, slots: int, tile: int) -> int:
     """Runs of frames kernel A splits each utterance into, a block each:
     the fewest that fill the card's ``slots`` (blocks an SM x SMs) as well

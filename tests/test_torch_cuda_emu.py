@@ -141,12 +141,10 @@ def test_beamform_istft_source_matches_plain(libs, b, n, s, int16, runs):
     assert _rel(out, fm.beamform_istft_plain(wav, w, wss, window)) < TOL
 
 
-# online pair: chunks that do and do not divide kernel B's 16 (8 at N > 6)
-# hop blocks a block, so the extra frame a block computes for its
-# overlap-add falls in the next chunk (16), mid-chunk (5) or both (24,
-# T = 49: block 2's frames 32..47 in chunk 1, its extra frame 48 in
-# chunk 2); chunk 1 is one frame a chunk (at T = 81, two of covar_ema's
-# tiles of 64 chunks), 64 one chunk for every frame
+# online pair: chunks that do and do not divide kernel B's tile of 8
+# frames, so a pair of frames, a tile or a run ends inside a chunk (16),
+# mid-chunk (5) or both (24); chunk 1 is one frame a chunk (at T = 81, two
+# of covar_ema's tiles of 64 chunks), 64 one chunk for every frame
 ONLINE = [(1, 3, 8192, False, 16), (2, 6, 8192, True, 5),
           (1, 4, 12288, True, 24), (1, 8, 4352, False, 5),
           (1, 2, 20480, False, 1), (1, 2, 4096, True, 64)]
@@ -324,6 +322,135 @@ def test_beamform_istft_online_source_matches_plain(libs, b, n, s, int16,
     assert err == 0
     ref = fm.beamform_istft_online_plain(wav, w, wss, window, chunk)
     assert _rel(out, ref) < TOL
+
+
+def _kernel_b_weights(b, n, c, seed):
+    """Random complex weights (B, 257, N), or (B, C, 257, N) for c."""
+    rng = np.random.default_rng(seed)
+    shape = (b, 257, n) if c is None else (b, c, 257, n)
+    return torch.from_numpy((rng.standard_normal(shape) + 1j *
+                             rng.standard_normal(shape)).astype(
+                                 np.complex64))
+
+
+def _kernel_b_case(libs, b, n, s, int16, chunk, offset, seed):
+    """Kernel B (offline for chunk None, else the online entry) against
+    its plain version: max |diff| / max |plain|."""
+    cfg, wav, _ = _kernel_a_inputs(b, n, s, int16, offset, seed)
+    window = torch.as_tensor(cfg.padded_window)
+    win = (window * fm.input_scale(wav)).contiguous()
+    t = cfg.num_frames(s)
+    wss = torch.from_numpy(wss_inverse_blocks(cfg.padded_window, t, 256,
+                                              512, s))
+    out = torch.empty((b, s), dtype=torch.float32)
+    lib = libs["fused_mvdr"]
+    if chunk is None:
+        w = _kernel_b_weights(b, n, None, seed)
+        assert lib.beamform_istft_launch(
+            wav.data_ptr(), w.data_ptr(), wss.data_ptr(), win.data_ptr(),
+            window.data_ptr(), out.data_ptr(), b, n, s, int(int16),
+            None) == 0
+        ref = fm.beamform_istft_plain(wav, w, wss, window)
+    else:
+        w = _kernel_b_weights(b, n, fm.num_chunks(t, chunk), seed)
+        assert lib.beamform_istft_online_launch(
+            wav.data_ptr(), w.data_ptr(), wss.data_ptr(), win.data_ptr(),
+            window.data_ptr(), out.data_ptr(), b, n, s, chunk, int(int16),
+            None) == 0
+        ref = fm.beamform_istft_online_plain(wav, w, wss, window, chunk)
+    return _rel(out, ref)
+
+
+def _kernel_b_runs(libs, b, n, s, int16, online):
+    out = (ctypes.c_int * 6)()
+    assert libs["fused_mvdr"].beamform_istft_layout(
+        n, int(int16), int(online), b, s, ctypes.addressof(out)) == 0
+    return out[5]
+
+
+# kernel B's tiles (8 frames, a pair a warp) and runs: N = 1, 2, 5 and 8
+# (odd N: the last transform carries one mic), int16 and f32, a waveform
+# off 16-byte alignment (the samples copied one by one), B = 1 at S = 512
+# (T = 3: one short tile, the second frame of its last pair past the run),
+# runs that end inside a tile and several runs an utterance (B = 1 on the
+# emulated card's 6 SMs), pairs past the run in a short last tile
+KERNEL_B = [(1, 1, 4096, True, 0), (1, 2, 512, False, 0),
+            (1, 5, 5120, True, 0), (2, 8, 2560, False, 0),
+            (1, 5, 4096, False, 1), (1, 8, 3328, True, 0),
+            (2, 3, 1536, True, 1)]
+
+
+@pytest.mark.parametrize("b,n,s,int16,offset", KERNEL_B)
+def test_kernel_b_tiles_and_runs_match_plain(libs, b, n, s, int16, offset):
+    assert _kernel_b_case(libs, b, n, s, int16, None, offset,
+                          seed=n + s) < TOL
+
+
+def test_kernel_b_cases_take_several_runs(libs):
+    """The cases above reach several runs an utterance, one run, and runs
+    whose frame count is odd (a pair with one frame in the run)."""
+    runs = {(b, s): _kernel_b_runs(libs, b, n, s, i16, False)
+            for b, n, s, i16, _ in KERNEL_B}
+    assert runs[(1, 4096)] > 1 and runs[(1, 512)] == 1
+    assert any(-(-(s // 256) // r) % 2 == 0 for (b, s), r in runs.items())
+
+
+# online: chunk 1 (a weight row a frame), chunks that do not divide the
+# tile of 8 frames (3, 5, 12: a tile's pairs in two or three chunks, a pair
+# split between chunks), chunk 32 and a chunk larger than T, over several
+# runs an utterance, N = 2, 6, 7, 8, int16 and unaligned f32
+KERNEL_B_ONLINE = [(1, 2, 4096, True, 1, 0), (1, 6, 4096, False, 3, 1),
+                   (2, 7, 3072, True, 5, 0), (1, 8, 6144, True, 12, 0),
+                   (1, 6, 10240, True, 32, 0), (1, 3, 1024, False, 64, 1)]
+
+
+@pytest.mark.parametrize("b,n,s,int16,chunk,offset", KERNEL_B_ONLINE)
+def test_kernel_b_online_chunks_match_plain(libs, b, n, s, int16, chunk,
+                                           offset):
+    assert _kernel_b_case(libs, b, n, s, int16, chunk, offset,
+                          seed=n + chunk) < TOL
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_b_inverse_matches_irfft(libs, seed):
+    """Kernel B's warp inverse alone (beamform_istft_inverse_launch): five
+    pairs of random real spectra, a pair a warp, against torch's irfft;
+    the first pair a lone bin 1 and a lone bin 256."""
+    rng = np.random.default_rng(seed)
+    spec = (rng.standard_normal((5, 2, 257)) + 1j *
+            rng.standard_normal((5, 2, 257))).astype(np.complex64)
+    spec[0] = 0.0
+    spec[0, 0, 1] = 1.0 - 0.5j
+    spec[0, 1, 256] = 2.0
+    spec = torch.from_numpy(spec)
+    frames = torch.empty((5, 2, 512), dtype=torch.float32)
+    assert libs["fused_mvdr"].beamform_istft_inverse_launch(
+        spec.data_ptr(), frames.data_ptr(), 5, None) == 0
+    ref = torch.fft.irfft(spec.to(torch.complex128), n=512, dim=-1)
+    assert _rel(frames.double(), ref) < TOL
+
+
+@pytest.mark.parametrize("n", range(0, 10))
+def test_kernel_b_layout(libs, n):
+    """beamform_istft_layout: 4 warps and 8 frames a tile, within the
+    card's 227 KB, the offline weights in shared memory, and the runs an
+    utterance frame_runs' rule picks; N outside 1..8 refused."""
+    out = (ctypes.c_int * 6)()
+    for int16 in (1, 0):
+        smem = {}
+        for online in (0, 1):
+            err = libs["fused_mvdr"].beamform_istft_layout(
+                n, int16, online, 3, 20480, ctypes.addressof(out))
+            if not 1 <= n <= 8:
+                assert err != 0
+                continue
+            assert err == 0
+            per_sm, threads, tile, smem[online], sms, runs = out
+            assert threads == 128 and tile == 8 and per_sm == 1
+            assert smem[online] <= EMU_SMEM and sms == EMU_SMS
+            assert runs == fm.frame_runs(3, 80, EMU_SMS, 8) == 2
+        if smem:
+            assert smem[0] - smem[1] == (n + 1) // 2 * 257 * 16
 
 
 @pytest.mark.parametrize("n", [1, 2, 6, 8])

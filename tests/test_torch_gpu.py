@@ -195,6 +195,53 @@ def test_kernel_a_layout_on_the_card():
     assert fm.frame_runs(128, 501, slots, 8) == (1 if slots >= 128 else 2)
 
 
+@pytest.mark.parametrize("b,n,s,int16,chunk,offset", [
+    (3, 1, 4096, True, None, 0), (1, 2, 512, False, None, 1),
+    (3, 5, 20480, True, None, 0), (3, 8, 8192, False, None, 1),
+    (1, 6, 131072, True, None, 0), (3, 6, 12288, True, 1, 0),
+    (3, 7, 8192, False, 3, 1), (3, 8, 20480, True, 5, 0),
+    (2, 6, 131072, True, 32, 0)])
+def test_kernel_b_shapes_match_plain(b, n, s, int16, chunk, offset):
+    """Kernel B offline and online at N = 1, 2, 5, 6, 7 and 8, T = 3,
+    many runs an utterance (B = 1 and 2), chunks 1, 3 and 5 (chunks that
+    do not divide its tile of 8 frames) and 32, and a waveform off 16-byte
+    alignment."""
+    dev = _card()
+    cfg, wav, _ = _inputs(b, n, s, int16, seed=n + s)
+    flat = np.concatenate([np.zeros(offset, wav.dtype), wav.ravel()])
+    wav_d = torch.from_numpy(flat).to(dev)[offset:].view(wav.shape)
+    window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
+                             device=dev)
+    t = cfg.num_frames(s)
+    wss = torch.as_tensor(wss_inverse_blocks(cfg.padded_window, t, 256, 512,
+                                             s), device=dev)
+    rng = np.random.default_rng(s)
+    shape = (b, 257, n) if chunk is None else (b, fm.num_chunks(t, chunk),
+                                               257, n)
+    w = torch.from_numpy((rng.standard_normal(shape) + 1j *
+                          rng.standard_normal(shape)).astype(
+                              np.complex64)).to(dev)
+    if chunk is None:
+        got = fm.beamform_istft(wav_d, w, wss, window)
+        ref = fm.beamform_istft_plain(wav_d, w, wss, window)
+    else:
+        got = fm.beamform_istft_online(wav_d, w, wss, window, chunk)
+        ref = fm.beamform_istft_online_plain(wav_d, w, wss, window, chunk)
+    assert _rel(got, ref) < TOL
+
+
+def test_kernel_b_layout_on_the_card():
+    """Kernel B is blocks of 4 warps, a tile of 8 frames, several blocks
+    an SM at 6 mics, and splits each utterance of a batch of 128 into the
+    runs frame_runs' rule picks for its slots."""
+    dev = _card()
+    lay = fm.kernel_b_layout(6, True, False, 128, 128000, dev)
+    assert lay["threads"] == 128 and lay["frames_a_tile"] == 8
+    assert lay["blocks_per_sm"] >= 2
+    slots = lay["blocks_per_sm"] * lay["sms"]
+    assert lay["runs"] == fm.frame_runs(128, 500, slots, 8)
+
+
 @pytest.mark.parametrize("b,s,chunk", [(2, 16384, 32), (2, 16384, 24),
                                        (1, 64000, 32)])
 def test_online_enhance_batch_runs_kernels_only(b, s, chunk):
