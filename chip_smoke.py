@@ -8,7 +8,8 @@ the CUDA toolkit.  In order it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from setk_tpu_torch/csrc (one nvcc per source,
      all at once) and prints the build time and ptxas' register and
-     spill counts;
+     spill counts (kernel 9's instances at every n_fft on a line of their
+     own);
   3. holds kernel A, the MVDR solve and kernel B against their plain
      PyTorch versions on the card at the bench shape (B=128, N=6, 8 s at
      16 kHz, int16 audio, mask uniform on [0, 1) from
@@ -175,8 +176,10 @@ the CUDA toolkit.  In order it:
      never on the port's path), and enhance_batch for every name, for the
      online path and for P1, P2 and E, and the cgmm/cacgmm EM at B=128
      with CUDA events (warm-up, then 20 calls; fewer for the slow plain
-     versions and the EM; kernel 15 also at WPD's shape), profiles the
-     fused, P1, E and EM steps
+     versions and the EM; kernel 15 also at WPD's shape, kernel 9 also at
+     P2, kernel 14 also at the CGMM CLI resume's launch of one
+     utterance's 2 x 257 matrices, held to its plain version there),
+     profiles the fused, P1, E and EM steps
      (torch.profiler: device time by kernel, the device's idle share)
      and prints the kernels line (kernels 16-19 timed at W's scene, with
      the wpe, wpd and BatchWpe steps and their idle shares, 20-21 and the
@@ -1962,6 +1965,12 @@ def main() -> int:
             n, True, on, B, S, torch.device("cuda", 0))
             for n in (6, 8) for on in (False, True)}}))
 
+    # kernel 9's instances at each n_fft
+    print(json.dumps({"ptxas_stft_planar": {
+        key: ptxas.get(key, "not built now") for key in (
+            f"stft_planar<{lg},{c},{t}>" for lg in (8, 9, 10, 11)
+            for c in (1, 0) for t in ("int16", "f32"))}}))
+
     # ---- 3. kernels against their plain versions at the bench shape ----
     cfg = StftConfig()
     t_frames = cfg.num_frames(S)
@@ -2864,6 +2873,24 @@ def main() -> int:
             break
         except RuntimeError as exc:
             info["regularized_inverse"] = f"not measured: {str(exc)[:70]}"
+    # kernel 14 at the CGMM CLI resume's launch (one utterance's K = 2 x
+    # 257 matrices, as C3 launches it 36 times)
+    res14 = cov13[:, 0].contiguous()
+    inv_r, _ = es.regularized_inverse(res14)
+    inv_rp, _ = es.jacobi_regularized_inverse_plain(res14)
+    res14_err = float(((inv_r - inv_rp).abs().amax(dim=(-1, -2)) /
+                       inv_rp.abs().amax(dim=(-1, -2))).max())
+    if not res14_err <= TOL:
+        raise AssertionError(f"kernel 14 at the resume's shape: {res14_err} "
+                             f"> {TOL}")
+    row_extra = {"regularized_inverse": {
+        "resume_514_ms": _graph_ms(torch, lambda: es.regularized_inverse(
+            res14)),
+        "resume_514_eager_ms": _time_ms(torch, lambda: es.regularized_inverse(
+            res14)),
+        "resume_514_max_rel_err": res14_err},
+        "stft_planar": {"P2_S128100_ms": _graph_ms(
+            torch, lambda: pl.stft_planar(wav2_d, window, True))}}
     # kernel 15 at WPD's shape (B = 32 x 4 s, T = 251, CGMM 10 iterations)
     # beside C1's, with the launch's layout
     wobs = cobs[:W_B, ..., :WPD_T].contiguous()
@@ -2904,6 +2931,7 @@ def main() -> int:
                      "stft_covar_chunks": "rfft_frames_ms_info"}.get(
                          name, "linalg_solve_ms_info")
             row[label] = info[name]
+        row.update(row_extra.get(name, {}))
         kernels.append(row)
     kernels += wpe_kernels + blstm_kernels
     gevd50_ms = _graph_ms(torch, lambda: mv.gevd_power(grs, grn,

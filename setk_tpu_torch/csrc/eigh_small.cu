@@ -9,13 +9,20 @@
 // The arithmetic is jacobi.cuh's, shared with kernel 15.
 //
 // Bound on the card: operations.  At K = 2 classes of B = 128 utterances x
-// 257 bins (65,792 matrices of 6 x 6) six sweeps are about 26 kFLOP a
-// matrix, ~1.7 GFLOP in all (~0.03 ms at 67 TFLOP/s f32), against 38 MB
+// 257 bins (65,792 matrices of 6 x 6) six sweeps are about 36 kFLOP a
+// matrix, ~2.35 GFLOP in all (~0.035 ms at 67 TFLOP/s f32), against 38 MB
 // read and written (~0.01 ms).  One thread keeps its matrix, the rotation
 // state and the eigenvectors in registers (4 M^2 floats, 144 at M = 6), so
 // the sweeps never touch memory; the TPU's entry-major (8, 128) planes have
 // no counterpart.  Loads and stores are strided by M^2 complex values
-// between threads, a few percent of the time at these sizes.
+// between threads, a few percent of the time at these sizes.  The CGMM
+// CLI's per-utterance resume launches it on 2 x 257 = 514 matrices, where
+// the launch lasts one thread's chain of 90 rotations.  Lane groups
+// (jacobi_regularized_inverse_group, kernel 15's body) measured slower on
+// the H100 at both counts, since the rotation's angle is a serial chain
+// that a group does not shorten, and staging each warp's matrices through
+// shared memory gained no more than the spread between runs on the EM's
+// covariances (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

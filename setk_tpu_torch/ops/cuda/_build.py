@@ -64,6 +64,7 @@ _SIGNATURES = {
         "stft_planar_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "istft_planar_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _P],
+        "stft_planar_transform_launch": [_P, _P, _I, _I, _P],
     },
     "covariance_pair": {
         "pair_covar_launch": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,

@@ -16,6 +16,10 @@
 // kernel, args)` before compiling, and each dynamic shared array into a
 // pointer to the block's buffer of `smem` bytes.
 //
+// Dynamic shared memory starts each block as all-ones bytes (a NaN in
+// every float or double, -1 in every integer), so that a kernel that reads
+// a word it did not write shows it, as the card's leftovers may.
+//
 // cp.async (cuda_pipeline_primitives.h, which includes this file) is a
 // plain copy.
 //
@@ -192,6 +196,7 @@ void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, K kernel,
   char* dyn_smem = reinterpret_cast<char*>(dyn.data());
   for (unsigned by = 0; by < grid.y; ++by) {
     for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::memset(dyn_smem, 0xff, dyn.size() * sizeof(double));
       std::barrier<> bar(block);
       std::vector<std::thread> threads;
       for (int t = 0; t < block; ++t) {
@@ -225,6 +230,7 @@ void emu_launch_cooperative(void (*kernel)(P...), dim3 grid, dim3 block,
   for (unsigned i = 0; i < blocks; ++i) {
     bars.push_back(std::make_unique<std::barrier<>>(per_block));
     dyn[i].resize(smem / sizeof(double) + 1);
+    std::memset(dyn[i].data(), 0xff, dyn[i].size() * sizeof(double));
   }
   std::vector<std::thread> threads;
   for (unsigned i = 0; i < blocks; ++i) {

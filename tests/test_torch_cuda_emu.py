@@ -6,7 +6,8 @@ runtime (blocks in order, a block's threads as std::threads with a
 barrier), and run through their C entry points on CPU tensors.  This
 checks the kernels' index arithmetic, FFT, reductions, overlap-add,
 the online pair's chunking and EMA, the per-bin solves, the planar
-STFT/iSTFT (n_fft 256 and 1024, center on and off, any length), the
+STFT/iSTFT (n_fft 256 and 1024, center on and off, any length; the STFT's
+warp transform at every n_fft, runs and tiles that T does not fill), the
 pair covariance (N = 1, 6 and 8, complement mask or two masks), the
 masked covariance against K classes (warp shuffles), the Jacobi
 regularized inverse, the fused CGMM/CACGMM EM (both models, both
@@ -597,6 +598,67 @@ def test_stft_planar_source_matches_plain(libs, n_fft, s, center, int16):
         assert float((got - want).abs().max() / peak) < TOL
 
 
+# kernel 9 (a run of 64 frames a block, tiles of 8) on runs and tiles that
+# T does not fill: T = 77, 73 (a second run of 13 and 9 frames), 19, 17,
+# 13, 9 and 5 (an odd last tile, whose last pair has no frame b), center
+# on and off, int16 and f32, and f32 rows off 16-byte alignment (offset
+# samples)
+PLANAR_TILES = [(256, 9800, True, False, 0),
+                (256, 2304, False, True, 0),
+                (512, 3300, True, False, 1),
+                (512, 19000, False, False, 2),
+                (1024, 9300, True, False, 3),
+                (1024, 6000, False, True, 0),
+                (2048, 9000, True, True, 0),
+                (2048, 7000, False, False, 2)]
+
+
+@pytest.mark.parametrize("n_fft,s,center,int16,offset", PLANAR_TILES)
+def test_stft_planar_tiles_match_plain(libs, n_fft, s, center, int16,
+                                       offset):
+    """Three rows of S samples laid end to end from ``offset`` samples
+    into a buffer, so that for f32 every row (offset 1-3) or every other
+    row (S odd) is off 16-byte alignment and is staged sample by sample;
+    the emulator's shared memory starts as NaN, so a frame that reads
+    samples its block did not stage fails."""
+    cfg, wav, window = _planar_inputs(n_fft, s, center, int16, seed=s)
+    win = (window * fm.input_scale(wav)).contiguous()
+    flat = torch.zeros(3 * s + offset, dtype=wav.dtype)
+    flat[offset:] = wav.reshape(-1)
+    t = cfg.num_frames(s)
+    re = torch.empty((3, t, n_fft // 2))
+    im = torch.empty_like(re)
+    nyq = torch.empty((3, t))
+    err = libs["planar_stft"].stft_planar_launch(
+        flat.data_ptr() + offset * flat.element_size(), win.data_ptr(),
+        re.data_ptr(), im.data_ptr(), nyq.data_ptr(), 3, s, n_fft,
+        int(center), int(int16), None)
+    assert err == 0
+    ref = pl.stft_planar_plain(wav, window, center)
+    peak = torch.complex(ref[0], ref[1]).abs().max()
+    for got, want in zip((re, im, nyq), ref):
+        assert float((got - want).abs().max() / peak) < TOL
+
+
+@pytest.mark.parametrize("n_fft", pl.PLANAR_NFFT)
+def test_stft_planar_transform_matches_rfft(libs, n_fft):
+    """Kernel 9's warp transform alone (stft_planar_transform_launch) on
+    windowed rows: three pairs of rows, a pair a warp, the two rows of a
+    pair split from one complex transform; an impulse at sample 1 and a
+    constant row in the first pair."""
+    rng = np.random.default_rng(n_fft)
+    frames = rng.standard_normal((3, 2, n_fft)).astype(np.float32)
+    frames[0, 0] = 0.0
+    frames[0, 0, 1] = 1.0
+    frames[0, 1] = 0.25
+    frames = torch.from_numpy(frames)
+    spec = torch.empty((3, 2, n_fft // 2 + 1), dtype=torch.complex64)
+    assert libs["planar_stft"].stft_planar_transform_launch(
+        frames.data_ptr(), spec.data_ptr(), 3, n_fft, None) == 0
+    ref = torch.fft.rfft(frames.double(), dim=-1)
+    assert _rel(spec.to(torch.complex128), ref) < TOL
+
+
 @pytest.mark.parametrize("n_fft,s", [(256, 3000), (1024, 8192)])
 @pytest.mark.parametrize("extra", [0, -700, 333])
 def test_istft_planar_source_matches_plain(libs, n_fft, s, extra):
@@ -671,6 +733,9 @@ def test_planar_entry_points_reject_bad_arguments(libs):
                                          (1, 9, 512, 2048, 2000)):
         assert lib.istft_planar_launch(p, p, p, p, p, p, b, t, n_fft,
                                        n_valid, nsamps, None) != 0
+    for pairs, n_fft in ((0, 512), (1, 4096)):
+        assert lib.stft_planar_transform_launch(p, p, pairs, n_fft,
+                                                None) != 0
     lib = libs["covariance_pair"]
     for es, b, n, t, f, mt, mb, mn in ((1, 1, 9, 4, 8, 8, 32, p),
                                        (3, 1, 2, 4, 8, 8, 32, p),
@@ -724,6 +789,47 @@ def test_regularized_inverse_source_matches_plain(libs, m):
     assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) < \
         SOLVE_TOL
     assert float((logdet - ref_ld).abs().max()) < SOLVE_TOL * m
+
+
+def _jacobi_cases(m, n, seed):
+    """Full rank, rank one (the EPSILON floor), near-diagonal (every
+    off-diagonal entry 1e-20, below the rotation's threshold), exactly
+    diagonal matrices, and a diagonal one whose entries differ by 1e5,
+    where tau = 1e5 / 2e-15 is past 2^64, 1 + tau^2 is inf and the
+    rotation's t is 0."""
+    rng = np.random.default_rng(seed)
+    a = _hermitian(rng, n, m, m + 2)
+    a[:4] = _hermitian(rng, 4, m, 1)
+    diag = torch.diag(torch.arange(1, m + 1, dtype=torch.float32) * 0.7)
+    a[4] = diag + 1e-20 * (1 + 1j) * (1 - torch.eye(m))
+    a[5] = diag.to(torch.complex64)
+    a[6] = (diag * torch.tensor([1e5] + [1.0] * (m - 1))).to(torch.complex64)
+    return a
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+def test_regularized_inverse_edge_cases_match_plain(libs, m):
+    """Kernel 14 on the cases of _jacobi_cases, 37 matrices (a partial
+    last warp), a logdet pointer of null for one launch: within SOLVE_TOL
+    of each matrix's peak of the plain Jacobi, logdet within SOLVE_TOL *
+    M, and the same inverse without the logdet."""
+    n = 37
+    a = _jacobi_cases(m, n, seed=10 * m)
+    inv = torch.empty_like(a)
+    logdet = torch.empty(n)
+    lib = libs["eigh_small"]
+    assert lib.regularized_inverse_launch(a.data_ptr(), inv.data_ptr(),
+                                          logdet.data_ptr(), n, m, 6,
+                                          None) == 0
+    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
+    peak = ref_inv.abs().amax(dim=(-1, -2))
+    assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) < \
+        SOLVE_TOL
+    assert float((logdet - ref_ld).abs().max()) < SOLVE_TOL * m
+    again = torch.empty_like(a)
+    assert lib.regularized_inverse_launch(a.data_ptr(), again.data_ptr(),
+                                          None, n, m, 6, None) == 0
+    assert torch.equal(again, inv)
 
 
 def _em_inputs(rng, b, f, m, t, k):

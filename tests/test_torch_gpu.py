@@ -323,6 +323,28 @@ def test_planar_kernels_match_plain(n_fft, s, center, int16):
         assert not out[:, n_sig:].any()
 
 
+@pytest.mark.parametrize("n_fft,s", [(512, 24001), (1024, 24001),
+                                     (512, 19501), (1024, 71901)])
+def test_stft_planar_unaligned_rows_match_plain(n_fft, s):
+    """Kernel 9 on f32 rows off 16-byte alignment: S odd puts every
+    other row off it and a one-sample offset into the buffer the rest, so
+    the rows are staged sample by sample.  At S = 19501 and 71901 (T =
+    77 and 141) a row's last run of 64 frames holds 13, an odd last tile
+    whose last pair has no frame b."""
+    dev = _card()
+    cfg = StftConfig(frame_len=n_fft, frame_hop=n_fft // 2)
+    x = np.random.default_rng(n_fft).standard_normal(6 * s + 1).astype(
+        np.float32) * 0.3
+    wav_d = torch.from_numpy(x).to(dev)[1:].reshape(2, 3, s)
+    window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
+                             device=dev)
+    got = pl.stft_planar(wav_d, window, True)
+    ref = pl.stft_planar_plain(wav_d, window, True)
+    peak = torch.complex(ref[0], ref[1]).abs().max()
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max() / peak) < TOL
+
+
 @pytest.mark.parametrize("n", [1, 6, 8])
 def test_pair_covar_matches_plain(n):
     """Kernel 12 on a permuted view of a spectrum, as compute_covar_pair
@@ -452,6 +474,27 @@ def test_regularized_inverse_matches_plain(m):
     assert float(((inv2.cpu() - cpu_inv).abs().amax(dim=(-1, -2)) /
                   peak.cpu()).max()) < 1e-3
     assert float((ld2.cpu() - cpu_ld).abs().max()) < 1e-3 * m
+
+
+@pytest.mark.parametrize("count", [514, 65792])
+def test_regularized_inverse_launch_shapes_match_plain(count):
+    """Kernel 14 at the CGMM CLI resume's launch (514 = 2 x 257 matrices
+    of 6 x 6: five blocks) and at the bench shape (65,792): one launch
+    each, within 1e-4 of each matrix's peak of the plain Jacobi, logdet
+    within 1e-4 * M, on sample covariances of 16 frames (full rank, as
+    the EM's are)."""
+    dev = _card()
+    rng = np.random.default_rng(count)
+    z = _cplx(rng, count, 6, 16, dev=dev)
+    a = (z @ z.conj().transpose(-1, -2) / 16).contiguous()
+    es.regularized_inverse.launches = 0
+    inv, logdet = es.regularized_inverse(a)
+    assert es.regularized_inverse.launches == 1
+    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
+    peak = ref_inv.abs().amax(dim=(-1, -2))
+    assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) \
+        < TOL
+    assert float((logdet - ref_ld).abs().max()) < TOL * 6
 
 
 @pytest.mark.parametrize("model,init,k,masked,m,t", [
