@@ -172,8 +172,10 @@ the CUDA toolkit.  In order it:
   19. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
-     function where there is one (torch.stft, torch.istft, torch.einsum;
-     never on the port's path), and enhance_batch for every name, for the
+     function where there is one (torch.stft, torch.istft, torch.einsum,
+     torch.linalg.solve of kernels 16-17's loaded systems, kernel 19's
+     grouped complex conv1d; never on the port's path), and enhance_batch
+     for every name, for the
      online path and for P1, P2 and E, and the cgmm/cacgmm EM at B=128
      with CUDA events (warm-up, then 20 calls; fewer for the slow plain
      versions and the EM; kernel 15 also at WPD's shape, kernel 9 also at
@@ -1384,6 +1386,39 @@ def _wpe_slice(np, torch, dev, cfg):
     load = ((1e-6 / nk) * torch.diagonal(corr, dim1=-2, dim2=-1).real.sum(
         -1) + eps)[:, None, None] * torch.eye(nk, device=dev)
     loaded = corr + load
+    # library_ms, one PyTorch call of the same function on operands built
+    # beforehand (never on the port's path): kernels 16 and 17
+    # torch.linalg.solve of the loaded systems; kernel 19 one grouped
+    # complex conv1d over the left-padded frames, a group a bin, whose
+    # weights are the identity at lag 0 and -conj(G) at lags delay ...
+    # delay + taps - 1 (conv1d correlates: lag j at kernel index lead - j)
+    lead = delay + taps - 1
+    w_conv = torch.zeros((bins, n, n, lead + 1), dtype=torch.complex64,
+                         device=dev)
+    w_conv[..., :taps] = -g_w.reshape(bins, taps, n, n).permute(
+        0, 3, 2, 1).conj().flip(-1)
+    w_conv[..., lead] += torch.eye(n, dtype=torch.complex64, device=dev)
+    w_conv = w_conv.reshape(bins * n, n, lead + 1)
+    x_conv = torch.nn.functional.pad(flat.reshape(1, bins * n, t), (lead, 0))
+    library = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 products, as the kernels
+    try:
+        for name, fn, ref in (
+                ("hermitian_solve_lanes",
+                 lambda: torch.linalg.solve(loaded, cross),
+                 ch.hermitian_solve_lanes_plain(corr, cross)),
+                ("solve_wpe_gram", lambda: torch.linalg.solve(loaded, cross),
+                 ch.solve_wpe_gram_plain(gram_w, n, nk, n)),
+                ("wpe_apply", lambda: torch.nn.functional.conv1d(
+                    x_conv, w_conv, groups=bins).reshape(flat.shape),
+                 wg.wpe_apply_plain(flat, g_w, taps, delay))):
+            library[name] = {
+                "ms": _time_ms(torch, fn, iters=5, warmup=1),
+                "max_rel_err": _rel(fn(), ref)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del x_conv, w_conv
     taps_m = wg.tap_rows(flat, taps, delay)
     sw = torch.rsqrt(torch.clamp(compute_lambda(flat, ctx), min=eps))
     stack = torch.cat([flat, taps_m], dim=-2) * sw[:, None, :]
@@ -1414,8 +1449,12 @@ def _wpe_slice(np, torch, dev, cfg):
             "ms": _graph_ms(torch, run_k, iters=10),
             "eager_ms": _time_ms(torch, run_k, iters=10),
             "plain_ms": _time_ms(torch, run_p, iters=3, warmup=1),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library[name]["ms"] if name in library else None,
             info_of[name]: info[info_of[name]]})
+        if name in library:
+            kernels[-1]["library_max_rel_err"] = library[name][
+                "max_rel_err"]
     steps = {}
     wpe_ms = _time_ms(torch, lambda: tw.wpe(obs_w), iters=5, warmup=1)
     wpd_ms = _time_ms(torch, wpd_run, iters=3, warmup=1)

@@ -36,6 +36,9 @@
 // multiply-adds a frame (72.9 GFLOP) plus the dereverberation's 360 a
 // frame (11.9 GFLOP), ~1.26 ms at 67 TFLOP/s, against 198 MB of spectra,
 // 24 MB of G and 287 MB of Gram (~0.15 ms at 3.35 TB/s): operations.
+// Kernel 19 does the dereverberation's 360 complex multiply-adds a frame
+// alone (11.9 GFLOP, ~0.18 ms) against 198 MB of spectra in, 198 MB out
+// and 24 MB of G (~0.13 ms): operations, with the bytes close behind.
 //
 // Kernel 18's design.  A block owns a bin and walks T in tiles of 64
 // frames; each thread owns a 4 x 4 block of the Gram's upper block
@@ -65,6 +68,36 @@
 // consumer warps through two design tiles were tried and ran slower: two
 // producer warps could not keep up, and the products' 127 registers a
 // thread left room for two blocks an SM.
+//
+// Kernel 19's design.  Its work is a list of items, (bin, tile of
+// kApplyTile frames), bin-major; a launch has one wave of blocks (the SMs
+// times the blocks an SM holds) and each block of 4 warps walks
+// a contiguous run of items, across bins.  An item's window (frames t0 -
+// delay - taps + 1 ... t0 + tile, zero outside [0, T)) and, at a bin's
+// first item, the bin's G (into one of two G buffers, by the bin's
+// parity: staged once a bin a block walks) arrive in 16-byte cp.async
+// copies through a two-slot ring while the previous item's sums run, so
+// that a block meets at one barrier an item.  A copy's source address
+// decides its alignment: a window row that starts at an odd complex word
+// holds one frame more, and G goes in 8-byte copies where its first word
+// is not on 16 bytes.
+// Lane l of warp w owns frames t0 + 32 (kApplyFrames w + f) + l and holds
+// all N mics' sums of each in registers (the template's N): for each
+// (tap, mic m2) it loads each of its frames' samples once (two wavefronts
+// a warp) and reads G's row as broadcast 8-byte words, then runs 4 N
+// kApplyFrames FFMAs.  The current frames y are the window's last
+// kApplyTile columns, and d = y - sum leaves in stores of consecutive
+// frames of a mic's row.  Where delay + taps - 1 exceeds kApplyTile the
+// window stops at t0 - delay + tile and y is read from device memory
+// instead, so that shared memory stays under 80 KB at every delay (y from
+// device memory at every delay measured ~19 % slower).  On an H100 at the
+// WPE scene (PERF.md) it runs ~1.75x its bound: a warp spends about half
+// its cycles at the item's barrier and ~40 % in its sums; 1 frame a lane
+// ran ~16 % slower, 4 ~2 % faster there but ~80 % slower at WPD's T =
+// 251 (half of a 512-frame tile idle), and neither a third slot, 2 or 8
+// warps a block nor 16-byte reads of G moved it by more than 3 %; a block
+// a bin with G staged once (two tiles a bin at T = 501) spent 55 % waiting
+// for its first window.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -73,47 +106,47 @@
 namespace {
 
 constexpr int kMaxGramThreads = 256;
+constexpr int kTile = 64;   // frames a tile of kernel 18
+// kernel 19's block: 4 warps, 2 frames a lane (2 and 8 warps, 1 frame,
+// and 4 frames at WPD's T = 251 measured slower)
 constexpr int kApplyThreads = 128;
-constexpr int kTile = 64;   // frames a tile
+constexpr int kApplyFrames = 2;
+constexpr int kApplyTile = kApplyThreads * kApplyFrames;  // frames a tile
 constexpr int kRB = 4;      // Gram rows and columns a thread owns
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 epsilon
 
 #ifdef SETK_WPE_PHASES
 // tools/wpe_phase_profile.py's build: lane 0 of every warp adds the SM
-// cycles of each phase of kernel 18 into device counters: 0 waiting for
+// cycles of each phase into device counters.  Kernel 18: 0 waiting for
 // the frames and the block, 1 d, lambda and sw, 2 the design tile, 3 the
 // barrier after it and the next frames' cp.async, 4 products, 5 tile sums
-// and the Gram's write
+// and the Gram's write.  Kernel 19: 0 waiting for the tile's window and
+// the block (with issuing the next window's cp.async), 1 the sums, 2 the
+// current frames' reads and d's stores.
 __device__ unsigned long long g_wpe_phase[6];
-#define WPE_PHASE(i)                                                \
+__device__ unsigned long long g_apply_phase[3];
+#define PHASE_TO(counters, i)                                       \
   do {                                                              \
     if ((threadIdx.x & 31) == 0) {                                  \
       const long long now_ = clock64();                             \
-      atomicAdd(&g_wpe_phase[i], (unsigned long long)(now_ - t_));  \
+      atomicAdd(&counters[i], (unsigned long long)(now_ - t_));     \
       t_ = now_;                                                    \
     }                                                               \
   } while (0)
+#define WPE_PHASE(i) PHASE_TO(g_wpe_phase, i)
+#define APPLY_PHASE(i) PHASE_TO(g_apply_phase, i)
 #define WPE_PHASE_START long long t_ = clock64()
 #else
 #define WPE_PHASE(i) \
   do {               \
   } while (0)
+#define APPLY_PHASE(i) WPE_PHASE(i)
 #define WPE_PHASE_START
 #endif
 
-// Stage frames [f0, f0 + wt) of the bin's n mics into xs (n rows of wt),
-// zero outside [0, t).
-__device__ void stage(float2* xs, const float2* ob, int n, int t, int f0,
-                      int wt) {
-  for (int idx = threadIdx.x; idx < n * wt; idx += blockDim.x) {
-    const int m = idx / wt, f = f0 + idx - m * wt;
-    xs[idx] = (f >= 0 && f < t) ? ob[(size_t)m * t + f]
-                                : make_float2(0.0f, 0.0f);
-  }
-}
-
-// stage() through cp.async: the copies land while the block goes on; a
-// frame outside [0, t) is zero-filled without a read.
+// Stage frames [f0, f0 + wt) of the bin's n mics into xs (n rows of wt)
+// through cp.async: the copies land while the block goes on; a frame
+// outside [0, t) is zero-filled without a read.
 __device__ void stage_async(float2* xs, const float2* ob, int n, int t,
                             int f0, int wt) {
   for (int idx = threadIdx.x; idx < n * wt; idx += blockDim.x) {
@@ -123,23 +156,6 @@ __device__ void stage_async(float2* xs, const float2* ob, int n, int t,
                             sizeof(float2), in ? 0 : sizeof(float2));
   }
   __pipeline_commit();
-}
-
-// d_m at the frame staged at column f: y_m - sum_r conj(G[r][m]) tap_r, tap
-// r = k n + m2 reading mic m2 at column f - delay - k.
-__device__ float2 dereverb(const float2* xs, int wt, const float2* gs, int n,
-                           int taps, int delay, int m, int f) {
-  float sx = 0.0f, sy = 0.0f;
-  for (int k = 0; k < taps; ++k) {
-    for (int m2 = 0; m2 < n; ++m2) {
-      const float2 g = gs[(k * n + m2) * n + m];
-      const float2 x = xs[m2 * wt + f - delay - k];
-      sx += g.x * x.x + g.y * x.y;
-      sy += g.x * x.y - g.y * x.x;
-    }
-  }
-  const float2 y = xs[m * wt + f];
-  return make_float2(y.x - sx, y.y - sy);
 }
 
 // The mean power over mics of d = y - G^H taps at the tile's span frames
@@ -468,27 +484,173 @@ wpe_gram_kernel(const float2* __restrict__ obs, const float2* __restrict__ g,
   }
 }
 
-template <int TILE>
+// Kernel 19's shared memory, in float2: two G buffers (n taps rows of n,
+// rounded up to even), a bin's G in buffer bin % 2, then the ring's two
+// windows, n rows of wr each (wl frames, kApplyTile + delay + taps - 1
+// where the window holds y, else kApplyTile + taps - 1, and one frame
+// before them where a row's first frame lies at an odd complex word,
+// rounded up to even).
+struct ApplyShape {
+  int lead, wl, wr, gl, win;
+  bool y_in;
+};
+
+__host__ __device__ ApplyShape apply_shape(int n, int taps, int delay) {
+  ApplyShape a;
+  a.lead = delay + taps - 1;
+  a.y_in = a.lead <= kApplyTile;
+  a.wl = kApplyTile + (a.y_in ? a.lead : taps - 1);
+  a.wr = (a.wl + 2) & ~1;
+  a.gl = (n * n * taps + 1) & ~1;
+  a.win = n * a.wr;
+  return a;
+}
+
+// The parity of the complex word at frame f0 of mic m's row of the bin (0
+// or 1), `base` that of obs's first word: the frames a window row from f0
+// holds before it, so that its 16-byte copies read from 16-byte addresses
+// whatever obs's offset.  (Taking base from obs inside, or the parity of
+// a row pointer, cost kernel 19 27 or 11 registers at N = 6, and 4-8 %.)
+__device__ __forceinline__ int row_shift(int base, size_t bin, int n, int m,
+                                         int t, int f0) {
+  return (int)((base + (long long)(bin * n + m) * t + f0) & 1);
+}
+
+// Stage item `item` (bin item / tiles, its tile item % tiles), one
+// cp.async group: with `gs`, the bin's G there (in 16-byte copies where
+// its size is even and its first word lies on 16 bytes); then into `xs`
+// each mic's window row from frame f0 - shift in 16-byte copies of two
+// frames, a pair across 0 or T copied frame by frame, frames outside [0,
+// T) zero-filled without a read.
+template <int N>
+__device__ void stage_item(float2* gs, float2* xs, const float2* obs,
+                           const float2* g, int item, int tiles, int t,
+                           int taps, const ApplyShape& a) {
+  // the zero fills name a 16-byte-aligned source that they do not read:
+  // obs's words start 8-byte aligned, so the 16 bytes at or just before
+  // its first word lie in its allocation
+  const float2* zero = reinterpret_cast<const float2*>(
+      reinterpret_cast<uintptr_t>(obs) & ~(uintptr_t)15);
+  const int base = (int)(reinterpret_cast<uintptr_t>(obs) >> 3) & 1;
+  const int ng = N * N * taps;
+  const size_t bin = item / tiles;
+  const int f0 = (item - (int)bin * tiles) * kApplyTile - a.lead;
+  const float2* gb = g + bin * ng;
+  if (gs != nullptr && ng % 2 == 0 &&
+      (reinterpret_cast<uintptr_t>(gb) & 15) == 0) {
+    for (int i = 2 * threadIdx.x; i < ng; i += 2 * blockDim.x)
+      __pipeline_memcpy_async(gs + i, gb + i, 16);
+  } else if (gs != nullptr) {
+    for (int i = threadIdx.x; i < ng; i += blockDim.x)
+      __pipeline_memcpy_async(gs + i, gb + i, sizeof(float2));
+  }
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    const float2* row = obs + (bin * N + m) * t;
+    const int g0 = f0 - row_shift(base, bin, N, m, t, f0);
+    for (int c = threadIdx.x; c < a.wr / 2; c += blockDim.x) {
+      const int f = g0 + 2 * c;
+      float2* d = xs + m * a.wr + 2 * c;
+      if (f >= 0 && f + 1 < t) {
+        __pipeline_memcpy_async(d, row + f, 16);
+      } else if (f + 1 < 0 || f >= t) {
+        __pipeline_memcpy_async(d, zero, 16, 16);
+      } else {
+        __pipeline_memcpy_async(d, f >= 0 ? row + f : obs, 8, f >= 0 ? 0 : 8);
+        __pipeline_memcpy_async(d + 1, f + 1 < t ? row + f + 1 : obs, 8,
+                                f + 1 < t ? 0 : 8);
+      }
+    }
+  }
+  __pipeline_commit();
+}
+
+// A block walks items blockIdx.x * per ... (at most per of them): d = y -
+// G^H taps for their frames.
+template <int N>
 __global__ void __launch_bounds__(kApplyThreads)
 wpe_apply_kernel(const float2* __restrict__ obs, const float2* __restrict__ g,
-                 float2* __restrict__ out, int n, int t, int taps,
-                 int delay) {
-  extern __shared__ float2 smem2[];
-  const int tid = threadIdx.x, nk = n * taps;
-  const int h = delay + taps - 1, wt = TILE + h;
-  float2* xs = smem2;
-  float2* gs = xs + n * wt;
-  const size_t bin = blockIdx.x;
-  const int t0 = blockIdx.y * TILE;
-  for (int i = tid; i < nk * n; i += blockDim.x) gs[i] = g[bin * nk * n + i];
-  stage(xs, obs + bin * n * t, n, t, t0 - h, wt);
-  __syncthreads();
-  float2* ob = out + bin * n * t;
-  for (int idx = tid; idx < n * TILE; idx += blockDim.x) {
-    const int m = idx / TILE, u = idx - m * TILE;
-    if (t0 + u < t)
-      ob[(size_t)m * t + t0 + u] = dereverb(xs, wt, gs, n, taps, delay, m,
-                                            u + h);
+                 float2* __restrict__ out, int bins, int t, int taps,
+                 int delay, int per) {
+  constexpr int F = kApplyFrames;
+  extern __shared__ float4 smem[];
+  WPE_PHASE_START;
+  const ApplyShape a = apply_shape(N, taps, delay);
+  const int base = (int)(reinterpret_cast<uintptr_t>(obs) >> 3) & 1;
+  float2* gbuf = reinterpret_cast<float2*>(smem);  // G of even, odd bins
+  float2* ring = gbuf + 2 * a.gl;                  // two windows
+  const int tiles = (t + kApplyTile - 1) / kApplyTile;
+  const int first = blockIdx.x * per;
+  const int last = min(bins * tiles, first + per);
+  stage_item<N>(gbuf + (first / tiles & 1) * a.gl, ring, obs, g, first,
+                tiles, t, taps, a);
+  // the lane's frames in a tile: u0 + 32 f, f < F
+  const int u0 = (threadIdx.x >> 5) * 32 * F + (threadIdx.x & 31);
+  for (int item = first; item < last; ++item) {
+    __pipeline_wait_prior(0);
+    __syncthreads();  // the item's slot in; every warp done with the last
+    const int bin = item / tiles;
+    if (item + 1 < last) {
+      // a new bin's G into the other buffer, whose bin is done
+      const int next = (item + 1) / tiles;
+      stage_item<N>(next != bin ? gbuf + (next & 1) * a.gl : nullptr,
+                    ring + ((item + 1 - first) & 1) * a.win, obs, g,
+                    item + 1, tiles, t, taps, a);
+    }
+    APPLY_PHASE(0);
+    const int t0 = (item - bin * tiles) * kApplyTile;
+    const float2* gs = gbuf + (bin & 1) * a.gl;
+    // frame t0 + u of mic m at xs[sh[m] + u + lead]; at tap k frame u
+    // reads window column u + taps - 1 - k
+    const float2* xs = ring + ((item - first) & 1) * a.win;
+    const float2* xw = xs + u0 + taps - 1;
+    int sh[N];
+#pragma unroll
+    for (int m = 0; m < N; ++m)
+      sh[m] = m * a.wr + row_shift(base, bin, N, m, t, t0 - a.lead);
+    float2 acc[F][N];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) acc[f][m] = make_float2(0.0f, 0.0f);
+    }
+    for (int k = 0; k < taps; ++k) {
+#pragma unroll
+      for (int m2 = 0; m2 < N; ++m2) {
+        float2 x[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) x[f] = xw[sh[m2] + 32 * f - k];
+        const float2* gr = gs + (k * N + m2) * N;  // G's row, broadcast
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          const float2 gm = gr[m];
+#pragma unroll
+          for (int f = 0; f < F; ++f) {  // conj(g) x
+            acc[f][m].x = fmaf(gm.x, x[f].x, acc[f][m].x);
+            acc[f][m].x = fmaf(gm.y, x[f].y, acc[f][m].x);
+            acc[f][m].y = fmaf(gm.x, x[f].y, acc[f][m].y);
+            acc[f][m].y = fmaf(-gm.y, x[f].x, acc[f][m].y);
+          }
+        }
+      }
+    }
+    APPLY_PHASE(1);
+    const float2* ob = obs + (size_t)bin * N * t;
+    float2* od = out + (size_t)bin * N * t;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int u = u0 + 32 * f;
+      if (t0 + u < t) {
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          const float2 y = a.y_in ? xs[sh[m] + u + a.lead]
+                                  : ob[(size_t)m * t + t0 + u];
+          od[(size_t)m * t + t0 + u] =
+              make_float2(y.x - acc[f][m].x, y.y - acc[f][m].y);
+        }
+      }
+    }
+    APPLY_PHASE(2);
   }
 }
 
@@ -509,6 +671,42 @@ int carve_out(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+// Kernel 19's launch: one wave of blocks, each walking `per` items.
+struct ApplyPlan {
+  size_t bytes;
+  int blocks, per, per_sm;
+};
+
+template <int N>
+int apply_plan(int bins, int t, int taps, int delay, int sms,
+               ApplyPlan* plan) {
+  const ApplyShape s = apply_shape(N, taps, delay);
+  plan->bytes = 2 * sizeof(float2) * (s.gl + s.win);
+  int err = opt_in(wpe_apply_kernel<N>, plan->bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &plan->per_sm, wpe_apply_kernel<N>, kApplyThreads, plan->bytes);
+  if (err != cudaSuccess) return err;
+  if (plan->per_sm < 1) return cudaErrorInvalidValue;
+  const long items = (long)bins * ((t + kApplyTile - 1) / kApplyTile);
+  const long want = (long)sms * plan->per_sm;
+  plan->per = (int)((items + want - 1) / want);
+  plan->blocks = (int)((items + plan->per - 1) / plan->per);
+  return cudaSuccess;
+}
+
+int apply_plan_n(int n, int bins, int t, int taps, int delay, int sms,
+                 ApplyPlan* plan) {
+  switch (n) {
+#define CASE(N) \
+  case N:       \
+    return apply_plan<N>(bins, t, taps, delay, sms, plan);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+  }
+  return cudaErrorInvalidValue;
 }
 
 bool bad_shape(int bins, int n, int t, int taps, int delay) {
@@ -544,19 +742,52 @@ extern "C" int wpe_gram_launch(const void* obs, const void* g,
 extern "C" int wpe_apply_launch(const void* obs, const void* g, void* out,
                                 int bins, int n, int t, int taps, int delay,
                                 void* stream) {
-  if (bad_shape(bins, n, t, taps, delay)) return cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float2) * ((size_t)n * (kTile + delay +
-                                                      taps - 1) +
-                                         (size_t)n * taps * n);
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  int err = opt_in(wpe_apply_kernel<kTile>, bytes);
+  if (bad_shape(bins, n, t, taps, delay) ||
+      (long)bins * ((t + kApplyTile - 1) / kApplyTile) > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  int err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bins, (t + kTile - 1) / kTile);
-  wpe_apply_kernel<kTile><<<grid, kApplyThreads, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(obs), static_cast<const float2*>(g),
-      static_cast<float2*>(out), n, t, taps, delay);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  ApplyPlan plan;
+  err = apply_plan_n(n, bins, t, taps, delay, sms, &plan);
+  if (err != cudaSuccess) return err;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto ob = static_cast<const float2*>(obs);
+  auto gg = static_cast<const float2*>(g);
+  auto dd = static_cast<float2*>(out);
+  switch (n) {
+#define CASE(N)                                                          \
+  case N:                                                                \
+    wpe_apply_kernel<N><<<plan.blocks, kApplyThreads, plan.bytes, st>>>( \
+        ob, gg, dd, bins, t, taps, delay, plan.per);                     \
+    break;
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+  }
   return cudaGetLastError();
+}
+
+// Kernel 19's launch at (bins, n, t, taps, delay) on a card of `sms` SMs:
+// out[0] frames a tile, out[1] blocks, out[2] items (bin, tile) a block,
+// out[3] threads a block, out[4] blocks an SM, out[5] shared memory a
+// block (bytes), out[6] 1 where the window holds the current frames.
+extern "C" int wpe_apply_layout(int bins, int n, int t, int taps, int delay,
+                                int sms, int* out) {
+  if (bad_shape(bins, n, t, taps, delay) || sms < 1)
+    return cudaErrorInvalidValue;
+  ApplyPlan plan;
+  const int err = apply_plan_n(n, bins, t, taps, delay, sms, &plan);
+  if (err != cudaSuccess) return err;
+  out[0] = kApplyTile;
+  out[1] = plan.blocks;
+  out[2] = plan.per;
+  out[3] = kApplyThreads;
+  out[4] = plan.per_sm;
+  out[5] = (int)plan.bytes;
+  out[6] = apply_shape(n, taps, delay).y_in;
+  return cudaSuccess;
 }
 
 #ifdef SETK_WPE_PHASES
@@ -566,5 +797,13 @@ extern "C" int wpe_phase_read(unsigned long long* out) {
   if (err != cudaSuccess) return err;
   const unsigned long long zero[6] = {};
   return cudaMemcpyToSymbol(g_wpe_phase, zero, 6 * 8);
+}
+
+// kernel 19's: read (3 values) and zero
+extern "C" int apply_phase_read(unsigned long long* out) {
+  int err = cudaMemcpyFromSymbol(out, g_apply_phase, 3 * 8);
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero[3] = {};
+  return cudaMemcpyToSymbol(g_apply_phase, zero, 3 * 8);
 }
 #endif

@@ -86,10 +86,12 @@ _SIGNATURES = {
         "hermitian_solve_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
         "gram_solve_launch": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
         "gram_solve_layout": [_I, _I, _P],
+        "hermitian_solve_layout": [_I, _I, _P],
     },
     "wpe_gram": {
         "wpe_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "wpe_apply_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "wpe_apply_layout": [_I] * 6 + [_P],
     },
     "lstm_seq": {
         "lstm_fwd_stream_launch": [_P] * 8 + [_I] * 4 + [_P],

@@ -21,7 +21,9 @@
 // a word it did not write shows it, as the card's leftovers may.
 //
 // cp.async (cuda_pipeline_primitives.h, which includes this file) is a
-// plain copy.
+// plain copy that checks what the card checks: a source or destination
+// not aligned to the copy's size is the card's misaligned-address fault,
+// which the launch's cudaGetLastError then returns.
 //
 // A cooperative launch (cudaLaunchCooperativeKernel) runs every thread of
 // the grid at once, each block with its own barrier and its own dynamic
@@ -32,6 +34,7 @@
 // (a test calls it through the library before a resident launch).
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -83,9 +86,13 @@ typedef void* cudaStream_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
+  cudaErrorMisalignedAddress = 716,
   cudaErrorCooperativeLaunchTooLarge = 720
 };
-inline int cudaGetLastError() { return cudaSuccess; }
+// a fault a kernel met (set by any of its threads), returned and cleared
+// by the next cudaGetLastError
+inline std::atomic<int> emu_fault{cudaSuccess};
+inline int cudaGetLastError() { return emu_fault.exchange(cudaSuccess); }
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
   cudaFuncAttributePreferredSharedMemoryCarveout = 9
@@ -139,6 +146,9 @@ inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 // when it returns; `zfill` trailing bytes are zeroed instead of read
 inline void __pipeline_memcpy_async(void* dst, const void* src,
                                     size_t size_and_align, size_t zfill = 0) {
+  if (reinterpret_cast<uintptr_t>(dst) % size_and_align != 0 ||
+      reinterpret_cast<uintptr_t>(src) % size_and_align != 0)
+    emu_fault = cudaErrorMisalignedAddress;
   std::memcpy(dst, src, size_and_align - zfill);
   std::memset(static_cast<char*>(dst) + size_and_align - zfill, 0, zfill);
 }

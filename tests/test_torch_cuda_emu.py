@@ -57,35 +57,38 @@ _LAUNCH = re.compile(r"(\w+<[^;]*?>)<<<(.*?)>>>\(", re.S)
 _DYNAMIC_SMEM = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def _emu_library(name, out, defines=()):
+    """Source ``name`` compiled with g++ against the emulator into
+    ``out``, with -D ``defines``, loaded and its entry points typed."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to compile the kernel sources for the CPU")
+    code = _LAUNCH.sub(r"emu_launch(\2, \1, ",
+                       (_build.SOURCE_DIR / _build.SOURCES[name]).read_text())
+    code = _DYNAMIC_SMEM.sub(
+        r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", code)
+    cpp = out / f"{name}.cpp"
+    cpp.write_text(code)
+    lib = out / f"lib{name}.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
+         *[f"-D{d}" for d in defines], f"-I{EMU}", f"-I{_build.SOURCE_DIR}",
+         "-o", str(lib), str(cpp)], capture_output=True, text=True)
+    if proc.returncode != 0 and "c++20" in proc.stderr:
+        pytest.skip("g++ without C++20 support")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    handle = ctypes.CDLL(str(lib))
+    for fn, argtypes in _build._SIGNATURES[name].items():
+        getattr(handle, fn).argtypes = argtypes
+        getattr(handle, fn).restype = ctypes.c_int
+    handle.emu_set_device_attributes(EMU_SMS, EMU_SMEM)
+    return handle
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
-    loaded = {}
-    for name, src in _build.SOURCES.items():
-        code = _LAUNCH.sub(r"emu_launch(\2, \1, ",
-                           (_build.SOURCE_DIR / src).read_text())
-        code = _DYNAMIC_SMEM.sub(
-            r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", code)
-        cpp = out / f"{name}.cpp"
-        cpp.write_text(code)
-        lib = out / f"lib{name}.so"
-        proc = subprocess.run(
-            [cxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
-             f"-I{EMU}", f"-I{_build.SOURCE_DIR}", "-o", str(lib), str(cpp)],
-            capture_output=True, text=True)
-        if proc.returncode != 0 and "c++20" in proc.stderr:
-            pytest.skip("g++ without C++20 support")
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        handle = ctypes.CDLL(str(lib))
-        for fn, argtypes in _build._SIGNATURES[name].items():
-            getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = ctypes.c_int
-        handle.emu_set_device_attributes(EMU_SMS, EMU_SMEM)
-        loaded[name] = handle
-    return loaded
+    return {name: _emu_library(name, out) for name in _build.SOURCES}
 
 
 def _rel(got, ref):
@@ -1053,22 +1056,35 @@ def _gram(rng, bins, cols, rank=6, load=0.5):
         cols, dtype=torch.complex64)).contiguous()
 
 
-@pytest.mark.parametrize("n,k,herm", [(1, 1, True), (16, 1, True),
+# kernel 16: (n, k, hermitianize, systems).  Three systems: n = 1, 16, 37
+# (rows past one warp's 32 lanes), 60 and 128 (dynamic shared memory), as
+# before; then 7 systems at n = 60, k = 6 (six a block: a last block of one
+# system and five clamped warps), hermitianized and not; n = 16, 31, 32 and
+# 33 (a column of 31, 32 and 33 rows at the first step) at k = 1 and 8
+HERMITIAN_SOLVE = [pytest.param(n, k, herm, 3, id=f"{n}-{k}-{herm}")
+                   for n, k, herm in ((1, 1, True), (16, 1, True),
                                       (37, 6, False), (60, 6, True),
-                                      (128, 8, False)])
-def test_hermitian_solve_source_matches_plain(libs, n, k, herm):
-    """Three systems a launch (three blocks), a nudge off Hermitian where
-    the kernel hermitianizes on load, n = 37 with rows past one warp's
-    32 lanes, n = 128 in dynamic shared memory."""
+                                      (128, 8, False))] + [
+    pytest.param(60, 6, herm, 7, id=f"60-6-{herm}-7systems")
+    for herm in (True, False)] + [
+    pytest.param(n, k, herm, 3, id=f"{n}-{k}-{herm}")
+    for n, k, herm in ((16, 8, False), (31, 1, False), (31, 8, True),
+                       (32, 1, True), (32, 8, False), (33, 1, False),
+                       (33, 8, True))]
+
+
+@pytest.mark.parametrize("n,k,herm,bins", HERMITIAN_SOLVE)
+def test_hermitian_solve_source_matches_plain(libs, n, k, herm, bins):
+    """A nudge off Hermitian where the kernel hermitianizes on load."""
     rng = np.random.default_rng(n + k)
-    a = _gram(rng, 3, n, rank=n + 2, load=1.0)
+    a = _gram(rng, bins, n, rank=n + 2, load=1.0)
     if herm:
-        a = (a + 1e-3 * _cplx(rng, 3, n, n)).contiguous()
-    b = _cplx(rng, 3, n, k)
+        a = (a + 1e-3 * _cplx(rng, bins, n, n)).contiguous()
+    b = _cplx(rng, bins, n, k)
     x = torch.empty_like(b)
     err = libs["cholesky"].hermitian_solve_launch(
-        a.data_ptr(), b.data_ptr(), x.data_ptr(), 3, n, k, 1e-6, int(herm),
-        None)
+        a.data_ptr(), b.data_ptr(), x.data_ptr(), bins, n, k, 1e-6,
+        int(herm), None)
     assert err == 0
     assert _rel(x, ch.hermitian_solve_lanes_plain(
         a, b, assume_hermitian=not herm)) < SOLVE_TOL
@@ -1118,11 +1134,11 @@ def test_gram_solve_source_matches_plain(libs, nk, n0, bins):
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (33, 6), (60, 6), (128, 8)])
-def test_warp_solve_matches_block_solve(libs, n, k):
-    """Kernel 17's warp body and kernel 16's block body (left as it was)
-    give every entry the same terms in the same order: on the CPU, where
-    neither fuses a multiply-add, the same bits.  Kernel 17 reads the
-    system out of a Gram [b | a] at row0 = k."""
+def test_kernels_16_and_17_agree_to_the_bit(libs, n, k):
+    """Kernels 16 and 17 run the same warp body on the same system, read
+    in another layout: on the CPU, where neither fuses a multiply-add, the
+    same bits.  Kernel 17 reads the system out of a Gram [b | a] at row0 =
+    k."""
     rng = np.random.default_rng(n + 100 * k)
     bins = 7
     a = _gram(rng, bins, n, rank=n + 2, load=1.0)
@@ -1143,6 +1159,32 @@ def test_warp_solve_matches_block_solve(libs, n, k):
         a, b, assume_hermitian=True)) < SOLVE_TOL
 
 
+@pytest.fixture(scope="module")
+def column_steps(tmp_path_factory):
+    """cholesky.cu with chol_solve_warp's factorization a column a step."""
+    return _emu_library("cholesky", tmp_path_factory.mktemp("columns"),
+                        ["SETK_CHOL_PANEL=1"])
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 2), (33, 6), (60, 6), (127, 3),
+                                 (128, 8)])
+def test_panel_matches_column_steps_to_the_bit(libs, column_steps, n, k):
+    """chol_solve_warp's factorization in panels of kCholPanel columns
+    gives every entry the terms of a column a step, in the same order: on
+    the CPU the same bits (n = 1 and 5 take single columns at the end,
+    127 a last panel short of four)."""
+    rng = np.random.default_rng(n + 7 * k)
+    a = _gram(rng, 7, n, rank=n + 2, load=1.0)
+    a = (a + 1e-3 * _cplx(rng, 7, n, n)).contiguous()
+    b = _cplx(rng, 7, n, k)
+    got, ref = torch.empty_like(b), torch.empty_like(b)
+    for lib, x in ((libs["cholesky"], got), (column_steps, ref)):
+        assert lib.hermitian_solve_launch(a.data_ptr(), b.data_ptr(),
+                                          x.data_ptr(), 7, n, k, 1e-6, 1,
+                                          None) == 0
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("n,k,systems,nbytes", [(60, 6, 6, 18000),
                                                 (128, 8, 3, 75264),
                                                 (1, 1, 8, 32)])
@@ -1157,6 +1199,21 @@ def test_gram_solve_layout(libs, n, k, systems, nbytes):
     for n_bad, k_bad in ((0, 1), (129, 1), (1, 0), (128, 2000)):
         assert lib.gram_solve_layout(n_bad, k_bad,
                                      ctypes.addressof(out)) != 0
+
+
+@pytest.mark.parametrize("n,k,systems,nbytes", [(60, 6, 6, 17760),
+                                                (128, 8, 3, 74752),
+                                                (16, 1, 8, 1280)])
+def test_hermitian_solve_layout(libs, n, k, systems, nbytes):
+    """Kernel 16's systems a block, by kernel 17's rule, on systems
+    without kernel 17's scales."""
+    out = (ctypes.c_int * 2)()
+    lib = libs["cholesky"]
+    assert lib.hermitian_solve_layout(n, k, ctypes.addressof(out)) == 0
+    assert tuple(out) == (systems, nbytes)
+    for n_bad, k_bad in ((0, 1), (129, 1), (1, 0), (128, 2000)):
+        assert lib.hermitian_solve_layout(n_bad, k_bad,
+                                          ctypes.addressof(out)) != 0
 
 
 # (N, taps, delay, context, T, use_g, external lambda): T past one and two
@@ -1202,18 +1259,88 @@ def test_wpe_gram_source_matches_plain(libs, n, taps, delay, context, t,
         == 0.0
 
 
-@pytest.mark.parametrize("n,taps,delay,t", [(3, 4, 2, 150), (6, 10, 3, 64),
-                                            (1, 1, 0, 5)])
-def test_wpe_apply_source_matches_plain(libs, n, taps, delay, t):
+def _apply_layout(lib, bins, n, t, taps, delay, sms):
+    """Kernel 19's launch: (frames a tile, blocks, items a block, threads
+    a block, blocks an SM, shared memory a block, window holds y)."""
+    out = (ctypes.c_int * 7)()
+    assert lib.wpe_apply_layout(bins, n, t, taps, delay, sms,
+                                ctypes.addressof(out)) == 0
+    return tuple(out)
+
+
+# kernel 19: (N, taps, delay, T, bins, emulated SMs, offset), a block an
+# SM (the emulator's occupancy).  Two bins on 6 SMs (a block an item) as
+# before; every N of the template (1-8) at T = 600 and 8 bins on one SM
+# (one block walks all 24 items through the ring, across bins); N taps =
+# 128 (8 mics, taps 16); T = 1; T = 5 below delay + taps; T = 257, one
+# past a tile; T = 301, odd, where lanes' second frames run past T; 15
+# items on 2 SMs (8 and 7: a partial last block); delay past T; delay +
+# taps - 1 past a tile, where y is read from device memory.  Offset 1:
+# obs and G as views one complex word into their buffers (8 bytes past a
+# 16-byte boundary, as a batch's `spec[1]` is where N T is odd), rows
+# starting at either parity (N T odd; T odd, N T even; every row odd at
+# T = 64, G of even size): a 16-byte copy from a misaligned address is
+# the card's fault, and the emulator's.
+WPE_APPLY = [pytest.param(n, taps, delay, t, 2, EMU_SMS, 0,
+                          id=f"{n}-{taps}-{delay}-{t}")
+             for n, taps, delay, t in ((3, 4, 2, 150), (6, 10, 3, 64),
+                                       (1, 1, 0, 5))] + [
+    pytest.param(n, 3, 2, 600, 8, 1, 0, id=f"n{n}-ring")
+    for n in range(1, 9)] + [
+    pytest.param(*c, 0, id="-".join(map(str, c)))
+    for c in ((8, 16, 3, 300, 2, 1), (2, 3, 2, 1, 2, EMU_SMS),
+              (3, 4, 3, 5, 2, EMU_SMS), (5, 2, 1, 257, 2, 1),
+              (4, 5, 3, 301, 2, 1), (2, 3, 3, 1100, 3, 2),
+              (2, 2, 40, 30, 2, EMU_SMS), (2, 3, 300, 700, 2, 1))] + [
+    pytest.param(*c, 1, id="off-" + "-".join(map(str, c)))
+    for c in ((3, 4, 2, 301, 3, 1), (6, 10, 3, 251, 2, 1),
+              (1, 4, 1, 64, 2, 1))]
+
+
+@pytest.mark.parametrize("n,taps,delay,t,bins,sms,off", WPE_APPLY)
+def test_wpe_apply_source_matches_plain(libs, n, taps, delay, t, bins, sms,
+                                        off):
     rng = np.random.default_rng(n + t)
-    obs = _cplx(rng, 2, n, t)
-    g = (0.1 * _cplx(rng, 2, n * taps, n)).contiguous()
-    out = torch.empty_like(obs)
-    err = libs["wpe_gram"].wpe_apply_launch(obs.data_ptr(), g.data_ptr(),
-                                            out.data_ptr(), 2, n, t, taps,
-                                            delay, None)
+    obs = _cplx(rng, bins * n * t + off)[off:].view(bins, n, t)
+    g = (0.1 * _cplx(rng, bins * n * taps * n + off))[off:].view(
+        bins, n * taps, n)
+    assert obs.data_ptr() % 16 == 8 * off and g.data_ptr() % 16 == 8 * off
+    out = torch.empty(obs.shape, dtype=obs.dtype)
+    lib = libs["wpe_gram"]
+    lib.emu_set_device_attributes(sms, EMU_SMEM)
+    try:
+        err = lib.wpe_apply_launch(obs.data_ptr(), g.data_ptr(),
+                                   out.data_ptr(), bins, n, t, taps, delay,
+                                   None)
+    finally:
+        lib.emu_set_device_attributes(EMU_SMS, EMU_SMEM)
     assert err == 0
     assert _rel(out, wg.wpe_apply_plain(obs, g, taps, delay)) < TOL
+
+
+def test_wpe_apply_layout(libs):
+    """Kernel 19's launch: one wave of blocks (the SMs times the blocks an
+    SM holds; one here), items split evenly; the cases above take the ring
+    across bins, a partial last block and y from device memory."""
+    lib = libs["wpe_gram"]
+    # a slot: G (27 complex, rounded up to even) and the window (3 rows of
+    # 256 + 4 frames, one more for an odd start, rounded up to even)
+    assert _apply_layout(lib, 8, 3, 600, 3, 2, 1) == (
+        256, 1, 24, 128, 1, 2 * 8 * (28 + 3 * 262), 1)
+    assert _apply_layout(lib, 3, 2, 1100, 3, 3, 2)[1:3] == (2, 8)
+    assert _apply_layout(lib, 2, 3, 700, 3, 300, 1)[6] == 0
+    # the WPE scene: 16,448 items over 132 SMs; a slot is G (60 x 6) and
+    # the window (6 x 270)
+    layout = _apply_layout(lib, 8224, 6, 501, 10, 3, 132)
+    assert layout[1:3] == (132, 125) and layout[5] == 2 * 8 * (360 + 1620)
+    out = (ctypes.c_int * 7)()
+    for bins, n, t, taps, delay, sms in ((0, 2, 5, 2, 1, 1),
+                                         (1, 9, 5, 2, 1, 1),
+                                         (1, 2, 0, 2, 1, 1),
+                                         (1, 2, 5, 2, -1, 1),
+                                         (1, 2, 5, 2, 1, 0)):
+        assert lib.wpe_apply_layout(bins, n, t, taps, delay, sms,
+                                    ctypes.addressof(out)) != 0
 
 
 def test_wpe_entry_points_reject_bad_arguments(libs):

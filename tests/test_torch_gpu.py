@@ -615,15 +615,59 @@ def _gram_on(dev, rng, bins, cols, load=0.5):
 
 @pytest.mark.parametrize("n,k", [(16, 1), (60, 6), (128, 8)])
 def test_hermitian_solve_lanes_matches_plain(n, k):
-    """n = 128 takes the dynamic shared memory opt-in above 48 KB."""
+    """One launch a call; 301 systems leave the last block partial; n =
+    128 takes the dynamic shared memory opt-in above 48 KB."""
     dev = _card()
     rng = np.random.default_rng(n)
-    a = _gram_on(dev, rng, 300, n, load=2.0)
-    b = _cplx(rng, 300, n, k, dev=dev)
+    a = _gram_on(dev, rng, 301, n, load=2.0)
+    a = (a + 1e-3 * _cplx(rng, 301, n, n, dev=dev)).contiguous()
+    b = _cplx(rng, 301, n, k, dev=dev)
     for assume in (False, True):
+        before = chl.hermitian_solve_lanes.launches
         got = chl.hermitian_solve_lanes(a, b, assume_hermitian=assume)
+        assert chl.hermitian_solve_lanes.launches == before + 1
         ref = chl.hermitian_solve_lanes_plain(a, b, assume_hermitian=assume)
         assert _rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("n,taps,bins,delay", [
+    (1, 10, 8224, 3), (6, 10, 8224, 3), (8, 16, 1028, 3), (6, 10, 3, 3),
+    (2, 3, 64, 300)])
+def test_wpe_apply_matches_plain(n, taps, bins, delay):
+    """Kernel 19 at the WPE scene's T = 501: many items a block at 8,224
+    and 1,028 bins, one at 3, y read from device memory at delay 300; one
+    launch a call."""
+    dev = _card()
+    rng = np.random.default_rng(n * taps + bins)
+    obs = _cplx(rng, bins, n, 501, dev=dev)
+    g = (0.05 * _cplx(rng, bins, n * taps, n, dev=dev)).contiguous()
+    before = wgr.wpe_apply.launches
+    got = wgr.wpe_apply(obs, g, taps, delay)
+    assert wgr.wpe_apply.launches == before + 1
+    assert _rel(got, wgr.wpe_apply_plain(obs, g, taps, delay)) < TOL
+
+
+def test_wpe_apply_unaligned_views_match_plain():
+    """Kernel 19 on contiguous views one complex word into their buffers
+    (8 bytes past a 16-byte boundary), and `wpe` on `spec[1]` of a (2,
+    257, 3, 501) batch, whose N T is odd, against the same spectra copied
+    to an aligned tensor; one launch a call of the kernel."""
+    from setk_tpu_torch.enhance import wpe as twpe
+    dev = _card()
+    rng = np.random.default_rng(5)
+    n, taps, bins, t = 3, 10, 257, 501
+    obs = _cplx(rng, bins * n * t + 1, dev=dev)[1:].view(bins, n, t)
+    g = (0.05 * _cplx(rng, bins * n * taps * n + 1, dev=dev))[1:].view(
+        bins, n * taps, n)
+    assert obs.data_ptr() % 16 == 8 and g.data_ptr() % 16 == 8
+    before = wgr.wpe_apply.launches
+    got = wgr.wpe_apply(obs, g, taps, 3)
+    assert wgr.wpe_apply.launches == before + 1
+    assert _rel(got, wgr.wpe_apply_plain(obs, g, taps, 3)) < TOL
+    spec = _cplx(rng, 2, bins, n, t, dev=dev)
+    assert spec[1].data_ptr() % 16 == 8
+    got = twpe.wpe(spec[1])
+    assert _rel(got, twpe.wpe(spec[1].clone())) < TOL
 
 
 @pytest.mark.parametrize("nk", [9, 30, 60])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where kernels 18 and 17 (the WPE Gram and its Gram-layout solve) spend
-their cycles, and, with --parent, how they compare with another build of
-the same C entry points.
+"""Where the WPE kernels (18 the Gram, 17 its Gram-layout solve, 19 the
+filter application, 16 the tap-matrix scan's solve) spend their cycles,
+and, with --parent, how they compare with another build of the same C
+entry points.
 
     python3 tools/wpe_phase_profile.py [--parent DIR] [--out FILE]
 
@@ -14,10 +15,13 @@ delay 3):
 
   wpe_B32_8s  32 x 8 s (8,224 bins, T = 501), context 1: kernel 18 with
               use_g (G from the first iteration's plain solve), kernel 17
-              on its Gram, as the fused wpe loop's later iterations;
+              on its Gram, kernel 19 with that G, and kernel 16 on the
+              Gram's tap correlation and cross terms, as the fused wpe
+              loop's later iterations and the scan call them;
   wpd_B32_4s  32 x 4 s (T = 251): kernel 18 with compute_lambda's
-              lambda given, context 0, and kernel 17 equilibrated
-              (eps_rel 4 NK EPS), as wpd's loop calls them.
+              lambda given, context 0, kernel 17 equilibrated (eps_rel 4
+              NK EPS) and kernel 19 with its solution, as wpd's loop calls
+              them.
 
 One JSON line a shape and kernel: a warp's cycles by phase (the mean over
 the launched warps) and their shares,
@@ -28,8 +32,11 @@ the launched warps) and their shares,
              whole, issuing the next tile's frames), products, tile_sums
              (with the Gram's write): staging is waiting + design_tile +
              tile_barrier;
-  kernel 17  factor, forward, back, other (the system's load, the
+  kernels 17 and 16  factor, forward, back, other (the system's load, the
              loading, the store);
+  kernel 19  waiting (for the tile's window and the block, issuing the
+             next window), sums, store (the current frames' reads and d's
+             stores);
 
 with the instrumented and the shipped build's ms (CUDA events), the
 warps in flight an SM on average (every warp's cycles over the SMs'
@@ -42,10 +49,10 @@ commit's setk_tpu_torch/csrc unpacked by `git archive` into a gitignored
 directory.  Both builds are then timed in turns (parent, this, this,
 parent) on the same inputs, each turn with its build's two libraries in
 the port's library table: the kernels at both shapes (CUDA-graph replay
-and eager), and the wpe (32 x 8 s), wpd (32 x 4 s, CGMM 10, 3 outer
-iterations) and BatchWpe (32 x 8 s from host arrays) steps, each with
-its device profile and idle share.  Every build's -Xptxas -v registers,
-spills and shared memory come first.
+and eager), and the wpe (32 x 8 s, fused and the scan), wpd (32 x 4 s,
+CGMM 10, 3 outer iterations) and BatchWpe (32 x 8 s from host arrays)
+steps, each fused step with its device profile and idle share.  Every
+build's -Xptxas -v registers, spills and shared memory come first.
 """
 
 import argparse
@@ -63,6 +70,7 @@ import chip_smoke as cs  # noqa: E402
 GRAM_PHASES = ["waiting", "dereverb_lambda", "design_tile", "tile_barrier",
                "products", "tile_sums"]
 SOLVE_PHASES = ["factor", "forward", "back", "other"]
+APPLY_PHASES = ["waiting", "sums", "store"]
 EPS = 1.1920929e-07
 
 
@@ -103,6 +111,10 @@ def _nvcc_all(_b, sources, suffix, defines=()):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
+        for fn in ("wpe_phase_read", "chol_phase_read", "apply_phase_read"):
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = [ctypes.c_void_p]
+                getattr(lib, fn).restype = ctypes.c_int
         built[name] = (lib, log)
     return built
 
@@ -142,7 +154,7 @@ def main() -> int:
     phases = _nvcc_all(_b, {k: _b.SOURCE_DIR / v
                             for k, v in names.items()},
                        "phases", ["-DSETK_WPE_PHASES"])
-    builds = {"this": {k: shipped_logs[k] for k in names}}
+    builds = {"this": shipped_logs}
     libs = {"this": this}
     if args.parent:
         parent = _nvcc_all(_b, {k: Path(args.parent) / v
@@ -152,11 +164,6 @@ def main() -> int:
     emit({"ptxas": {label: {k: cs._ptxas_summary(log)
                             for k, log in logs.items()}
                     for label, logs in builds.items()}, "card": card})
-    for lib, _ in phases.values():
-        for fn in ("wpe_phase_read", "chol_phase_read"):
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = [ctypes.c_void_p]
-                getattr(lib, fn).restype = ctypes.c_int
 
     dev = torch.device("cuda", 0)
     sms = device_limits(dev)[0]
@@ -187,27 +194,58 @@ def main() -> int:
     shapes["wpd_B32_4s"] = (flat_d, None, lam_d, 0, False, 4.0 * nk * EPS,
                             True)
 
-    for label, (obs, g, lam, ctx, use_g, e, eq) in shapes.items():
-        bins, t = obs.shape[0], obs.shape[-1]
+    def apply_warps(lib, bins, t):
+        layout = (ctypes.c_int * 7)()
+        _b.check(lib.wpe_apply_layout(bins, n, t, taps, delay, sms,
+                                      ctypes.addressof(layout)),
+                 "wpe_apply_layout")
+        return layout[1] * layout[3] // 32
 
-        def gram_fn():
-            return wg.wpe_gram(obs, g, taps, delay, ctx, use_g, lam)
-
-        gram_p = wg.wpe_gram_plain(obs, g, taps, delay, ctx, use_g, lam)
-
-        def solve_fn():
-            return ch.solve_wpe_gram(gram_p, n, nk, n, e, eq)
-
-        x_p = ch.solve_wpe_gram_plain(gram_p, n, nk, n, e, eq)
+    def solve_warps(fn, bins):
         layout = (ctypes.c_int * 2)()
-        _b.check(this["cholesky"].gram_solve_layout(
-            nk, n, ctypes.addressof(layout)), "gram_solve_layout")
-        per_block = layout[0]
-        for kernel, fn, ref, lib_name, read, names_, warps in (
-                (18, gram_fn, gram_p, "wpe_gram", "wpe_phase_read",
-                 GRAM_PHASES, _gram_warps(bins, cols)),
-                (17, solve_fn, x_p, "cholesky", "chol_phase_read",
-                 SOLVE_PHASES, -(-bins // per_block) * per_block)):
+        _b.check(getattr(this["cholesky"], fn)(nk, n, ctypes.addressof(
+            layout)), fn)
+        return -(-bins // layout[0]) * layout[0], layout[0]
+
+    # the kernels at each shape: {label: {kernel: (run, plain output)}}
+    runs = {}
+    for label, (obs, g, lam, ctx, use_g, e, eq) in shapes.items():
+        gram_p = wg.wpe_gram_plain(obs, g, taps, delay, ctx, use_g, lam)
+        x_p = ch.solve_wpe_gram_plain(gram_p, n, nk, n, e, eq)
+        g_apply = g if g is not None else x_p
+        runs[label] = {
+            18: (lambda obs=obs, g=g, lam=lam, ctx=ctx, use_g=use_g:
+                 wg.wpe_gram(obs, g, taps, delay, ctx, use_g, lam), gram_p),
+            17: (lambda gram_p=gram_p, e=e, eq=eq:
+                 ch.solve_wpe_gram(gram_p, n, nk, n, e, eq), x_p),
+            19: (lambda obs=obs, g_apply=g_apply:
+                 wg.wpe_apply(obs, g_apply, taps, delay),
+                 wg.wpe_apply_plain(obs, g_apply, taps, delay))}
+        if use_g:
+            corr = gram_p[:, n:, n:].contiguous()
+            cross = gram_p[:, n:, :n].contiguous()
+            runs[label][16] = (
+                lambda corr=corr, cross=cross:
+                ch.hermitian_solve_lanes(corr, cross),
+                ch.hermitian_solve_lanes_plain(corr, cross))
+
+    for label, (obs, *_) in shapes.items():
+        bins, t = obs.shape[0], obs.shape[-1]
+        for kernel, (fn, ref) in runs[label].items():
+            lib_name, read, names_ = {
+                18: ("wpe_gram", "wpe_phase_read", GRAM_PHASES),
+                17: ("cholesky", "chol_phase_read", SOLVE_PHASES),
+                16: ("cholesky", "chol_phase_read", SOLVE_PHASES),
+                19: ("wpe_gram", "apply_phase_read", APPLY_PHASES)}[kernel]
+            per_block = None
+            if kernel == 18:
+                warps = _gram_warps(bins, cols)
+            elif kernel == 19:
+                warps = apply_warps(this["wpe_gram"], bins, t)
+            else:
+                warps, per_block = solve_warps(
+                    "gram_solve_layout" if kernel == 17 else
+                    "hermitian_solve_layout", bins)
             lib = phases[lib_name][0]
             read_fn = getattr(lib, read)
             cycles = (ctypes.c_ulonglong * 8)()
@@ -224,8 +262,7 @@ def main() -> int:
             per_warp = [cycles[i] / warps for i in range(len(names_))]
             total = sum(per_warp)
             emit({"kernel": kernel, "shape": label, "bins": bins, "T": t,
-                  "warps": warps,
-                  "systems_a_block": per_block if kernel == 17 else None,
+                  "warps": warps, "systems_a_block": per_block,
                   "warp_cycles": dict(zip(names_, per_warp)),
                   "share": {p: c / total for p, c in zip(names_, per_warp)},
                   "instrumented_ms": instrumented_ms, "kernel_ms": kernel_ms,
@@ -235,8 +272,9 @@ def main() -> int:
                   "instrumented_max_rel_err": cs._rel(got_i, ref),
                   "max_rel_err": cs._rel(got, ref), "sm_clock": clock,
                   "card": card})
-        del gram_p, x_p
 
+    kernel_names = {18: "wpe_gram", 17: "solve_wpe_gram", 19: "wpe_apply",
+                    16: "hermitian_solve_lanes"}
     if args.parent:
         utts = {f"w{i:02d}": x for i, x in enumerate(cs._wpe_scene(
             cs.W_B, n, cs.W_SECS * cs.SR, 20, False))}
@@ -250,32 +288,26 @@ def main() -> int:
                           context=cs.W_CONTEXT)
 
         steps = {"wpe_B32_8s": (lambda: tw.wpe(obs_w), 5),
+                 "wpe_scan_B32_8s": (lambda: tw.wpe(obs_w, use_fused=False),
+                                     3),
                  "wpd_B32_4s": (run_wpd, 3),
                  "BatchWpe_32x8s": (lambda: cs._time_batch_wpe(
                      executor, utts), 3)}
-        grams = {label: wg.wpe_gram_plain(obs, g, taps, delay, ctx, use_g,
-                                          lam)
-                 for label, (obs, g, lam, ctx, use_g, _, _) in
-                 shapes.items()}
         for turn, build in enumerate(("parent", "this", "this", "parent")):
             use(libs[build])
             row = {"turn": turn, "build": build, "kernels": {},
                    "steps": {}, "card": card}
-            for label, (obs, g, lam, ctx, use_g, e, eq) in shapes.items():
-                gram = grams[label]
-                for kernel, fn in (
-                        ("wpe_gram", lambda: wg.wpe_gram(
-                            obs, g, taps, delay, ctx, use_g, lam)),
-                        ("solve_wpe_gram", lambda: ch.solve_wpe_gram(
-                            gram, n, nk, n, e, eq))):
-                    row["kernels"][f"{kernel}@{label}"] = {
+            for label, kernels in runs.items():
+                for kernel, (fn, _) in kernels.items():
+                    row["kernels"][f"{kernel_names[kernel]}@{label}"] = {
                         "ms": cs._graph_ms(torch, fn, iters=10),
                         "eager_ms": cs._time_ms(torch, fn, iters=10)}
             for label, (fn, iters) in steps.items():
                 ms = cs._time_ms(torch, fn, iters=iters, warmup=1)
-                row["steps"][label] = {
-                    "ms": ms,
-                    "profile": cs._device_profile(torch, fn, ms, iters=2)}
+                row["steps"][label] = {"ms": ms}
+                if label != "wpe_scan_B32_8s":
+                    row["steps"][label]["profile"] = cs._device_profile(
+                        torch, fn, ms, iters=2)
             emit(row)
         use(this)
     if args.out:
