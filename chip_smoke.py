@@ -8,8 +8,8 @@ the CUDA toolkit.  In order it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the kernels from setk_tpu_torch/csrc (one nvcc per source,
      all at once) and prints the build time and ptxas' register and
-     spill counts (kernel 9's instances at every n_fft on a line of their
-     own);
+     spill counts (kernels 9's and 10's instances at every n_fft on lines
+     of their own);
   3. holds kernel A, the MVDR solve and kernel B against their plain
      PyTorch versions on the card at the bench shape (B=128, N=6, 8 s at
      16 kHz, int16 audio, mask uniform on [0, 1) from
@@ -62,13 +62,16 @@ the CUDA toolkit.  In order it:
      geometry), which takes the planar kernels on the card;
   9. P1, the planar geometry (n_fft 1024, hop 512, T = 251, F = 513) on
      the bench scene with a uniform mask: the planar STFT, the pair
-     covariance with the complement mask and the planar iSTFT against
-     their plain versions (1e-4 of the peak); enhance_batch and
-     BatchEnhancer over step 4's keyed utterances (buckets T = 257, 225
-     and 97) with exactly stft_planar, pair_covar_complement, mvdr_power
-     and istft_planar launched, within 1e-4 of mvdr_enhance_planar_plain
-     on the card and correlating >= 0.9 with the clean source; center
-     off takes the port's inverse_stft instead of istft_planar;
+     covariance with the complement mask and the planar iSTFT (kernel
+     10's two entries: on mic 0's planes, and beamforming every mic's
+     planes with seeded random weights) against their plain versions
+     (1e-4 of the peak); enhance_batch and BatchEnhancer over step 4's
+     keyed utterances (buckets T = 257, 225 and 97) with exactly
+     stft_planar, pair_covar_complement, mvdr_power and
+     beamform_istft_planar launched, within 1e-4 of
+     mvdr_enhance_planar_plain on the card and correlating >= 0.9 with
+     the clean source; center off takes a beamform pass and the port's
+     inverse_stft instead of beamform_istft_planar;
   10. P2, an unaligned length (512/256, S = 128100, T = 501): the same
      kernel and enhance_batch checks, the last 100 samples zero (kernel
      10's tail); BatchEnhancer pads to hop-aligned buckets and takes the
@@ -507,7 +510,7 @@ P1_FIELDS = {"frame_len": 1024, "frame_hop": 512}
 P2_S = 128100                    # 8 s and 100 samples: off the hop grid
 E_FIELDS = {"frame_len": 512, "frame_hop": 128}
 PLANAR_SET = {"stft_planar", "pair_covar_complement", "mvdr_power",
-              "istft_planar"}
+              "beamform_istft_planar"}
 FUSED_SET = {"stft_covar", "mvdr_power", "beamform_istft"}
 
 
@@ -526,6 +529,13 @@ def _flops_istft_planar(b, t, n_fft):
     """Per frame: half a complex inverse FFT, the synthesis window, the
     1/n_fft scale, the overlap-add and the wss_inv multiply."""
     return b * t * (_fft_flops(n_fft) / 2 + 4 * n_fft)
+
+
+def _flops_beamform_istft_planar(b, n, t, n_fft):
+    """Per frame: conj(w) x over the mics at n_fft/2 bins (8 FLOP a mic and
+    bin, 2 at the Nyquist bin), then kernel 10's inverse."""
+    return (b * t * n * (8 * (n_fft // 2) + 2) +
+            _flops_istft_planar(b, t, n_fft))
 
 
 def _flops_pair_covar(b, n, t, f, complement):
@@ -550,6 +560,7 @@ def _all_counted():
     return (fm.stft_covar, fm.beamform_istft, fm.covar_ema,
             fm.beamform_istft_online, mv.mvdr_power, mv.gevd_power,
             mv.pmwf_solve, mv.capon, pl.stft_planar, pl.istft_planar,
+            pl.beamform_istft_planar,
             cp.pair_covar_complement, cp.pair_covar, mc.masked_covar,
             es.regularized_inverse, ce.em, ch.hermitian_solve_lanes,
             ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply,
@@ -602,9 +613,10 @@ def _check_tol(what, errs):
 
 def _planar_kernels(torch, dev, wav_d, mask_d, cfg):
     """Kernels 9, 11 and 10 against their plain versions on one batch
-    (kernel 10 on mic 0's planes, the shape of a beamformed spectrum).
-    Returns the relative and absolute errors and the tensors the timing
-    reuses."""
+    (kernel 10 on mic 0's planes, the shape of a beamformed spectrum, and
+    with the beamform on every mic's planes and weights of a seeded
+    generator, |w| ~ 1 / N as the MVDR weights).  Returns the relative
+    and absolute errors and the tensors the timing reuses."""
     from setk_tpu_torch.ops.cuda import covariance_pair as cp
     from setk_tpu_torch.ops.cuda import planar as pl
     window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
@@ -625,14 +637,22 @@ def _planar_kernels(torch, dev, wav_d, mask_d, cfg):
                           device=dev)
     out = pl.istft_planar(er, ei, ny, window, wss, s)
     out_p = pl.istft_planar_plain(er, ei, ny, window, wss, s)
+    b, n = wav_d.shape[:2]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    w = torch.complex(*torch.randn((2, b, fh + 1, n), device=dev,
+                                   generator=gen)) / n
+    out_w = pl.beamform_istft_planar(*plain, w, window, wss, s)
+    out_wp = pl.beamform_istft_planar_plain(*plain, w, window, wss, s)
     torch.cuda.synchronize()
     rel = {"stft_planar": err9 / peak, "pair_covar_complement": err11[0],
-           "istft_planar": _rel(out, out_p)}
+           "istft_planar": _rel(out, out_p),
+           "beamform_istft_planar": _rel(out_w, out_wp)}
     ab = {"stft_planar": err9, "pair_covar_complement": err11[1],
-          "istft_planar": _abs(out, out_p)}
+          "istft_planar": _abs(out, out_p),
+          "beamform_istft_planar": _abs(out_w, out_wp)}
     return rel, ab, {"window": window, "planes": plain, "mask": msk, "t": t,
                      "nums": nums, "er": er, "ei": ei, "ny": ny, "wss": wss,
-                     "out": out}
+                     "out": out, "w": w, "out_w": out_w}
 
 
 def _by_bucket(np, torch, dev, cfg, utts, results, plain):
@@ -2009,6 +2029,11 @@ def main() -> int:
         key: ptxas.get(key, "not built now") for key in (
             f"stft_planar<{lg},{c},{t}>" for lg in (8, 9, 10, 11)
             for c in (1, 0) for t in ("int16", "f32"))}}))
+    # kernel 10's at each n_fft, without (0) and with (1) the beamform
+    print(json.dumps({"ptxas_istft_planar": {
+        key: ptxas.get(key, "not built now") for key in (
+            f"istft_planar<{lg},{bf}>" for lg in (8, 9, 10, 11)
+            for bf in (0, 1))}}))
 
     # ---- 3. kernels against their plain versions at the bench shape ----
     cfg = StftConfig()
@@ -2339,7 +2364,7 @@ def main() -> int:
     mask1n_d = mask1_d[:8, :cfg1n.num_frames(S)].contiguous()
     out1n, _ = _launched(torch, lambda: enhance_batch(
         wav_d[:8], mask1n_d, cfg1n), "P1 center off",
-        PLANAR_SET - {"istft_planar"})
+        PLANAR_SET - {"beamform_istft_planar"})
     ref1n = mvdr_enhance_planar_plain(wav_d[:8], mask1n_d, cfg1n)
     if not torch.isfinite(out1n).all():
         raise AssertionError("P1 center off: non-finite output")
@@ -2375,7 +2400,7 @@ def main() -> int:
     mask2 = rng.random((B, t2, cfg.num_bins)).astype(np.float32)
     wav2_d = torch.from_numpy(wav2_16).to(dev)
     mask2_d = torch.from_numpy(mask2).to(dev)
-    p2_errs, p2_abs, _ = _planar_kernels(torch, dev, wav2_d, mask2_d, cfg)
+    p2_errs, p2_abs, p2 = _planar_kernels(torch, dev, wav2_d, mask2_d, cfg)
     print(json.dumps({"P2_kernel_vs_plain_max_rel_err": p2_errs, "S": P2_S,
                       "T": t2, "tol": TOL}))
     _check_tol("P2", p2_errs)
@@ -2817,6 +2842,14 @@ def main() -> int:
          _bound(p1["er"].nbytes + p1["ei"].nbytes + p1["ny"].nbytes +
                 p1["wss"].nbytes + p1["out"].nbytes,
                 _flops_istft_planar(B, t1, cfg1.n_fft))),
+        ("beamform_istft_planar", "setk_tpu/ops/pallas/stft.py:300",
+         lambda: pl.beamform_istft_planar(*p1["planes"], p1["w"],
+                                          p1["window"], p1["wss"], S),
+         lambda: pl.beamform_istft_planar_plain(*p1["planes"], p1["w"],
+                                                p1["window"], p1["wss"], S),
+         _bound(sum(x.nbytes for x in p1["planes"]) + p1["w"].nbytes +
+                p1["wss"].nbytes + p1["out_w"].nbytes,
+                _flops_beamform_istft_planar(B, N, t1, cfg1.n_fft))),
         ("pair_covar", "setk_tpu/ops/pallas/covariance_pair.py:139",
          lambda: cp.pair_covar(spec_e, mask_e_d, mn_e),
          lambda: cp.pair_covar_plain(spec_e, mask_e_d, mn_e),
@@ -2827,12 +2860,15 @@ def main() -> int:
     launches.update(stft_planar=p1_be_launches["stft_planar"],
                     pair_covar_complement=p1_be_launches[
                         "pair_covar_complement"],
-                    istft_planar=p1_be_launches["istft_planar"],
+                    istft_planar=p1_be_launches.get("istft_planar", 0),
+                    beamform_istft_planar=p1_be_launches[
+                        "beamform_istft_planar"],
                     pair_covar=e_path["mvdr+ban"]["launches"]["pair_covar"])
     errs.update(p1_errs, pair_covar=e_errs["random_mask_n"])
     abs_errs.update(p1_abs, pair_covar=e_abs["random_mask_n"])
     source.update(stft_planar="setk_tpu_torch/csrc/planar_stft.cu",
                   istft_planar="setk_tpu_torch/csrc/planar_stft.cu",
+                  beamform_istft_planar="setk_tpu_torch/csrc/planar_stft.cu",
                   pair_covar_complement="setk_tpu_torch/csrc/"
                                         "covariance_pair.cu",
                   pair_covar="setk_tpu_torch/csrc/covariance_pair.cu")
@@ -2929,7 +2965,12 @@ def main() -> int:
             res14)),
         "resume_514_max_rel_err": res14_err},
         "stft_planar": {"P2_S128100_ms": _graph_ms(
-            torch, lambda: pl.stft_planar(wav2_d, window, True))}}
+            torch, lambda: pl.stft_planar(wav2_d, window, True))},
+        "istft_planar": {"main_path": "none: the planar path launches "
+                                      "beamform_istft_planar"},
+        "beamform_istft_planar": {"P2_S128100_ms": _graph_ms(
+            torch, lambda: pl.beamform_istft_planar(
+                *p2["planes"], p2["w"], p2["window"], p2["wss"], P2_S))}}
     # kernel 15 at WPD's shape (B = 32 x 4 s, T = 251, CGMM 10 iterations)
     # beside C1's, with the launch's layout
     wobs = cobs[:W_B, ..., :WPD_T].contiguous()

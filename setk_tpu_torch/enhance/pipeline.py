@@ -21,10 +21,10 @@ fused gate (other n_fft, hops and lengths), counterpart of
 setk_tpu/enhance/pipeline.py:199-283: the planar STFT kernel writes the
 spectrum as re/im planes plus the Nyquist bin, the pair-covariance kernel
 forms the Rs/Rn numerators of bins 0 .. n_fft/2 - 1 from them,
-``mvdr_power`` solves every bin, and after a beamform pass the planar
-iSTFT kernel resynthesizes (center framing; without center the port's
-``inverse_stft`` does, as in the JAX package).  The Nyquist bin's
-covariances and the beamform are plain tensor code between the kernels.
+``mvdr_power`` solves every bin, and the planar iSTFT kernel beamforms the
+planes and resynthesizes in one pass (center framing; without center a
+beamform pass and the port's ``inverse_stft`` do, as in the JAX package).
+The Nyquist bin's covariances are plain tensor code between the kernels.
 ``mvdr_enhance_planar_plain`` is its plain twin.
 """
 
@@ -102,18 +102,19 @@ class _Ops(typing.NamedTuple):
     beamform_istft_online: typing.Callable
     stft_planar: typing.Callable
     pair_covar_complement: typing.Callable
-    istft_planar: typing.Callable
+    beamform_istft_planar: typing.Callable
 
 
 _KERNELS = _Ops(fm.stft_covar, mv.mvdr_power, mv.gevd_power, mv.pmwf_solve,
                 mv.capon, fm.beamform_istft, fm.stft_covar_chunks,
                 fm.covar_ema, fm.beamform_istft_online, pl.stft_planar,
-                cp.pair_covar_complement, pl.istft_planar)
+                cp.pair_covar_complement, pl.beamform_istft_planar)
 _PLAIN = _Ops(fm.stft_covar_plain, mv.mvdr_power_plain, mv.gevd_power_plain,
               mv.pmwf_solve_plain, mv.capon_plain, fm.beamform_istft_plain,
               fm.stft_covar_chunks_plain, fm.covar_ema_plain,
               fm.beamform_istft_online_plain, pl.stft_planar_plain,
-              cp.pair_covar_complement_plain, pl.istft_planar_plain)
+              cp.pair_covar_complement_plain,
+              pl.beamform_istft_planar_plain)
 
 
 def _weights(ops: _Ops, beamformer, rs, rn, ry, power_iters):
@@ -305,18 +306,11 @@ def _run_planar(wav, mask_s, cfg, power_iters, nsamps, ops: _Ops):
                     rn_ny[:, None].to(torch.complex64)], dim=1)
     w = ops.mvdr_power(rs.contiguous(), rn.contiguous(),
                        power_iters=power_iters)           # (B, F, N)
-    # planar beamform: enh[b,t,f] = sum_n conj(w[b,f,n]) obs[b,n,t,f]
-    wr = w[:, :fh].real.transpose(1, 2)[:, :, None, :]    # (B, N, 1, FH)
-    wi = w[:, :fh].imag.transpose(1, 2)[:, :, None, :]
-    enh_re = (wr * re + wi * im).sum(1)                   # (B, T, FH)
-    enh_im = (wr * im - wi * re).sum(1)
-    w_ny = w[:, fh]                                       # (B, N)
-    ny_re = (w_ny.real[:, :, None] * nyq).sum(1)          # (B, T)
     if cfg.center:
-        return ops.istft_planar(enh_re.contiguous(), enh_im.contiguous(),
-                                ny_re.contiguous(), window, wss_inv,
-                                out_samps)
-    ny_im = (-w_ny.imag[:, :, None] * nyq).sum(1)
+        return ops.beamform_istft_planar(re, im, nyq, w.contiguous(), window,
+                                         wss_inv, out_samps)
+    enh_re, enh_im, ny_re = pl.planar_beamform(re, im, nyq, w)
+    ny_im = (-w[:, fh].imag[:, :, None] * nyq).sum(1)     # (B, T)
     enh = torch.complex(torch.cat([enh_re, ny_re[..., None]], dim=-1),
                         torch.cat([enh_im, ny_im[..., None]], dim=-1))
     return inverse_stft(enh, cfg, nsamps=out_samps)

@@ -65,6 +65,9 @@ _SIGNATURES = {
         "istft_planar_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _P],
         "stft_planar_transform_launch": [_P, _P, _I, _I, _P],
+        "beamform_istft_planar_launch": [_P] * 7 + [_I] * 6 + [_P],
+        "istft_planar_inverse_launch": [_P, _P, _I, _I, _P],
+        "istft_planar_layout": [_I, _I, _P],
     },
     "covariance_pair": {
         "pair_covar_launch": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,

@@ -17,7 +17,12 @@ of two in [256, 2048]:
                 reciprocal window-sum-square of the center-trimmed
                 signal -> (B, nsamps) f32 for center framing and any
                 nsamps: samples at or past (T - 1) hop are zeros, as
-                ``dsp.stft.inverse_stft`` zero-pads after its trim.
+                ``dsp.stft.inverse_stft`` zero-pads after its trim;
+  beamform_istft_planar: kernel 10 with the MVDR beamform folded in: the
+                observation's planes re, im (B, N, T, n_fft/2), its
+                Nyquist plane (B, N, T) and the weights w (B, n_fft/2 +
+                1, N) complex64 -> (B, nsamps) f32, ``planar_beamform``
+                (setk_tpu/enhance/pipeline.py:259-269) then istft_planar.
 
 int16 audio enters as is, with 1/32768 folded into the analysis window;
 the output matches running on ``wav.float() / 32768``.  Each kernel has
@@ -35,9 +40,11 @@ from setk_tpu_torch.ops.cuda.fused_mvdr import input_scale
 
 __all__ = ["PLANAR_NFFT", "planar_frames", "valid_samples",
            "istft_wss_inverse", "stft_planar", "stft_planar_plain",
-           "istft_planar", "istft_planar_plain"]
+           "istft_planar", "istft_planar_plain", "planar_beamform",
+           "beamform_istft_planar", "beamform_istft_planar_plain"]
 
 PLANAR_NFFT = (256, 512, 1024, 2048)
+MAX_MICS = 8    # beamform_istft_planar's weights sit in shared memory
 
 
 def planar_frames(nsamps: int, n_fft: int, center: bool) -> int:
@@ -96,6 +103,30 @@ def istft_planar_plain(er: torch.Tensor, ei: torch.Tensor, ny: torch.Tensor,
     n_valid = valid_samples(t, hop, nsamps)
     out = ola[:, :n_valid] * wss_inv[:n_valid]
     return torch.nn.functional.pad(out, (0, nsamps - n_valid))
+
+
+def planar_beamform(re: torch.Tensor, im: torch.Tensor, nyq: torch.Tensor,
+                    w: torch.Tensor):
+    """enh[b, t, f] = sum_n conj(w[b, f, n]) obs[b, n, t, f] on the planes:
+    (B, N, T, n_fft/2) x2, (B, N, T), (B, n_fft/2 + 1, N) -> enh_re,
+    enh_im (B, T, n_fft/2) and the Nyquist bin's real part (B, T)."""
+    fh = re.shape[-1]
+    wr = w[:, :fh].real.transpose(1, 2)[:, :, None, :]    # (B, N, 1, FH)
+    wi = w[:, :fh].imag.transpose(1, 2)[:, :, None, :]
+    enh_re = (wr * re + wi * im).sum(1)                   # (B, T, FH)
+    enh_im = (wr * im - wi * re).sum(1)
+    ny_re = (w[:, fh].real[:, :, None] * nyq).sum(1)      # (B, T)
+    return enh_re, enh_im, ny_re
+
+
+def beamform_istft_planar_plain(re: torch.Tensor, im: torch.Tensor,
+                                nyq: torch.Tensor, w: torch.Tensor,
+                                window: torch.Tensor, wss_inv: torch.Tensor,
+                                nsamps: int) -> torch.Tensor:
+    """Plain version of kernel 10 with the beamform: ``planar_beamform``
+    then ``istft_planar_plain``."""
+    return istft_planar_plain(*planar_beamform(re, im, nyq, w), window,
+                              wss_inv, nsamps)
 
 
 def _check_window(fn: str, window: torch.Tensor, device) -> int:
@@ -161,19 +192,10 @@ def istft_planar(er: torch.Tensor, ei: torch.Tensor, ny: torch.Tensor,
         raise ValueError(f"istft_planar: re must be (B, T >= 2, "
                          f"{n_fft // 2}), got {tuple(er.shape)}")
     b, t, _ = er.shape
-    n_valid = valid_samples(t, n_fft // 2, nsamps)
-    for name, x, shape in (("re", er, er.shape), ("im", ei, er.shape),
-                           ("nyq", ny, (b, t))):
-        if x.device != dev or x.dtype != torch.float32 or \
-                x.shape != shape or not x.is_contiguous():
-            raise ValueError(f"istft_planar: {name} must be a contiguous "
-                             f"float32 {tuple(shape)} tensor on {dev}")
-    if wss_inv.device != dev or wss_inv.dtype != torch.float32 or \
-            wss_inv.ndim != 1 or wss_inv.shape[0] < n_valid or \
-            not wss_inv.is_contiguous() or not 1 <= nsamps:
-        raise ValueError(f"istft_planar: wss_inv must be a contiguous "
-                         f"float32 vector of >= {n_valid} samples on {dev} "
-                         f"and nsamps >= 1")
+    n_valid = _check_istft("istft_planar", (("re", er, er.shape),
+                                            ("im", ei, er.shape),
+                                            ("nyq", ny, (b, t))),
+                           wss_inv, t, n_fft, nsamps, dev)
     out = torch.empty((b, nsamps), dtype=torch.float32, device=dev)
     _build.launch("planar_stft", "istft_planar_launch", dev, er.data_ptr(),
                   ei.data_ptr(), ny.data_ptr(), window.data_ptr(),
@@ -183,5 +205,64 @@ def istft_planar(er: torch.Tensor, ei: torch.Tensor, ny: torch.Tensor,
     return out
 
 
-for _fn in (stft_planar, istft_planar):
+def beamform_istft_planar(re: torch.Tensor, im: torch.Tensor,
+                          nyq: torch.Tensor, w: torch.Tensor,
+                          window: torch.Tensor, wss_inv: torch.Tensor,
+                          nsamps: int) -> torch.Tensor:
+    """Kernel 10 with the beamform: (B, nsamps) float32 waveform of the
+    MVDR output of an observation's planes (``planar_beamform`` then
+    ``istft_planar``), no beamformed spectrum in device memory.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel (``beamform_istft_planar.launches`` counts those launches).
+    """
+    if re.device.type == "cpu":
+        return beamform_istft_planar_plain(re, im, nyq, w, window, wss_inv,
+                                           nsamps)
+    dev = re.device
+    n_fft = _check_window("beamform_istft_planar", window, dev)
+    fh = n_fft // 2
+    if re.ndim != 4 or re.shape[-1] != fh or re.shape[2] < 2 or \
+            not 1 <= re.shape[1] <= MAX_MICS:
+        raise ValueError(f"beamform_istft_planar: re must be (B, 1 <= N <= "
+                         f"{MAX_MICS}, T >= 2, {fh}), got "
+                         f"{tuple(re.shape)}")
+    b, n, t, _ = re.shape
+    if w.device != dev or w.dtype != torch.complex64 or \
+            w.shape != (b, fh + 1, n) or not w.is_contiguous():
+        raise ValueError(f"beamform_istft_planar: w must be a contiguous "
+                         f"complex64 {(b, fh + 1, n)} tensor on {dev}")
+    n_valid = _check_istft("beamform_istft_planar",
+                           (("re", re, re.shape), ("im", im, re.shape),
+                            ("nyq", nyq, (b, n, t))),
+                           wss_inv, t, n_fft, nsamps, dev)
+    out = torch.empty((b, nsamps), dtype=torch.float32, device=dev)
+    _build.launch("planar_stft", "beamform_istft_planar_launch", dev,
+                  re.data_ptr(), im.data_ptr(), nyq.data_ptr(), w.data_ptr(),
+                  window.data_ptr(), wss_inv.data_ptr(), out.data_ptr(), b,
+                  n, t, n_fft, n_valid, nsamps)
+    beamform_istft_planar.launches += 1
+    return out
+
+
+def _check_istft(fn, planes, wss_inv, t, n_fft, nsamps, dev) -> int:
+    """Raise unless every (name, tensor, shape) of ``planes`` is a
+    contiguous float32 tensor of that shape on ``dev`` and wss_inv covers
+    the samples with signal; return their count."""
+    n_valid = valid_samples(t, n_fft // 2, nsamps)
+    for name, x, shape in planes:
+        if x.device != dev or x.dtype != torch.float32 or \
+                x.shape != shape or not x.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous float32 "
+                             f"{tuple(shape)} tensor on {dev}")
+    if wss_inv.device != dev or wss_inv.dtype != torch.float32 or \
+            wss_inv.ndim != 1 or wss_inv.shape[0] < n_valid or \
+            not wss_inv.is_contiguous() or not 1 <= nsamps:
+        raise ValueError(f"{fn}: wss_inv must be a contiguous float32 "
+                         f"vector of >= {n_valid} samples on {dev} and "
+                         f"nsamps >= 1")
+    return n_valid
+
+
+for _fn in (stft_planar, istft_planar, beamform_istft_planar):
     _fn.launches = 0

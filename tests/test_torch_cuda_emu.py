@@ -6,8 +6,9 @@ runtime (blocks in order, a block's threads as std::threads with a
 barrier), and run through their C entry points on CPU tensors.  This
 checks the kernels' index arithmetic, FFT, reductions, overlap-add,
 the online pair's chunking and EMA, the per-bin solves, the planar
-STFT/iSTFT (n_fft 256 and 1024, center on and off, any length; the STFT's
-warp transform at every n_fft, runs and tiles that T does not fill), the
+STFT/iSTFT (center on and off, any length; the warp transform forward and
+inverse at every n_fft, runs and tiles that T does not fill, the iSTFT
+with and without the beamform), the
 pair covariance (N = 1, 6 and 8, complement mask or two masks), the
 masked covariance against K classes (warp shuffles), the Jacobi
 regularized inverse, the fused CGMM/CACGMM EM (both models, both
@@ -687,6 +688,109 @@ def test_istft_planar_source_matches_plain(libs, n_fft, s, extra):
     assert not out[:, n_sig:].any()
 
 
+# kernel 10 (runs of 127 output hop blocks, 128 frames in tiles of 8; two
+# frames a warp): T odd and even, at a run's end (T = 128 and, two runs,
+# 255) and one block past it (129; 256) or short of it (127 and T = 128
+# at nsamps (T - 2) hop), one frame pair (T = 2, 3), nsamps below, at and
+# past (T - 1) hop; both entries, the beamform at N = 1, 3 and 8
+ISTFT = [(256, 1, 128, 0, False), (256, 3, 129, 0, True),
+         (256, 8, 127, -77, True), (256, 1, 2, 300, True),
+         (512, 1, 256, 0, False), (512, 3, 255, 111, True),
+         (512, 8, 128, -256, True), (1024, 1, 21, -5, False),
+         (1024, 3, 20, 0, True), (2048, 1, 9, 1000, False),
+         (2048, 8, 10, -1, True), (2048, 3, 3, 0, True)]
+
+
+@pytest.mark.parametrize("n_fft,n,t,extra,beamform", ISTFT)
+def test_istft_planar_entries_match_plain(libs, n_fft, n, t, extra,
+                                          beamform):
+    """istft_planar_launch on random planes (the beamformed spectrum) and
+    beamform_istft_planar_launch on random mic planes and weights against
+    their plain versions; samples from (T - 1) hop on are zeros.  The
+    emulator's shared memory starts as NaN, so a block that reads a
+    published half, a kept Q or a slot word that nothing wrote fails."""
+    cfg = StftConfig(frame_len=n_fft, frame_hop=n_fft // 2)
+    hop = n_fft // 2
+    rng = np.random.default_rng(n_fft + 10 * n + t)
+    b = 2
+    re, im = (torch.from_numpy(x) for x in rng.standard_normal(
+        (2, b, n, t, hop)).astype(np.float32))
+    nyq = torch.from_numpy(rng.standard_normal((b, n, t)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.standard_normal((b, hop + 1, n)) + 1j *
+                          rng.standard_normal((b, hop + 1, n))).astype(
+                              np.complex64))
+    window = torch.as_tensor(cfg.padded_window)
+    nsamps = (t - 1) * hop + extra
+    n_valid = pl.valid_samples(t, hop, nsamps)
+    wss = torch.from_numpy(pl.istft_wss_inverse(cfg.padded_window, t,
+                                                nsamps))
+    out = torch.full((b, nsamps), float("nan"))
+    lib = libs["planar_stft"]
+    if beamform:
+        err = lib.beamform_istft_planar_launch(
+            re.data_ptr(), im.data_ptr(), nyq.data_ptr(), w.data_ptr(),
+            window.data_ptr(), wss.data_ptr(), out.data_ptr(), b, n, t,
+            n_fft, n_valid, nsamps, None)
+        ref = pl.beamform_istft_planar_plain(re, im, nyq, w, window, wss,
+                                             nsamps)
+    else:
+        er, ei, ny = re[:, 0], im[:, 0], nyq[:, 0]
+        err = lib.istft_planar_launch(
+            er.data_ptr(), ei.data_ptr(), ny.data_ptr(), window.data_ptr(),
+            wss.data_ptr(), out.data_ptr(), b, t, n_fft, n_valid, nsamps,
+            None)
+        ref = pl.istft_planar_plain(er, ei, ny, window, wss, nsamps)
+    assert err == 0
+    assert _rel(out, ref) < TOL
+    assert not out[:, n_valid:].any()
+
+
+@pytest.mark.parametrize("n_fft", pl.PLANAR_NFFT)
+def test_istft_planar_layout_fits_a_block(libs, n_fft):
+    """istft_planar_layout: kernel 10's shared memory grows with the mics'
+    weights and stays within the card's 227 KB at every n_fft up to 8
+    mics (the emulated card admits a block there), runs of 127 output hop
+    blocks; 9 mics and n_fft 768 are refused."""
+    lib = libs["planar_stft"]
+    out = (ctypes.c_int * 3)()
+    sizes = []
+    for mics in range(0, 9):
+        assert lib.istft_planar_layout(n_fft, mics,
+                                       ctypes.addressof(out)) == 0
+        sizes.append(out[0])
+        assert out[0] <= EMU_SMEM and out[1] >= 1 and out[2] == 127
+    assert sizes == sorted(sizes) and sizes[1] > sizes[0]
+    assert lib.istft_planar_layout(n_fft, 9, ctypes.addressof(out)) != 0
+    assert lib.istft_planar_layout(768, 1, ctypes.addressof(out)) != 0
+
+
+@pytest.mark.parametrize("n_fft", pl.PLANAR_NFFT)
+def test_istft_planar_inverse_matches_ifft(libs, n_fft):
+    """Kernel 10's warp inverse alone (istft_planar_inverse_launch): three
+    pairs of random half spectra, a pair a warp, against torch's ifft of
+    their Hermitian extensions (only the real parts of bins 0 and n_fft/2
+    count); the first pair a lone bin 1 and a lone Nyquist bin."""
+    hop = n_fft // 2
+    rng = np.random.default_rng(n_fft)
+    spec = (rng.standard_normal((3, 2, hop + 1)) + 1j *
+            rng.standard_normal((3, 2, hop + 1))).astype(np.complex64)
+    spec[0] = 0.0
+    spec[0, 0, 1] = 1.0 - 0.5j
+    spec[0, 1, hop] = 2.0 + 3.0j
+    spec = torch.from_numpy(spec)
+    frames = torch.empty((3, 2, n_fft), dtype=torch.float32)
+    assert libs["planar_stft"].istft_planar_inverse_launch(
+        spec.data_ptr(), frames.data_ptr(), 3, n_fft, None) == 0
+    half = spec.to(torch.complex128)
+    half[..., 0] = half[..., 0].real
+    half[..., hop] = half[..., hop].real
+    full = torch.cat([half, half[..., 1:hop].flip(-1).conj()], dim=-1)
+    ref = torch.fft.ifft(full, dim=-1)
+    assert float(ref.imag.abs().max()) < 1e-12
+    assert _rel(frames.double(), ref.real) < TOL
+
+
 @pytest.mark.parametrize("n", [1, 6, 8])
 @pytest.mark.parametrize("complement", [True, False])
 def test_pair_covar_source_matches_plain(libs, n, complement):
@@ -738,6 +842,18 @@ def test_planar_entry_points_reject_bad_arguments(libs):
                                        n_valid, nsamps, None) != 0
     for pairs, n_fft in ((0, 512), (1, 4096)):
         assert lib.stft_planar_transform_launch(p, p, pairs, n_fft,
+                                                None) != 0
+        assert lib.istft_planar_inverse_launch(p, p, pairs, n_fft,
+                                               None) != 0
+    for b, n, t, n_fft, n_valid, nsamps in ((0, 2, 9, 512, 2048, 2048),
+                                            (1, 0, 9, 512, 2048, 2048),
+                                            (1, 9, 9, 512, 2048, 2048),
+                                            (1, 2, 9, 384, 1536, 1536),
+                                            (1, 2, 1, 512, 0, 256),
+                                            (1, 2, 9, 512, 2049, 4096),
+                                            (1, 2, 9, 512, 2048, 2000)):
+        assert lib.beamform_istft_planar_launch(p, p, p, p, p, p, p, b, n,
+                                                t, n_fft, n_valid, nsamps,
                                                 None) != 0
     lib = libs["covariance_pair"]
     for es, b, n, t, f, mt, mb, mn in ((1, 1, 9, 4, 8, 8, 32, p),

@@ -323,6 +323,39 @@ def test_planar_kernels_match_plain(n_fft, s, center, int16):
         assert not out[:, n_sig:].any()
 
 
+@pytest.mark.parametrize("n_fft,n,t,extra", [
+    (256, 3, 129, 0), (256, 8, 127, -77), (256, 1, 2, 300),
+    (512, 3, 255, 111), (512, 8, 128, -256), (512, 6, 501, 100),
+    (1024, 3, 20, 0), (1024, 6, 251, 0), (2048, 8, 10, -1),
+    (2048, 3, 3, 0)])
+def test_beamform_istft_planar_matches_plain(n_fft, n, t, extra):
+    """Kernel 10 with the beamform on random mic planes and weights
+    against its plain version: runs and their ends, N = 1, 3, 6 and 8,
+    nsamps below, at and past (T - 1) hop (P1's and P2's T among them)."""
+    dev = _card()
+    cfg = StftConfig(frame_len=n_fft, frame_hop=n_fft // 2)
+    hop = n_fft // 2
+    rng = np.random.default_rng(n_fft + 10 * n + t)
+    re, im = (torch.from_numpy(x).to(dev) for x in rng.standard_normal(
+        (2, 3, n, t, hop)).astype(np.float32))
+    nyq = torch.from_numpy(rng.standard_normal((3, n, t)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((3, hop + 1, n)) + 1j *
+                          rng.standard_normal((3, hop + 1, n))).astype(
+                              np.complex64)).to(dev)
+    window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
+                             device=dev)
+    nsamps = (t - 1) * hop + extra
+    wss = torch.as_tensor(pl.istft_wss_inverse(cfg.padded_window, t,
+                                               nsamps), device=dev)
+    pl.beamform_istft_planar.launches = 0
+    out = pl.beamform_istft_planar(re, im, nyq, w, window, wss, nsamps)
+    assert pl.beamform_istft_planar.launches == 1
+    ref = pl.beamform_istft_planar_plain(re, im, nyq, w, window, wss, nsamps)
+    assert _rel(out, ref) < TOL
+    assert not out[:, pl.valid_samples(t, hop, nsamps):].any()
+
+
 @pytest.mark.parametrize("n_fft,s", [(512, 24001), (1024, 24001),
                                      (512, 19501), (1024, 71901)])
 def test_stft_planar_unaligned_rows_match_plain(n_fft, s):
@@ -374,13 +407,13 @@ def test_pair_covar_matches_plain(n):
 
 
 PLANAR_LAUNCHES = ("stft_planar", "pair_covar_complement", "mvdr_power",
-                   "istft_planar")
+                   "beamform_istft_planar")
 
 
 def _counted():
     return (fm.stft_covar, fm.beamform_istft, mv.mvdr_power, mv.pmwf_solve,
             pl.stft_planar, cp.pair_covar_complement, pl.istft_planar,
-            cp.pair_covar)
+            pl.beamform_istft_planar, cp.pair_covar)
 
 
 @pytest.mark.parametrize("fields,s,nsamps", [
@@ -399,7 +432,8 @@ def test_planar_branch_runs_kernels_only(fields, s, nsamps):
     wav_d = torch.from_numpy(wav).to(dev)
     mask_d = torch.from_numpy(mask).to(dev)
     out = enhance_batch(wav_d, mask_d, cfg, nsamps=nsamps)
-    want = set(PLANAR_LAUNCHES) - (set() if cfg.center else {"istft_planar"})
+    want = set(PLANAR_LAUNCHES) - (set() if cfg.center else
+                                   {"beamform_istft_planar"})
     assert {fn.__name__ for fn in _counted() if fn.launches} == want
     ref = mvdr_enhance_planar_plain(wav_d, mask_d, cfg, nsamps=nsamps)
     assert torch.isfinite(out).all() and _rel(out, ref) < TOL

@@ -10,7 +10,10 @@ kernels run in interpret mode, as tests/test_pallas.py runs them:
 - kernel 10's (``istft_planar_plain``) against
   ``inverse_stft_pallas_planar`` where the JAX kernel applies
   (nsamps == (T-1) hop) and against the JAX ``inverse_stft`` for other
-  lengths: 1e-4 of the peak;
+  lengths: 1e-4 of the peak; with the beamform folded in
+  (``beamform_istft_planar_plain``) against the JAX package's beamform
+  expressions (setk_tpu/enhance/pipeline.py:259-269) followed by the same
+  inverse;
 - kernels 11 and 12's (``pair_covar_complement_plain``,
   ``pair_covar_plain``) against the Pallas pair kernels, and the port's
   ``compute_covar_pair`` against ``compute_covar_pair_pallas``: 1e-4;
@@ -125,6 +128,48 @@ def test_istft_planar_plain_matches_jax(n_fft, t, extra):
                                 torch.from_numpy(ny),
                                 torch.as_tensor(cfg.padded_window), wss,
                                 nsamps)
+    assert _peak_err(got, want) < KERNEL_TOL
+    if extra > 0:
+        assert not got[:, (t - 1) * fh:].any()
+
+
+@pytest.mark.parametrize("n_fft,t", [(512, 40), (1024, 21)])
+@pytest.mark.parametrize("n", [1, 6])
+@pytest.mark.parametrize("extra", [0, -300, 777])
+def test_beamform_istft_planar_plain_matches_jax(n_fft, t, n, extra):
+    """Random mic planes and MVDR weights through the JAX package's
+    planar beamform and its inverse (the Pallas kernel in interpret mode
+    at nsamps == (T-1) hop, the JAX inverse_stft otherwise) against
+    beamform_istft_planar_plain."""
+    jcfg, cfg = _cfgs(frame_len=n_fft, frame_hop=n_fft // 2)
+    fh = n_fft // 2
+    rng = np.random.default_rng(n_fft + 7 * n + t)
+    re, im = rng.standard_normal((2, 2, n, t, fh)).astype(np.float32)
+    nyq = rng.standard_normal((2, n, t)).astype(np.float32)
+    w = (rng.standard_normal((2, fh + 1, n)) + 1j * rng.standard_normal(
+        (2, fh + 1, n))).astype(np.complex64)
+    nsamps = (t - 1) * fh + extra
+    # setk_tpu/enhance/pipeline.py:259-269
+    wt = jnp.asarray(w)
+    wr = jnp.transpose(jnp.real(wt[:, :fh]), (0, 2, 1))[:, :, None, :]
+    wi = jnp.transpose(jnp.imag(wt[:, :fh]), (0, 2, 1))[:, :, None, :]
+    enh_re = jnp.sum(wr * re + wi * im, axis=1)
+    enh_im = jnp.sum(wr * im - wi * re, axis=1)
+    ny_re = jnp.sum(jnp.real(wt[:, fh])[:, :, None] * nyq, axis=1)
+    if extra == 0:
+        want = np.asarray(inverse_stft_pallas_planar(
+            enh_re, enh_im, ny_re, jcfg, n_frames=t, nsamps=nsamps,
+            interpret=True))
+    else:
+        zero = jnp.zeros_like(ny_re)[..., None]
+        spec = (jnp.concatenate([enh_re, ny_re[..., None]], -1) + 1j *
+                jnp.concatenate([zero, enh_im[..., 1:], zero], -1))
+        want = np.asarray(jax_inverse_stft(spec, jcfg, nsamps=nsamps))
+    wss = torch.from_numpy(pl.istft_wss_inverse(cfg.padded_window, t,
+                                                nsamps))
+    got = pl.beamform_istft_planar_plain(
+        torch.from_numpy(re), torch.from_numpy(im), torch.from_numpy(nyq),
+        torch.from_numpy(w), torch.as_tensor(cfg.padded_window), wss, nsamps)
     assert _peak_err(got, want) < KERNEL_TOL
     if extra > 0:
         assert not got[:, (t - 1) * fh:].any()
@@ -263,12 +308,13 @@ def mocked_card(monkeypatch):
     monkeypatch.setattr(pipeline, "_KERNELS", pipeline._KERNELS._replace(**{
         name: record(name, getattr(pipeline._KERNELS, name))
         for name in ("stft_planar", "pair_covar_complement", "mvdr_power",
-                     "istft_planar", "stft_covar", "beamform_istft")}))
+                     "beamform_istft_planar", "stft_covar",
+                     "beamform_istft")}))
     return calls
 
 
 PLANAR = ["mvdr_enhance_planar", "stft_planar", "pair_covar_complement",
-          "mvdr_power", "istft_planar"]
+          "mvdr_power", "beamform_istft_planar"]
 SPECTRUM = ["supervised_run", "pair_covar"]
 
 

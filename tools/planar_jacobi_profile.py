@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Kernels 9 (the planar STFT) and 14 (the Jacobi regularized inverse),
-rows 9 and 14 of PERF.md's kernel table, timed, and with --parent timed
-in turns beside another build.
+"""Kernels 9 (the planar STFT), 10 (the planar iSTFT) and 14 (the Jacobi
+regularized inverse), rows 9, 10 and 14 of PERF.md's kernel table, timed,
+and with --parent timed in turns beside another build.
 
     python3 tools/planar_jacobi_profile.py [--parent DIR] [--out FILE]
 
@@ -9,15 +9,17 @@ Needs one CUDA card and nvcc.  It builds setk_tpu_torch/csrc/
 planar_stft.cu and eigh_small.cu and prints their -Xptxas -v registers,
 spills and shared memory, then one JSON line a turn: kernel 9 at P1 (B =
 128 x 6 mics x 8 s int16 at n_fft 1024, hop 512, center) and P2 (512/256
-at S = 128,100), kernel 10 at P1, kernel 14 at the bench shape (65,792
+at S = 128,100), kernel 10 at P1 on mic 0's planes and, with the
+beamform, at P1 and P2 on every mic's planes (weights of a seeded
+generator, |w| ~ 1 / N), kernel 14 at the bench shape (65,792
 matrices of 6 x 6: K = 2 classes of B = 128 utterances x 257 bins,
 chip_smoke.py's C1) and the CGMM CLI resume's launch (514 = 2 x 257
 matrices, C3), on sample covariances of 16 random frames and on
 chip_smoke.py's C1 covariances (the CGMM scan's after 4 iterations on the
 gated scene), kernel 11 at P1 (another library, the turns' spread), each
-from a CUDA-graph replay and eager; the errors of kernels 9 and 14
-against their plain versions; and the P1 enhance_batch step with its
-device profile.  Inputs are chip_smoke.py's scenes
+from a CUDA-graph replay and eager; the errors of kernels 9, 10 (with
+the beamform) and 14 against their plain versions; and the P1
+enhance_batch step with its device profile, and the P2 step.  Inputs are chip_smoke.py's scenes
 (numpy.random.default_rng seeds).
 
 --parent DIR: DIR holds another planar_stft.cu and eigh_small.cu (with
@@ -25,7 +27,10 @@ jacobi.cuh) with the same C entry points, e.g. a parent commit's
 setk_tpu_torch/csrc unpacked by `git archive` into a gitignored directory.
 Both builds are then timed in turns (parent, this, this, parent) on the
 same inputs, each turn with its build's libraries in the port's library
-table.
+table.  A parent without beamform_istft_planar_launch (kernel 10 before
+the beamform was folded in) runs the beamform as the PyTorch pass it was
+(``planar_beamform``, then kernel 10 on its contiguous result), both in
+the "beamform_istft_planar" rows and in the steps.
 """
 
 import argparse
@@ -102,6 +107,7 @@ def main() -> int:
     from setk_tpu_torch.ops.cuda import _build as _b
     from setk_tpu_torch.ops.cuda import covariance_pair as cp
     from setk_tpu_torch.ops.cuda import eigh_small as es
+    from setk_tpu_torch.enhance import pipeline
     from setk_tpu_torch.ops.cuda import planar as pl
     from setk_tpu_torch.parallel.enhance_step import enhance_batch
 
@@ -171,12 +177,37 @@ def main() -> int:
     wss = torch.as_tensor(pl.istft_wss_inverse(cfg1.padded_window, t1,
                                                cs.S), device=dev)
     msk = mask1[..., :cfg1.n_fft // 2]
+    t2 = cfg2.num_frames(cs.P2_S)
+    mask2 = torch.from_numpy(rng.random((cs.B, t2, cfg2.num_bins)).astype(
+        np.float32)).to(dev)
+    # kernel 10 with the beamform: every mic's planes, seeded weights
+    gen = torch.Generator(device=dev).manual_seed(17)
+    fused_in = {}
+    for k, (x, c) in geos.items():
+        s = x.shape[-1]
+        w = torch.complex(*torch.randn((2, cs.B, c.n_fft // 2 + 1, cs.N),
+                                       device=dev, generator=gen)) / cs.N
+        fused_in[k] = (*ref9[k], w, win[k], torch.as_tensor(
+            pl.istft_wss_inverse(c.padded_window, c.num_frames(s), s),
+            device=dev), s)
+    ref10 = {k: pl.beamform_istft_planar_plain(*a)
+             for k, a in fused_in.items()}
+
+    def beamform_pass(re, im, nyq, w, window, wss_inv, nsamps):
+        """The center path before the fold: the PyTorch beamform pass,
+        then kernel 10 on its contiguous result."""
+        return pl.istft_planar(*(x.contiguous() for x in pl.planar_beamform(
+            re, im, nyq, w)), window, wss_inv, nsamps)
+
+    fused = {"this": pl.beamform_istft_planar}
     kernels = {
         "stft_planar@P1": lambda: pl.stft_planar(wav_d, win["P1"], True),
         "stft_planar@P2": lambda: pl.stft_planar(wav2_d, win["P2"],
                                                  True),
         "istft_planar@P1": lambda: pl.istft_planar(er, ei, ny, win["P1"],
                                                    wss, cs.S),
+        "beamform_istft_planar@P1": lambda: fused["now"](*fused_in["P1"]),
+        "beamform_istft_planar@P2": lambda: fused["now"](*fused_in["P2"]),
         "pair_covar_complement@P1": lambda: cp.pair_covar_complement(
             planes[0], planes[1], msk, t1),
         "regularized_inverse@bench_65792": lambda: es.regularized_inverse(
@@ -191,11 +222,21 @@ def main() -> int:
     def p1_step():
         return enhance_batch(wav_d, mask1, cfg1)
 
+    def p2_step():
+        return enhance_batch(wav2_d, mask2, cfg2)
+
     turns = ("parent", "this", "this", "parent") if args.parent else (
         "this",)
+    kernels_now = pipeline._KERNELS
     for turn, build in enumerate(turns):
         use(libs[build])
-        row = {"turn": turn, "build": build, "kernels": {}, "card": card}
+        fused["now"] = (fused["this"] if hasattr(
+            libs[build]["planar_stft"], "beamform_istft_planar_launch")
+            else beamform_pass)
+        pipeline._KERNELS = kernels_now._replace(
+            beamform_istft_planar=fused["now"])
+        row = {"turn": turn, "build": build, "kernels": {}, "card": card,
+               "beamform": fused["now"].__name__}
         for label, fn in kernels.items():
             row["kernels"][label] = {
                 "ms": cs._graph_ms(torch, fn, iters=20),
@@ -210,11 +251,16 @@ def main() -> int:
         got14 = es.regularized_inverse(mats["em_65792"])
         row["regularized_inverse@em_65792_max_rel_err"] = _inv_err(
             torch, got14[0], plain["em_65792"][0])
+        for k, inputs in fused_in.items():
+            row[f"beamform_istft_planar@{k}_max_rel_err"] = cs._rel(
+                fused["now"](*inputs), ref10[k])
         ms = cs._time_ms(torch, p1_step, iters=10, warmup=2)
         row["P1_step"] = {"ms": ms, "profile": cs._device_profile(
             torch, p1_step, ms, iters=3)}
+        row["P2_step_ms"] = cs._time_ms(torch, p2_step, iters=10, warmup=2)
         emit(row)
     use(this)
+    pipeline._KERNELS = kernels_now
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("".join(json.dumps(x) + "\n"
