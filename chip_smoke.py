@@ -296,9 +296,22 @@ def _solve_flops(n):
     return 8 * n * (n - 1) + 12 * n
 
 
+def _tri_flops(n):
+    # one triangular substitution or product: complex multiply-subtracts
+    # and the pivots' scalings
+    return 4 * n * (n - 1) + 2 * n
+
+
 def _flops_gevd(bins, n, iters):
-    per_iter = 8 * n * n + _solve_flops(n) + 6 * n
-    return bins * (_chol_flops(n) + iters * per_iter + 8 * n * n + 12 * n)
+    """The whitened power iteration of csrc/mvdr_power.cu: the Cholesky,
+    D Rs D and M = L^{-1} (D Rs D) L^{-H} (2N substitutions), w = L^H
+    D^{-1} ramp; an iteration a Hermitian matvec and a norm; then one back
+    substitution, D and the unit norm, v^H Rn v, the scale and the
+    anchor."""
+    setup = _chol_flops(n) + 4 * n * n + 2 * n * _tri_flops(n) + _tri_flops(n)
+    per_iter = 8 * n * n + 6 * n
+    tail = _tri_flops(n) + 8 * n + 8 * n * n + 12 * n
+    return bins * (setup + iters * per_iter + tail)
 
 
 def _flops_pmwf(bins, n):

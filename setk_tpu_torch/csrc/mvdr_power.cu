@@ -1,8 +1,9 @@
 // Per-bin beamformer weight solves from mask-weighted covariances (sm_90a).
 //
-// One thread per frequency bin; the N x N recurrences (N <= 8) are
+// mvdr_power and capon take one thread per frequency bin, gevd_power and
+// pmwf_solve a group of lanes; the N x N recurrences (N <= 8) are
 // unrolled by template.  All four kernels share the device helpers below:
-// load_herm / herm_in_place (0.5 (R + R^H)), equil_cholesky (Jacobi
+// load_herm (0.5 (R + R^H)), equil_cholesky (Jacobi
 // equilibration to a unit diagonal, scale 1 where the diagonal is <= 0,
 // loading max(eps_rel, 4 N EPS), complex Cholesky with pivots
 // rsqrt(max(d, EPS))), equil_solve (forward and back substitution through
@@ -25,36 +26,68 @@
 //
 // gevd_power_kernel replaces gevd_power_pallas (:474), body _gevd_kernel
 // (:271): `iters` power iterations v <- unit(Rn^{-1} Rs v) through the
-// equilibrated factor, then v^H Rn v = 1 (rsqrt(max(q, EPS))) and the
-// mic-0 anchor.  Bound: operations at 30-50 iterations (each a matvec and
-// a two-sided triangular solve, ~0.6 kFLOP a bin at N = 6).
-// pmwf_solve_kernel replaces pmwf_solve_pallas (:493), body _pmwf_kernel
-// (:335): W = X conj(tr) / max(|tr|^2, EPS^2) with X = Rn^{-1} Rs solved
-// column by column and tr = trace(X) + beta; optionally the per-channel
-// powers ps_c = Re(w_c^H Rs w_c), pn_c = Re(w_c^H Rn w_c) with the raw,
-// unloaded hermitianized Rn.  Bound: bytes (W is as large as Rs).
-// Registers are their trap: Rs and the factor, or Rs, the factor and X,
-// do not fit in 255 registers at N = 8.  So both keep the hermitianized
-// Rs and Rn in shared memory (rows padded to an odd float2 stride, so a
-// warp's 8-byte reads are free of bank conflicts) and only the factor in
-// registers; pmwf writes X's columns to W as they are solved and scales
-// them by the trace afterwards, reading each column back.  32 threads a
-// block keep two tiles under 48 KB of static shared memory at N = 8.
+// equilibrated factor (L L^H = D Rn D + load I), then v^H Rn v = 1
+// (rsqrt(max(q, EPS))) and the mic-0 anchor.  With v = D L^{-H} w the step
+// is w <- unit(M w), M = L^{-1} (D Rs D) L^{-H} Hermitian: the same
+// directions, so the kernel forms M once (2N substitutions), starts from
+// w = L^H D^{-1} ramp, iterates a matvec and a norm with no substitution in
+// the loop, and maps back once, v = unit(D L^{-H} w), the unit vector the
+// loop's last iterate was.  A bin takes G = gevd_lanes(N) lanes (2 from
+// N = 2); lane l owns rows l, l + G, ... of M, and w reaches the group by
+// shuffles.  Bound: bytes at 30 iterations (2 x 9.5 MB in, 1.6 MB out at
+// the bench shape; ~12 kFLOP a bin at N = 6, close behind), operations at
+// 50.  On the H100 every lane of a larger group re-forms the factor and an
+// iteration's broadcast of w costs 2N shuffles a warp: 4 and 8 lanes were
+// slower than the thread-a-bin kernel this replaces, 1 lane (M's upper
+// triangle on one thread) no faster than 2 and spilling at N = 8.
 //
-// Every block stages its bins' covariances through shared memory so the
-// global loads are coalesced (a thread's own matrix is N*N*8 contiguous
-// bytes).
+// pmwf_solve_kernel replaces pmwf_solve_pallas (:493), body _pmwf_kernel
+// (:335): W = X conj(tr) / max(|tr|^2, EPS^2) with X = Rn^{-1} Rs and
+// tr = trace(X) + beta; optionally the per-channel powers
+// ps_c = Re(w_c^H Rs w_c), pn_c = Re(w_c^H Rn w_c) with the raw, unloaded
+// Rn.  Bound: bytes (W is as large as Rs).  A bin takes a group of G
+// lanes (the power of two >= N), lane c its column c: every lane forms the
+// factor in registers (equil_cholesky) and solves X's column through it
+// (equil_solve), the trace meets in the group's xor shuffles, and the lane
+// scales its column and forms its two powers.  W is assembled in the Rs
+// tile and leaves in 16-byte stores; no X goes through device memory.
+//
+// Both family kernels stage a block's Rs and Rn in dynamic shared memory
+// (16-byte loads where the tensor lies on 16 bytes), a bin's matrix
+// group_stride float2s apart, so that a half-warp's 8-byte reads of one
+// word a group, or of a row's consecutive columns, fall in distinct banks;
+// past the 48 KB default (gevd_power at N = 7 and 8) the launch opts in.
+// A group past the last bin works on the last bin's tiles and stores
+// nothing, and lanes past N repeat lane N - 1's column, so every lane
+// meets every shuffle and barrier.
+//
+// mvdr_power and capon stage their bins' covariances through shared memory
+// so the global loads are coalesced (a thread's own matrix is N*N*8
+// contiguous bytes).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
 
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine eps
 constexpr int kMaxMics = 8;
-constexpr int kBlock = 64;     // mvdr_power, capon: matrices in registers
-constexpr int kFamBlock = 32;  // gevd_power, pmwf_solve: two tiles kept
+constexpr int kBlock = 64;        // mvdr_power, capon: a thread a bin
+constexpr int kFamThreads = 128;  // gevd_power, pmwf_solve: lane groups
+
+// lanes a bin of pmwf_solve: the power of two >= n
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// lanes a bin of gevd_power, at most 2: every lane forms the factor and an
+// iteration broadcasts w in 2N shuffles, so fewer lanes, each owning more
+// rows of M, do less work
+__host__ __device__ constexpr int gevd_lanes(int n) {
+  return pow2_at_least(n) < 2 ? pow2_at_least(n) : 2;
+}
 
 struct cpx {
   float re, im;
@@ -69,25 +102,15 @@ __device__ __forceinline__ cpx cmul_conj(cpx a, cpx b) {
   return {a.re * b.re + a.im * b.im, a.im * b.re - a.re * b.im};
 }
 
-// odd float2 row stride for a kept tile: conflict-free 8-byte reads
-template <int N>
-__host__ __device__ constexpr int padded_stride() {
-  return (N * N) % 2 ? N * N : N * N + 1;
-}
-
-// the block's matrices [base, base + nvalid) into a tile, STRIDE float2s
-// apart, by all BLOCK threads
-template <int N, int BLOCK, int STRIDE>
+// the block's matrices [base, base + nvalid) into a tile, by all BLOCK
+// threads
+template <int N, int BLOCK>
 __device__ __forceinline__ void stage(const float2* __restrict__ src,
                                       float2* tile, long long base,
                                       int nvalid) {
   constexpr int NN = N * N;
-  for (int i = threadIdx.x; i < nvalid * NN; i += BLOCK) {
-    if constexpr (STRIDE == NN)
-      tile[i] = src[base * NN + i];
-    else
-      tile[(i / NN) * STRIDE + i % NN] = src[base * NN + i];
-  }
+  for (int i = threadIdx.x; i < nvalid * NN; i += BLOCK)
+    tile[i] = src[base * NN + i];
 }
 
 // 0.5 (R + R^H) of the matrix at m into registers
@@ -105,23 +128,7 @@ __device__ __forceinline__ void load_herm(const float2* m, cpx (&h)[N][N]) {
   }
 }
 
-// 0.5 (R + R^H) of the thread's own matrix at m, in place
-template <int N>
-__device__ __forceinline__ void herm_in_place(float2* m) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = i; j < N; ++j) {
-      float2 a = m[i * N + j];
-      float2 b = m[j * N + i];
-      float2 h = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
-      m[i * N + j] = h;
-      m[j * N + i] = make_float2(h.x, -h.y);
-    }
-  }
-}
-
-// u = M v for the Hermitian matrix at m (shared memory)
+// u = M v for the matrix at m (shared memory)
 template <int N>
 __device__ __forceinline__ void matvec(const float2* m, const cpx (&v)[N],
                                        cpx (&u)[N]) {
@@ -139,7 +146,8 @@ __device__ __forceinline__ void matvec(const float2* m, const cpx (&v)[N],
   }
 }
 
-// Re(v^H M v) for the Hermitian matrix at m (shared memory)
+// Re(v^H M v) for the matrix at m (shared memory): the same for M and
+// 0.5 (M + M^H)
 template <int N>
 __device__ __forceinline__ float quad(const float2* m, const cpx (&v)[N]) {
   cpx u[N];
@@ -246,6 +254,141 @@ __device__ __forceinline__ void unit(const cpx (&u)[N], cpx (&v)[N]) {
   for (int i = 0; i < N; ++i) v[i] = {u[i].re * inv, u[i].im * inv};
 }
 
+// ---- lane groups (gevd_power, pmwf_solve): a bin's G lanes, adjacent in
+// one warp ----
+
+// float2s a bin's matrix takes in a tile: >= N * N and an odd multiple of
+// G, so a half-warp's 8-byte reads of one word a group, or of a row's
+// consecutive columns by a group's lanes, fall in distinct banks
+template <int N, int G>
+__host__ __device__ constexpr int group_stride() {
+  return (N * N + G - 1) / G % 2 ? (N * N + G - 1) / G * G
+                                 : ((N * N + G - 1) / G + 1) * G;
+}
+
+// float2 i of a block's contiguous run of matrices -> its tile slot
+template <int NN, int STRIDE>
+__device__ __forceinline__ int tile_at(int i) {
+  return i / NN * STRIDE + i % NN;
+}
+
+// the block's `count` float2s at src (device memory) into a tile, by all
+// kFamThreads threads, 16 bytes a load where src lies on 16 bytes
+template <int NN, int STRIDE>
+__device__ __forceinline__ void tile_in(const float2* __restrict__ src,
+                                        float2* tile, int count) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int k = threadIdx.x; 2 * k + 1 < count; k += kFamThreads) {
+      const float4 v = src4[k];
+      tile[tile_at<NN, STRIDE>(2 * k)] = make_float2(v.x, v.y);
+      tile[tile_at<NN, STRIDE>(2 * k + 1)] = make_float2(v.z, v.w);
+    }
+    if (count % 2 && threadIdx.x == 0)
+      tile[tile_at<NN, STRIDE>(count - 1)] = src[count - 1];
+  } else {
+    for (int i = threadIdx.x; i < count; i += kFamThreads)
+      tile[tile_at<NN, STRIDE>(i)] = src[i];
+  }
+}
+
+// the tile's first `count` float2s out to dst (device memory), as tile_in
+template <int NN, int STRIDE>
+__device__ __forceinline__ void tile_out(const float2* tile,
+                                         float2* __restrict__ dst,
+                                         int count) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int k = threadIdx.x; 2 * k + 1 < count; k += kFamThreads) {
+      const float2 a = tile[tile_at<NN, STRIDE>(2 * k)];
+      const float2 b = tile[tile_at<NN, STRIDE>(2 * k + 1)];
+      dst4[k] = make_float4(a.x, a.y, b.x, b.y);
+    }
+    if (count % 2 && threadIdx.x == 0)
+      dst[count - 1] = tile[tile_at<NN, STRIDE>(count - 1)];
+  } else {
+    for (int i = threadIdx.x; i < count; i += kFamThreads)
+      dst[i] = tile[tile_at<NN, STRIDE>(i)];
+  }
+}
+
+// the sum of x over the group's G lanes, the same bits on every lane
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// every entry of a vector spread over a group (entry j on lane j % G, as
+// own[j / G]) on every lane; src0 is the group's first lane in the warp
+template <int N, int G, int R>
+__device__ __forceinline__ void gather(const cpx (&own)[R], int src0,
+                                       cpx (&all)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if constexpr (G == 1) {
+      all[j] = own[j];
+    } else {
+      all[j] = {__shfl_sync(0xffffffffu, own[j / G].re, src0 + j % G),
+                __shfl_sync(0xffffffffu, own[j / G].im, src0 + j % G)};
+    }
+  }
+}
+
+// a[i] for a lane's own i in [0, N), by selects (no local memory)
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+  T r = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    if (k == i) r = a[k];
+  return r;
+}
+
+// 0.5 (R + R^H)[i][j] of the matrix at m, the bits load_herm forms
+template <int N>
+__device__ __forceinline__ cpx herm_at(const float2* m, int i, int j) {
+  const float2 a = m[i * N + j], b = m[j * N + i];
+  return {0.5f * (a.x + b.x), 0.5f * (a.y - b.y)};
+}
+
+// y = L^{-1} b (pivots 1 / inv_diag): equil_solve's forward half
+template <int N>
+__device__ __forceinline__ void lower_solve(const cpx (&l)[N][N],
+                                            const float (&inv_diag)[N],
+                                            const cpx (&b)[N], cpx (&y)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    cpx s = b[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) {
+      cpx p = cmul(l[i][q], y[q]);
+      s.re -= p.re;
+      s.im -= p.im;
+    }
+    y[i] = {s.re * inv_diag[i], s.im * inv_diag[i]};
+  }
+}
+
+// x = L^{-H} y: equil_solve's back half
+template <int N>
+__device__ __forceinline__ void upper_solve(const cpx (&l)[N][N],
+                                            const float (&inv_diag)[N],
+                                            const cpx (&y)[N], cpx (&x)[N]) {
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    cpx s = y[i];
+#pragma unroll
+    for (int q = i + 1; q < N; ++q) {
+      cpx p = cmul({l[q][i].re, -l[q][i].im}, x[q]);
+      s.re -= p.re;
+      s.im -= p.im;
+    }
+    x[i] = {s.re * inv_diag[i], s.im * inv_diag[i]};
+  }
+}
+
 // Capon: solve R x = d through the equilibrated factor of the matrix at m
 // (the thread's slot of a staged tile), write x / (d^H x) to out
 template <int N>
@@ -285,7 +428,7 @@ mvdr_power_kernel(const float2* __restrict__ rs, const float2* __restrict__ rn,
   const bool active = threadIdx.x < nvalid;
 
   // ---- steer vector: power iteration on hermitianized Rs ----
-  stage<N, kBlock, N * N>(rs, tile, base, nvalid);
+  stage<N, kBlock>(rs, tile, base, nvalid);
   __syncthreads();
   cpx v[N];
   {
@@ -317,7 +460,7 @@ mvdr_power_kernel(const float2* __restrict__ rs, const float2* __restrict__ rn,
   anchor_phase<N>(v, d);
 
   // ---- Capon solve against Rn ----
-  stage<N, kBlock, N * N>(rn, tile, base, nvalid);
+  stage<N, kBlock>(rn, tile, base, nvalid);
   __syncthreads();
   if (!active) return;
   capon_solve<N>(tile + threadIdx.x * N * N, d, eps_rel,
@@ -331,7 +474,7 @@ capon_kernel(const float2* __restrict__ steer, const float2* __restrict__ r,
   __shared__ float2 tile[kBlock * N * N];
   const long long base = (long long)blockIdx.x * kBlock;
   const int nvalid = min(kBlock, (int)(nbins - base));
-  stage<N, kBlock, N * N>(r, tile, base, nvalid);
+  stage<N, kBlock>(r, tile, base, nvalid);
   __syncthreads();
   if (threadIdx.x >= nvalid) return;
   const float2* ds = steer + (base + threadIdx.x) * N;
@@ -343,127 +486,257 @@ capon_kernel(const float2* __restrict__ steer, const float2* __restrict__ r,
 }
 
 template <int N>
-__global__ void __launch_bounds__(kFamBlock)
+__global__ void __launch_bounds__(kFamThreads)
 gevd_power_kernel(const float2* __restrict__ rs, const float2* __restrict__ rn,
                   float2* __restrict__ w, int nbins, int iters,
                   float eps_rel) {
-  constexpr int S = padded_stride<N>();
-  __shared__ float2 ts[kFamBlock * S];
-  __shared__ float2 tn[kFamBlock * S];
-  const long long base = (long long)blockIdx.x * kFamBlock;
-  const int nvalid = min(kFamBlock, (int)(nbins - base));
-  stage<N, kFamBlock, S>(rs, ts, base, nvalid);
-  stage<N, kFamBlock, S>(rn, tn, base, nvalid);
+  constexpr int G = gevd_lanes(N), R = (N + G - 1) / G, NN = N * N;
+  constexpr int S = group_stride<N, G>(), BINS = kFamThreads / G;
+  extern __shared__ float2 fam_tiles[];
+  float2* ts = fam_tiles;  // Rs, then Z = L^{-1} D Rs D
+  float2* tn = ts + BINS * S;
+  const long long base = (long long)blockIdx.x * BINS;
+  const int nvalid = min(BINS, (int)(nbins - base));
+  tile_in<NN, S>(rs + base * NN, ts, nvalid * NN);
+  tile_in<NN, S>(rn + base * NN, tn, nvalid * NN);
   __syncthreads();
-  if (threadIdx.x >= nvalid) return;
-  float2* ms = ts + threadIdx.x * S;
-  float2* mn = tn + threadIdx.x * S;
-  herm_in_place<N>(ms);
-  herm_in_place<N>(mn);
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const int src0 = (threadIdx.x & 31) - lane;
+  const float2* ms = ts + min(g, nvalid - 1) * S;
+  const float2* mn = tn + min(g, nvalid - 1) * S;
 
   cpx l[N][N];
-  load_herm<N>(mn, l);
   float dsc[N], inv_diag[N];
+  load_herm<N>(mn, l);
   equil_cholesky<N>(l, dsc, inv_diag, eps_rel);
 
-  cpx v[N];
+  // the lane's columns c = lane + r G of Z = L^{-1} (D Rs D)
+  cpx z[R][N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = {(k + 1.0f) / N, 0.0f};
+  for (int r = 0; r < R; ++r) {
+    const int c = min(lane + r * G, N - 1);
+    const float dc = pick<N>(dsc, c);
+    cpx b[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const cpx h = herm_at<N>(ms, i, c);
+      b[i] = {h.re * dsc[i] * dc, h.im * dsc[i] * dc};
+    }
+    lower_solve<N>(l, inv_diag, b, z[r]);
+  }
+  // the lane's rows c of M = L^{-1} Z^H: conj(L^{-1} conj(Z[c][:])), Z's
+  // rows from the group's columns through the Rs tile
+  __syncthreads();  // every group is done with the Rs tile
+  float2* zt = ts + g * S;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = lane + r * G;
+    if (c < N) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        zt[i * N + c] = make_float2(z[r][i].re, z[r][i].im);
+    }
+  }
+  __syncthreads();
+  cpx m[R][N];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = min(lane + r * G, N - 1);
+    cpx b[N], y[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) b[j] = {zt[c * N + j].x, -zt[c * N + j].y};
+    lower_solve<N>(l, inv_diag, b, y);
+#pragma unroll
+    for (int j = 0; j < N; ++j) m[r][j] = {y[j].re, -y[j].im};
+  }
+
+  // w = L^H D^{-1} ramp, so that D L^{-H} w is the ramp
+  cpx wo[R];
+  {
+    cpx t[N], w0[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) t[i] = {(i + 1.0f) / N / dsc[i], 0.0f};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      cpx s = {t[i].re / inv_diag[i], 0.0f};
+#pragma unroll
+      for (int j = i + 1; j < N; ++j) {
+        cpx p = cmul({l[j][i].re, -l[j][i].im}, t[j]);
+        s.re += p.re;
+        s.im += p.im;
+      }
+      w0[i] = s;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) wo[r] = pick<N>(w0, min(lane + r * G, N - 1));
+  }
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    cpx u[N], x[N];
-    matvec<N>(ms, v, u);
-    equil_solve<N>(l, dsc, inv_diag, u, x);
-    unit<N>(x, v);
+    cpx wf[N];
+    gather<N, G, R>(wo, src0, wf);
+    float n2 = 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      cpx u = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        cpx p = cmul(m[r][j], wf[j]);
+        u.re += p.re;
+        u.im += p.im;
+      }
+      wo[r] = u;
+      if (lane + r * G < N) n2 += u.re * u.re + u.im * u.im;
+    }
+    const float inv = rsqrtf(fmaxf(group_sum<G>(n2), kEps * kEps));
+#pragma unroll
+    for (int r = 0; r < R; ++r) wo[r] = {wo[r].re * inv, wo[r].im * inv};
   }
-  // v^H Rn v = 1 with the raw hermitianized Rn, then the mic-0 anchor
-  const float scale = rsqrtf(fmaxf(quad<N>(mn, v), kEps));
+  // v = unit(D L^{-H} w), the unit vector the loop's last iterate was
+  cpx v[N];
+  if (iters > 0) {
+    cpx wf[N], x[N];
+    gather<N, G, R>(wo, src0, wf);
+    upper_solve<N>(l, inv_diag, wf, x);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = {x[i].re * dsc[i], x[i].im * dsc[i]};
+    unit<N>(x, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = {(k + 1.0f) / N, 0.0f};
+  }
+  // v^H Rn v = 1 with the raw Rn (the lane's rows), then the mic-0 anchor
+  float q = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = lane + r * G;
+    if (c < N) {
+      cpx acc = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float2 e = mn[c * N + j];
+        cpx p = cmul({e.x, e.y}, v[j]);
+        acc.re += p.re;
+        acc.im += p.im;
+      }
+      const cpx vc = pick<N>(v, c);
+      q += vc.re * acc.re + vc.im * acc.im;
+    }
+  }
+  const float scale = rsqrtf(fmaxf(group_sum<G>(q), kEps));
 #pragma unroll
   for (int i = 0; i < N; ++i) v[i] = {v[i].re * scale, v[i].im * scale};
   cpx d[N];
   anchor_phase<N>(v, d);
-  float2* out = w + (base + threadIdx.x) * N;
+  if (g < nvalid) {
+    float2* out = w + (base + g) * N;
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = make_float2(d[i].re, d[i].im);
+    for (int r = 0; r < R; ++r) {
+      const int c = lane + r * G;
+      if (c < N) {
+        const cpx dc = pick<N>(d, c);
+        out[c] = make_float2(dc.re, dc.im);
+      }
+    }
+  }
 }
 
 template <int N>
-__global__ void __launch_bounds__(kFamBlock)
+__global__ void __launch_bounds__(kFamThreads)
 pmwf_solve_kernel(const float2* __restrict__ rs, const float2* __restrict__ rn,
                   float2* __restrict__ w, float* __restrict__ ps,
                   float* __restrict__ pn, int nbins, float beta,
                   float eps_rel) {
-  constexpr int S = padded_stride<N>();
-  __shared__ float2 ts[kFamBlock * S];
-  __shared__ float2 tn[kFamBlock * S];
-  const long long base = (long long)blockIdx.x * kFamBlock;
-  const int nvalid = min(kFamBlock, (int)(nbins - base));
-  stage<N, kFamBlock, S>(rs, ts, base, nvalid);
-  stage<N, kFamBlock, S>(rn, tn, base, nvalid);
+  constexpr int G = pow2_at_least(N), NN = N * N;
+  constexpr int S = group_stride<N, G>(), BINS = kFamThreads / G;
+  extern __shared__ float2 fam_tiles[];
+  float2* ts = fam_tiles;  // Rs, then W
+  float2* tn = ts + BINS * S;
+  const long long base = (long long)blockIdx.x * BINS;
+  const int nvalid = min(BINS, (int)(nbins - base));
+  tile_in<NN, S>(rs + base * NN, ts, nvalid * NN);
+  tile_in<NN, S>(rn + base * NN, tn, nvalid * NN);
   __syncthreads();
-  if (threadIdx.x >= nvalid) return;
-  float2* ms = ts + threadIdx.x * S;
-  float2* mn = tn + threadIdx.x * S;
-  herm_in_place<N>(ms);
-  herm_in_place<N>(mn);
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const int c = min(lane, N - 1);  // the lane's column
+  const bool owner = g < nvalid && lane < N;
+  const float2* ms = ts + min(g, nvalid - 1) * S;
+  const float2* mn = tn + min(g, nvalid - 1) * S;
 
   cpx l[N][N];
-  load_herm<N>(mn, l);
   float dsc[N], inv_diag[N];
+  load_herm<N>(mn, l);
   equil_cholesky<N>(l, dsc, inv_diag, eps_rel);
-
-  // X = Rn^{-1} Rs column by column, written to W unscaled
-  const long long bin = base + threadIdx.x;
-  float2* wo = w + bin * N * N;
-  cpx tr = {0.0f, 0.0f};
-#pragma unroll 1
-  for (int j = 0; j < N; ++j) {
-    cpx b[N], x[N];
+  // column c of X = D solve(D A D, D Rs e_c)
+  cpx b[N], x[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) b[i] = {ms[i * N + j].x, ms[i * N + j].y};
-    equil_solve<N>(l, dsc, inv_diag, b, x);
+  for (int i = 0; i < N; ++i) b[i] = herm_at<N>(ms, i, c);
+  equil_solve<N>(l, dsc, inv_diag, b, x);
+  // tr = trace(X) + beta; lanes past N add nothing
+  cpx t = {0.0f, 0.0f};
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      wo[i * N + j] = make_float2(x[i].re, x[i].im);
-      if (i == j) {
-        tr.re += x[i].re;
-        tr.im += x[i].im;
-      }
+  for (int i = 0; i < N; ++i)
+    if (i == lane) t = x[i];
+  t = {group_sum<G>(t.re) + beta, group_sum<G>(t.im)};
+  const float inv_den = 1.0f / fmaxf(t.re * t.re + t.im * t.im, kEps * kEps);
+  // column c of W, and its powers
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    cpx q = cmul_conj(x[i], t);
+    x[i] = {q.re * inv_den, q.im * inv_den};
+  }
+  const long long bin = base + g;
+  if (ps != nullptr) {
+    const float p_s = quad<N>(ms, x), p_n = quad<N>(mn, x);
+    if (owner) {
+      ps[bin * N + lane] = p_s;
+      pn[bin * N + lane] = p_n;
     }
   }
-  tr.re += beta;
-  const float inv_den = 1.0f / fmaxf(tr.re * tr.re + tr.im * tr.im,
-                                     kEps * kEps);
-
-  // W = X conj(tr) / |tr|^2, column by column, with the column's powers
-#pragma unroll 1
-  for (int c = 0; c < N; ++c) {
-    cpx wc[N];
+  __syncthreads();  // every group is done with the Rs tile
+  if (owner) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float2 x = wo[i * N + c];
-      cpx q = cmul_conj({x.x, x.y}, tr);
-      wc[i] = {q.re * inv_den, q.im * inv_den};
-      wo[i * N + c] = make_float2(wc[i].re, wc[i].im);
-    }
-    if (ps != nullptr) {
-      ps[bin * N + c] = quad<N>(ms, wc);
-      pn[bin * N + c] = quad<N>(mn, wc);
-    }
+    for (int i = 0; i < N; ++i)
+      ts[g * S + i * N + lane] = make_float2(x[i].re, x[i].im);
   }
+  __syncthreads();
+  tile_out<NN, S>(ts, w + base * NN, nvalid * NN);
+}
+
+// dynamic shared memory of a family kernel with `tiles` tiles: over the
+// 48 KB default for gevd_power at N = 7 and 8 (50 and 66 KB)
+template <int N, int G>
+constexpr int fam_smem_bytes(int tiles) {
+  return tiles * (kFamThreads / G) * group_stride<N, G>() *
+         (int)sizeof(float2);
+}
+
+// a kernel's opt-in to `bytes` of dynamic shared memory past the default
+template <typename K>
+int opt_in(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 inline int grid_for(int nbins, int block) { return (nbins + block - 1) / block; }
 
 // call f(std::integral_constant<int, n>{}) for 1 <= n <= kMaxMics, then
-// return the launch's error; n outside that range is refused
+// return the error f returned, if it returns one, or the launch's; n
+// outside that range is refused
 template <int N = 1, typename F>
 int with_mics(int n, F f) {
   if constexpr (N > kMaxMics) {
     return cudaErrorInvalidValue;
   } else {
     if (n != N) return with_mics<N + 1>(n, f);
-    f(std::integral_constant<int, N>{});
+    using Mics = std::integral_constant<int, N>;
+    if constexpr (std::is_same_v<decltype(f(Mics{})), int>) {
+      const int err = f(Mics{});
+      if (err != cudaSuccess) return err;
+    } else {
+      f(Mics{});
+    }
     return cudaGetLastError();
   }
 }
@@ -512,8 +785,13 @@ extern "C" int gevd_power_launch(const void* rs, const void* rn, void* w,
   auto o = static_cast<float2*>(w);
   return with_mics(n, [&](auto mics) {
     constexpr int N = decltype(mics)::value;
-    gevd_power_kernel<N><<<grid_for(nbins, kFamBlock), kFamBlock, 0, s>>>(
-        a, b, o, nbins, iters, eps_rel);
+    constexpr int G = gevd_lanes(N);
+    constexpr int smem = fam_smem_bytes<N, G>(2);  // Rs (then Z), Rn
+    const int err = opt_in(gevd_power_kernel<N>, smem);
+    if (err != cudaSuccess) return err;
+    gevd_power_kernel<N><<<grid_for(nbins, kFamThreads / G), kFamThreads,
+                           smem, s>>>(a, b, o, nbins, iters, eps_rel);
+    return (int)cudaSuccess;
   });
 }
 
@@ -532,7 +810,12 @@ extern "C" int pmwf_solve_launch(const void* rs, const void* rn, void* w,
   auto q = static_cast<float*>(pn);
   return with_mics(n, [&](auto mics) {
     constexpr int N = decltype(mics)::value;
-    pmwf_solve_kernel<N><<<grid_for(nbins, kFamBlock), kFamBlock, 0, s>>>(
-        a, b, o, p, q, nbins, beta, eps_rel);
+    constexpr int G = pow2_at_least(N);
+    constexpr int smem = fam_smem_bytes<N, G>(2);  // Rs (then W), Rn
+    const int err = opt_in(pmwf_solve_kernel<N>, smem);
+    if (err != cudaSuccess) return err;
+    pmwf_solve_kernel<N><<<grid_for(nbins, kFamThreads / G), kFamThreads,
+                           smem, s>>>(a, b, o, p, q, nbins, beta, eps_rel);
+    return (int)cudaSuccess;
   });
 }

@@ -25,6 +25,12 @@
 // not aligned to the copy's size is the card's misaligned-address fault,
 // which the launch's cudaGetLastError then returns.
 //
+// A launch that asks for more than 48 KB of dynamic shared memory runs
+// only if its kernel opted in to at least that much through
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize), as on the card;
+// otherwise it runs nothing, and cudaGetLastError (or the cooperative
+// launch) returns the card's invalid-value error.
+//
 // A cooperative launch (cudaLaunchCooperativeKernel) runs every thread of
 // the grid at once, each block with its own barrier and its own dynamic
 // shared buffer, and cooperative_groups.h's grid.sync() is one barrier over
@@ -40,6 +46,8 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <map>
+#include <mutex>
 #include <memory>
 #include <thread>
 #include <type_traits>
@@ -98,9 +106,26 @@ enum cudaFuncAttribute {
   cudaFuncAttributePreferredSharedMemoryCarveout = 9
 };
 enum { cudaSharedmemCarveoutMaxShared = 100 };
+// each kernel's opt-in to dynamic shared memory past the default
+inline constexpr std::size_t emu_smem_default = 48 * 1024;
+inline std::mutex emu_optin_mutex;
+inline std::map<const void*, std::size_t> emu_kernel_optin;
 template <typename K>
-inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+inline int cudaFuncSetAttribute(K kernel, cudaFuncAttribute attr, int value) {
+  if (attr == cudaFuncAttributeMaxDynamicSharedMemorySize) {
+    std::lock_guard<std::mutex> lock(emu_optin_mutex);
+    emu_kernel_optin[reinterpret_cast<const void*>(kernel)] =
+        static_cast<std::size_t>(value);
+  }
   return cudaSuccess;
+}
+// whether `kernel` may launch with `smem` bytes of dynamic shared memory
+template <typename K>
+inline bool emu_smem_allowed(K kernel, std::size_t smem) {
+  if (smem <= emu_smem_default) return true;
+  std::lock_guard<std::mutex> lock(emu_optin_mutex);
+  const auto it = emu_kernel_optin.find(reinterpret_cast<const void*>(kernel));
+  return it != emu_kernel_optin.end() && smem <= it->second;
 }
 
 // one emulated device, whose SM count and opt-in shared memory a test sets
@@ -200,6 +225,10 @@ inline float __shfl_sync(unsigned, float v, int src_lane) {
 template <typename K, typename... A>
 void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, K kernel,
                 A... args) {
+  if (!emu_smem_allowed(kernel, smem)) {
+    emu_fault = cudaErrorInvalidValue;
+    return;
+  }
   blockDim = dim3(block);
   gridDim = grid;
   std::vector<double> dyn(smem / sizeof(double) + 1);
@@ -273,6 +302,7 @@ void emu_cooperative(void (*kernel)(P...), dim3 grid, dim3 block,
 template <typename F>
 int cudaLaunchCooperativeKernel(const F* kernel, dim3 grid, dim3 block,
                                 void** args, size_t smem, cudaStream_t) {
+  if (!emu_smem_allowed(kernel, smem)) return cudaErrorInvalidValue;
   emu_cooperative(kernel, grid, block, args, smem);
   return cudaSuccess;
 }

@@ -476,8 +476,7 @@ def test_mvdr_power_source_matches_plain(libs, n):
 
 
 def _family_covars(n, bins=70, seed=0):
-    """Masked covariances of a source with a per-bin steer plus noise;
-    70 bins are three blocks of 32, the last one partial."""
+    """Masked covariances of a source with a per-bin steer plus noise."""
     rng = np.random.default_rng(seed + n)
     t = 48
     d = rng.standard_normal((bins, n, 1)) + 1j * rng.standard_normal(
@@ -494,22 +493,69 @@ def _family_covars(n, bins=70, seed=0):
             torch.from_numpy(d[..., 0].astype(np.complex64)))
 
 
-@pytest.mark.parametrize("n", [1, 2, 6, 8])
-def test_gevd_power_source_matches_plain(libs, n):
-    rs, rn, _ = _family_covars(n)
-    v = torch.empty((rs.shape[0], n), dtype=torch.complex64)
+# kernels 4 and 5 take a lane group a bin (pmwf: the power of two >= N;
+# gevd: that, at most 2) in blocks of 128 threads.  (N, bins): every N,
+# with the last group's lanes past N and the last block partial, and a
+# count past two blocks at every group size (128, 64, 32 and 16 bins a
+# block at 1, 2, 4 and 8 lanes); gevd_power at N = 7 and 8 takes more
+# than 48 KB of dynamic shared memory, which the emulator launches only
+# after the kernel's opt-in
+FAMILY_CASES = [(1, 1), (1, 300), (2, 3), (2, 130), (3, 33), (3, 70),
+                (4, 70), (5, 1), (5, 33), (6, 33), (6, 130), (7, 3),
+                (7, 70), (8, 70), (8, 130)]
+# gevd_power at 30 iterations on every case, at 50 on a case past two
+# blocks at N = 2, 5 and 8 (the emulator's shuffles are block barriers,
+# so iterations are what its time goes on)
+GEVD_CASES = ([pytest.param(n, b, 30, id=f"{n}-{b}-30")
+               for n, b in FAMILY_CASES] +
+              [pytest.param(n, b, 50, id=f"{n}-{b}-50")
+               for n, b in ((2, 130), (5, 33), (8, 70))])
+
+
+def _degenerate_bins(rs, rn, d):
+    """Bins 1-3 and the last of ``bins >= 5`` made degenerate among the
+    ordinary ones: Rs = 0, Rn = 0, a rank-one Rs, and both 0 (an all-zero
+    bin, as padding leaves it); returns their indices."""
+    bins = rs.shape[0]
+    if bins < 5:
+        return []
+    rs[1] = 0
+    rn[2] = 0
+    rs[3] = d[3, :, None] * d[3, None, :].conj()
+    rs[-1] = 0
+    rn[-1] = 0
+    return [1, 2, 3, bins - 1]
+
+
+def _assert_bins_match(got, ref, degenerate):
+    """Ordinary bins within SOLVE_TOL of their peak; a degenerate bin
+    within SOLVE_TOL of its own peak, or exactly 0 where ref is."""
+    ordinary = [k for k in range(ref.shape[0]) if k not in degenerate]
+    assert _rel(got[ordinary], ref[ordinary]) < SOLVE_TOL
+    for k in degenerate:
+        if ref[k].abs().max() == 0:
+            assert got[k].abs().max() == 0, k
+        else:
+            assert _rel(got[k], ref[k]) < SOLVE_TOL, k
+
+
+@pytest.mark.parametrize("n,bins,iters", GEVD_CASES)
+def test_gevd_power_source_matches_plain(libs, n, bins, iters):
+    rs, rn, d = _family_covars(n, bins)
+    degenerate = _degenerate_bins(rs, rn, d)
+    v = torch.empty((bins, n), dtype=torch.complex64)
     err = libs["mvdr_power"].gevd_power_launch(
-        rs.data_ptr(), rn.data_ptr(), v.data_ptr(), rs.shape[0], n, 30, 1e-6,
+        rs.data_ptr(), rn.data_ptr(), v.data_ptr(), bins, n, iters, 1e-6,
         None)
     assert err == 0
-    assert _rel(v, mv.gevd_power_plain(rs, rn, 30)) < SOLVE_TOL
+    _assert_bins_match(v, mv.gevd_power_plain(rs, rn, iters), degenerate)
 
 
-@pytest.mark.parametrize("n", [1, 2, 6, 8])
 @pytest.mark.parametrize("beta,powers", [(0.0, True), (1.0, False)])
-def test_pmwf_solve_source_matches_plain(libs, n, beta, powers):
-    rs, rn, _ = _family_covars(n, seed=1)
-    bins = rs.shape[0]
+@pytest.mark.parametrize("n,bins", FAMILY_CASES)
+def test_pmwf_solve_source_matches_plain(libs, n, bins, beta, powers):
+    rs, rn, d = _family_covars(n, bins, seed=1)
+    degenerate = _degenerate_bins(rs, rn, d)
     w = torch.empty((bins, n, n), dtype=torch.complex64)
     ps, pn = torch.empty((bins, n)), torch.empty((bins, n))
     err = libs["mvdr_power"].pmwf_solve_launch(
@@ -518,9 +564,27 @@ def test_pmwf_solve_source_matches_plain(libs, n, beta, powers):
         bins, n, beta, 1e-6, None)
     assert err == 0
     ref = mv.pmwf_solve_plain(rs, rn, beta, return_powers=True)
-    assert _rel(w, ref[0]) < SOLVE_TOL
+    _assert_bins_match(w, ref[0], degenerate)
     if powers:
-        assert _rel(ps, ref[1]) < SOLVE_TOL and _rel(pn, ref[2]) < SOLVE_TOL
+        _assert_bins_match(ps, ref[1], degenerate)
+        _assert_bins_match(pn, ref[2], degenerate)
+
+
+def test_pmwf_solve_stores_from_any_alignment(libs):
+    """Rs, Rn and W 8 bytes off a 16-byte boundary take the 8-byte
+    staging and stores (an odd count of float2s a block at N = 5)."""
+    rs, rn, _ = _family_covars(5, 33, seed=3)
+    pad = torch.zeros((1,), dtype=torch.complex64)
+    rs_off = torch.cat([pad, rs.reshape(-1)])[1:].view(rs.shape)
+    rn_off = torch.cat([pad, rn.reshape(-1)])[1:].view(rn.shape)
+    buf = torch.zeros(33 * 25 + 1, dtype=torch.complex64)
+    w_off = buf[1:].view(33, 5, 5)
+    assert rs_off.data_ptr() % 16 == 8 and w_off.data_ptr() % 16 == 8
+    err = libs["mvdr_power"].pmwf_solve_launch(
+        rs_off.data_ptr(), rn_off.data_ptr(), w_off.data_ptr(), None, None,
+        33, 5, 0.0, 1e-6, None)
+    assert err == 0 and buf[0] == 0
+    assert _rel(w_off, mv.pmwf_solve_plain(rs, rn)) < SOLVE_TOL
 
 
 @pytest.mark.parametrize("n", [1, 2, 6, 8])
