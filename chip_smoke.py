@@ -82,7 +82,7 @@ the CUDA toolkit.  In order it:
      scene through enhance_batch, launching exactly pair_covar and
      mvdr_power (mvdr) or pair_covar alone (pmwf-0), within 1e-4 of
      enhance_batch on the CPU copies of the inputs, correlation >= 0.9;
-  12. refusals at the E geometry: gevd, mpdr and N = 9 raise
+  12. refusals at the E geometry: N = 9 (mvdr and gevd) raises
      NotImplementedError with no device memory allocated;
   13. C1, CGMM/CACGMM mask estimation on the gated scene's STFT (B=128,
      6 mics, 512/256, T = 501 padded to BatchClusterer's 512-frame
@@ -172,7 +172,30 @@ the CUDA toolkit.  In order it:
      backward, backward alone), the resident variants' per-step floor (H =
      8, B = 1) and B = 1 at H = 512, and the serving (B = 64 and B = 1) and
      training steps with their profiles;
-  19. times each kernel (20 launches replayed from one CUDA graph, so the
+  19. V1-V3, the batched Hermitian EVD kernel (csrc/eigh_small.cu
+     hermitian_eigh_kernel, which replaces XLA's eigh) and what it
+     brings: V1 holds it against its plain version at M = 1-8, plain and
+     generalized, at 257, 4,112 and 32,896 matrices (one utterance's bins,
+     8 s at chunk 32, B = 128): the gated scene's Rs/Rn at M = 6, else a
+     quarter rank one plus noise and the rest full rank, one all-zero
+     matrix each (eigenvalues within 1e-4 of each matrix's peak; principal
+     vectors, where the top eigenvalue stands 1e-3 of the peak above the
+     next, within 1 - 1e-5 in |cos|), and times it at M = 6 (graph
+     replay, eager, plain) with its bound beside torch.linalg.eigh at the
+     counts it takes; V2 runs the per-utterance CLI (no --batch-size) on
+     the card and with --device cpu over 4 gated-scene utterances of 6 ch
+     x 8 s for mvdr, gevd+BAN, mpdr, mpdr-whiten, pmwf-0 with the GEV
+     rank-1 approximation and --pmwf-ref 0, pmwf-1 with --itf-mask, mvdr
+     with --vad-proportion 0.9 --mask true, and online gevd and mvdr at
+     --chunk-size 32: exact launches an utterance, files within 2 int16
+     steps, seconds an utterance; V3 drives the batch paths the kernel
+     lifted, each against its plain path: enhance_batch with the eigh
+     steer in the fused geometry against enhance_plain(steer="eigh") on
+     the card, gevd at 1024/512 and online gevd at chunk 32 against
+     enhance_batch on the CPU copies (1e-4 of the peak), and the WPD scan
+     at N taps = 132 against wpd on the CPU (cosine and mask correlation
+     >= 0.995, W5's bar), with exact launch sets;
+  20. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
      function where there is one (torch.stft, torch.istft, torch.einsum,
@@ -189,7 +212,7 @@ the CUDA toolkit.  In order it:
      and prints the kernels line (kernels 16-19 timed at W's scene, with
      the wpe, wpd and BatchWpe steps and their idle shares, 20-21 and the
      BLSTM steps from step 18);
-  20. prints {"ok": true, "device": {...}} as the last line.
+  21. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2, says
 which on stdout and stderr, and prints no result.
@@ -423,7 +446,8 @@ def _ptxas_summary(log: str) -> dict:
         m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
                       r"|covar_ema|beamform_istft_online|beamform_istft"
                       r"|istft_planar|stft_planar|pair_covar|masked_covar"
-                      r"|regularized_inverse|hermitian_solve|gram_solve"
+                      r"|regularized_inverse|hermitian_eigh|hermitian_solve"
+                      r"|gram_solve"
                       r"|wpe_gram|wpe_apply|em_warp|warp_jacobi)"
                       r"_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?([fs]?)E",
                       line)
@@ -575,7 +599,8 @@ def _all_counted():
             mv.pmwf_solve, mv.capon, pl.stft_planar, pl.istft_planar,
             pl.beamform_istft_planar,
             cp.pair_covar_complement, cp.pair_covar, mc.masked_covar,
-            es.regularized_inverse, ce.em, ch.hermitian_solve_lanes,
+            es.regularized_inverse, es.hermitian_eigh, ce.em,
+            ch.hermitian_solve_lanes,
             ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply,
             ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
             ls.lstm_seq_forward_stream, ls.lstm_seq_backward,
@@ -1513,6 +1538,324 @@ def _wpe_slice(np, torch, dev, cfg):
     return kernels, steps
 
 
+# ---- the Hermitian EVD and the per-utterance CLI (V1-V3) ----
+EIGH_SWEEPS = 8                 # ops/cuda/eigh_small.EIGH_SWEEPS
+V_COUNTS = (257, 4112, 32896)   # one utterance; 8 s at chunk 32; B = 128
+V_LIBRARY_COUNTS = (257, 4112, 16384, 32896)
+V_GAP = 1e-3    # a principal vector counts where its eigenvalue stands
+#                 this share of the peak above the next one
+V_UTTS, V_SECS, V_CHUNK = 4, 8, 32
+# (label, extra argv, the kernels one utterance launches and how often)
+V2_OPTIONS = [
+    ("mvdr", [], {"pair_covar": 1, "hermitian_eigh": 1}),
+    ("gevd+ban", ["--beamformer", "gevd", "--ban", "true"],
+     {"pair_covar": 1, "hermitian_eigh": 1}),
+    ("mpdr", ["--beamformer", "mpdr"],
+     {"pair_covar": 1, "masked_covar": 1, "hermitian_eigh": 1}),
+    ("mpdr-whiten", ["--beamformer", "mpdr-whiten"],
+     {"pair_covar": 1, "masked_covar": 1, "hermitian_eigh": 1}),
+    ("pmwf-0+gev+ref0", ["--beamformer", "pmwf-0", "--rank1-appro", "gev",
+                         "--pmwf-ref", "0"],
+     {"pair_covar": 1, "hermitian_eigh": 1}),
+    ("pmwf-1+itf", ["--beamformer", "pmwf-1", "--itf-mask", "ITF"],
+     {"pair_covar": 1}),
+    ("mvdr+vad0.9+mask", ["--vad-proportion", "0.9", "--mask", "true"],
+     {"pair_covar": 1, "hermitian_eigh": 1}),
+    ("online-gevd", ["--beamformer", "gevd", "--chunk-size", str(V_CHUNK)],
+     {"masked_covar": 1, "hermitian_eigh": 1}),
+    ("online-mvdr", ["--chunk-size", str(V_CHUNK)],
+     {"masked_covar": 1, "hermitian_eigh": 1})]
+V3_B = 32
+V3_WPD_TAPS = 22                # N taps = 132 > 128: the WPD scan
+
+
+def _flops_eigh(m, sweeps, gen):
+    """One matrix: the sweeps' rotations as _flops_jacobi counts them; the
+    generalized form adds two Cholesky factorizations, the whitening
+    (2 M triangular substitutions) and the back substitution (M)."""
+    rot = 25 + 3 * m * 20
+    flops = sweeps * m * (m - 1) // 2 * rot
+    if gen:
+        flops += 2 * _chol_flops(m) + 3 * m * _tri_flops(m)
+    return flops
+
+
+def _eigh_inputs(torch, dev, n, m, seed, scene=None):
+    """(a, b) of n matrices: the gated scene's (Rs, Rn) where given (M =
+    6), else a quarter rank one plus noise at 1e-3, the rest full rank
+    (Wishart of M + 2 draws), b full rank; one all-zero a (a bin with no
+    speech)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def herm(count, rank):
+        x = torch.complex(*torch.randn((2, count, m, rank), device=dev,
+                                       generator=gen))
+        return x @ x.conj().transpose(-1, -2)
+
+    if scene is not None:
+        a, b = (x.reshape(-1, m, m)[:n].clone() for x in scene)
+    else:
+        a, b = herm(n, m + 2), herm(n, m + 3)
+        a[:n // 4] = herm(n // 4, 1) + 1e-3 * herm(n // 4, m)
+    a[-1] = 0
+    return a.contiguous(), b.contiguous()
+
+
+def _eigh_errs(torch, w, v, w_p, v_p):
+    """(largest eigenvalue error over the matrix's peak, the largest
+    absolute one, smallest |v^H v_ref| / norms of the principal vectors
+    whose eigenvalue is above EPSILON x max and V_GAP of the peak above
+    the next, matrices so counted)."""
+    eps = 1.1920929e-07
+    peak = w_p.abs().amax(-1).clamp(min=1e-30)
+    w_err = float(((w - w_p).abs().amax(-1) / peak).max())
+    top, top_p = v[..., -1], v_p[..., -1]
+    cos = (top.conj() * top_p).sum(-1).abs() / (
+        torch.linalg.vector_norm(top, dim=-1) *
+        torch.linalg.vector_norm(top_p, dim=-1))
+    keep = w_p[:, -1] > eps * peak
+    if w_p.shape[-1] > 1:
+        keep &= w_p[:, -1] - w_p[:, -2] > V_GAP * peak
+    return (w_err, _abs(w, w_p), float(cos[keep].min()),
+            int(keep.sum()))
+
+
+def _write_gated_corpus(np, root, count, secs, seed):
+    """``count`` gated-scene utterances (6 ch int16 wav, _gated_scene's
+    source and 0.95/0.05 mask, a little jitter on the mask) with speech
+    and interference masks (1 - mask) as .npy, and their scps."""
+    from setk_tpu_torch.io.wave import write_wav
+    root.mkdir(parents=True, exist_ok=True)
+    wav16, mask, _ = _gated_scene(count, N, secs * SR, seed)
+    rng = np.random.default_rng(seed)
+    lines = {"wav": [], "mask": [], "itf": []}
+    keys = []
+    for i in range(count):
+        key = f"v{i}"
+        keys.append(key)
+        write_wav(root / f"{key}.wav", wav16[i].astype(np.float32) / 32768,
+                  sr=SR)
+        jitter = rng.random(mask[i].shape).astype(np.float32) * 0.04
+        np.save(root / f"{key}.npy", mask[i] - jitter)
+        np.save(root / f"{key}.itf.npy", 1.0 - mask[i] + jitter)
+        for name, suffix in (("wav", ".wav"), ("mask", ".npy"),
+                             ("itf", ".itf.npy")):
+            lines[name].append(f"{key} {root}/{key}{suffix}")
+    for name, rows in lines.items():
+        (root / f"{name}.scp").write_text("\n".join(rows) + "\n")
+    return keys
+
+
+def _evd_slice(np, torch, dev, card="cuda", counts=V_COUNTS,
+               library_counts=V_LIBRARY_COUNTS, b=B, utts=V_UTTS,
+               secs=V_SECS, v3_b=V3_B):
+    """Phases V1-V3: returns (the kernels line's row for the EVD kernel,
+    a summary).  ``card`` is the device the CLI and the entry points are
+    asked for."""
+    from setk_tpu_torch.cli import apply_adaptive_beamformer as cli
+    from setk_tpu_torch.dsp.stft import StftConfig, forward_stft
+    from setk_tpu_torch.enhance import wpe as tw
+    from setk_tpu_torch.enhance.pipeline import enhance_plain
+    from setk_tpu_torch.io.wave import read_wav
+    from setk_tpu_torch.ops.cuda import _build
+    from setk_tpu_torch.ops.cuda import eigh_small as es
+    from setk_tpu_torch.ops.cuda import fused_mvdr as fm
+    from setk_tpu_torch.parallel.enhance_step import enhance_batch
+    cfg = StftConfig()
+    window = torch.as_tensor(cfg.padded_window, dtype=torch.float32,
+                             device=dev)
+
+    # ---- V1: the EVD kernel against its plain version ----
+    gwav16, gmask, _ = _gated_scene(b, N, S, seed=1)
+    gmask_d = torch.from_numpy(gmask).to(dev)
+    rs_num, rn_num = fm.stft_covar(torch.from_numpy(gwav16).to(dev),
+                                   gmask_d, window)
+    den = gmask_d.sum(1)
+    scene = (rs_num / torch.clamp(den, min=1e-6)[..., None, None],
+             rn_num / torch.clamp(cfg.num_frames(S) - den,
+                                  min=1e-6)[..., None, None])
+    v1 = {}
+    for m in range(1, 9):
+        for n in counts:
+            a, bm = _eigh_inputs(torch, dev, n, m, seed=100 * m + n % 97,
+                                 scene=scene if m == N else None)
+            for gen in (False, True):
+                bb = bm if gen else None
+                w, v = es.hermitian_eigh(a, bb)
+                w_p, v_p = es.hermitian_eigh_plain(a, bb)
+                w_err, w_abs, cos, kept = _eigh_errs(torch, w, v, w_p,
+                                                     v_p)
+                v1[f"M{m},n{n},{'gen' if gen else 'eigh'}"] = {
+                    "w_err": w_err, "w_abs_err": w_abs,
+                    "principal_min_cos": cos,
+                    "counted": kept,
+                    "finite": bool(torch.isfinite(w[:-1]).all() and
+                                   torch.isfinite(v[:-1]).all())}
+    w_worst = max(r["w_err"] for r in v1.values())
+    cos_worst = min(r["principal_min_cos"] for r in v1.values())
+    print(json.dumps({"V1_eigh_vs_plain": v1, "w_bar": TOL,
+                      "cos_bar": 1 - 1e-5, "gap": V_GAP}))
+    if not (w_worst <= TOL and cos_worst >= 1 - 1e-5 and
+            all(r["finite"] for r in v1.values())):
+        raise AssertionError(f"V1: eigenvalue error {w_worst} (bar {TOL}) "
+                             f"or principal cosine {cos_worst}")
+    # times at M = 6 on the gated scene's covariances, both forms
+    t1 = {}
+    for n in counts:
+        a, bm = _eigh_inputs(torch, dev, n, N, seed=7, scene=scene)
+        for gen in (False, True):
+            bb = bm if gen else None
+            nbytes = a.nbytes * (2 if gen else 1) + a.nbytes + n * N * 4
+            t1[f"n{n},{'gen' if gen else 'eigh'}"] = {
+                "ms": _graph_ms(torch, lambda: es.hermitian_eigh(a, bb)),
+                "eager_ms": _time_ms(torch, lambda: es.hermitian_eigh(a, bb)),
+                "plain_ms": _time_ms(torch, lambda: es.hermitian_eigh_plain(
+                    a, bb), iters=3, warmup=1),
+                "bound": _bound(nbytes, n * _flops_eigh(N, EIGH_SWEEPS,
+                                                        gen))}
+    lib = {}
+    for n in library_counts:
+        a, _ = _eigh_inputs(torch, dev, n, N, seed=8, scene=scene)
+        try:
+            lib[f"n{n}"] = _time_ms(torch, lambda: torch.linalg.eigh(a),
+                                    iters=5, warmup=1)
+        except RuntimeError as exc:
+            lib[f"n{n}"] = f"not measured: {str(exc)[:70]}"
+    print(json.dumps({"V1_times_M6": t1, "linalg_eigh_ms": lib}))
+
+    # ---- V2: the per-utterance CLI, on the card against the CPU ----
+    v2, v2_launch_total = {}, 0
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        keys = _write_gated_corpus(np, tmp, utts, secs, seed=9)
+        for label, extra, want in V2_OPTIONS:
+            extra = [str(tmp / "itf.scp") if x == "ITF" else x
+                     for x in extra]
+            outs, secs_per = {}, {}
+            for device in (card, "cpu"):
+                out_dir = tmp / f"{label}-{device}"
+                argv = [str(tmp / "wav.scp"), str(tmp / "mask.scp"),
+                        str(out_dir), "--device", device] + extra
+                t0 = time.perf_counter()
+                if device == card:
+                    _, counts_run = _launched(
+                        torch, lambda: cli.run(cli.make_parser().parse_args(
+                            argv)), f"V2 {label}", set(want))
+                else:
+                    cli.run(cli.make_parser().parse_args(argv))
+                secs_per[device] = (time.perf_counter() - t0) / utts
+                outs[device] = {}
+                for key in keys:
+                    path = out_dir / f"{key}.wav"
+                    if not path.exists():
+                        raise AssertionError(f"V2 {label} {device}: {key} "
+                                             f"not written")
+                    outs[device][key] = read_wav(path, normalize=False)
+            if counts_run != {k: c * utts for k, c in want.items()}:
+                raise AssertionError(f"V2 {label}: launched {counts_run}, "
+                                     f"needs {want} an utterance")
+            v2_launch_total += counts_run.get("hermitian_eigh", 0)
+            v2[label] = {
+                "max_int16_steps": max(float(np.abs(
+                    outs[card][k] - outs["cpu"][k]).max()) for k in keys),
+                "launches": counts_run,
+                "card_s_per_utt": secs_per[card],
+                "cpu_s_per_utt": secs_per["cpu"]}
+    print(json.dumps({"V2_cli_per_utterance": v2, "utterances": utts,
+                      "secs": secs, "tol_steps": 2}))
+    for label, row in v2.items():
+        if not row["max_int16_steps"] <= 2:
+            raise AssertionError(f"V2 {label}: card vs CPU "
+                                 f"{row['max_int16_steps']} int16 steps > 2")
+
+    # ---- V3: the batch paths the EVD kernel lifted ----
+    v3 = {}
+    w_d = torch.from_numpy(gwav16[:v3_b]).to(dev)
+    m_d = gmask_d[:v3_b]
+    out, c = _launched(torch, lambda: enhance_batch(w_d, m_d, cfg,
+                                                    steer="eigh"),
+                       "V3 eigh steer", {"stft_covar", "hermitian_eigh",
+                                         "beamform_istft"})
+    ref = enhance_plain(w_d, m_d, cfg, steer="eigh")
+    v3["fused_mvdr_eigh_512_256"] = {"launches": c, "vs_plain": _rel(out,
+                                                                     ref)}
+    cfg1 = StftConfig(**P1_FIELDS)
+    w1, mk1, _ = _gated_scene(v3_b, N, S, seed=1, cfg=cfg1)
+    out, c = _launched(torch, lambda: enhance_batch(
+        torch.from_numpy(w1).to(dev), torch.from_numpy(mk1).to(dev), cfg1,
+        beamformer="gevd"), "V3 gevd 1024/512",
+        {"pair_covar", "hermitian_eigh"})
+    ref = enhance_batch(w1, mk1, cfg1, beamformer="gevd", device="cpu")
+    v3["gevd_1024_512"] = {"launches": c, "vs_cpu": _rel(out.cpu(), ref)}
+    out, c = _launched(torch, lambda: enhance_batch(
+        w_d, m_d, cfg, beamformer="gevd", chunk_size=V_CHUNK),
+        "V3 online gevd", {"masked_covar", "hermitian_eigh"})
+    ref = enhance_batch(gwav16[:v3_b], gmask[:v3_b], cfg, beamformer="gevd",
+                        chunk_size=V_CHUNK, device="cpu")
+    v3["online_gevd_chunk32"] = {"launches": c,
+                                 "vs_cpu": _rel(out.cpu(), ref)}
+    # WPD at N taps = 132: the scan, its steer through the EVD kernel
+    obs = forward_stft(torch.from_numpy(gwav16[:2, :, :WPD_SECS * SR])
+                       .float() / 32768, cfg).permute(0, 3, 1, 2)
+    obs = obs.contiguous()                          # (2, F, N, T)
+    (mask_k, enh_k), c = _launched(torch, lambda: tw.wpd(
+        obs, cgmm_iters=WPD_CGMM, wpd_iters=WPD_OUTER, taps=V3_WPD_TAPS,
+        device=card), "V3 wpd scan", {"em", "masked_covar",
+                                      "hermitian_eigh"})
+    mask_p, enh_p = tw.wpd(obs, cgmm_iters=WPD_CGMM, wpd_iters=WPD_OUTER,
+                           taps=V3_WPD_TAPS, device="cpu")
+    enh_k, mask_k = enh_k.cpu(), mask_k.cpu()
+    v3["wpd_scan_taps22"] = {
+        "launches": c,
+        "enhanced_cosine": float(abs(torch.vdot(
+            enh_k.flatten(), enh_p.flatten())) / (
+                torch.linalg.vector_norm(enh_k) *
+                torch.linalg.vector_norm(enh_p))),
+        "mask_corr": float(np.corrcoef(mask_k.numpy().ravel(),
+                                       mask_p.numpy().ravel())[0, 1])}
+    print(json.dumps({"V3_lifted_paths": v3, "tol": TOL, "wpd_bar": W5_BAR}))
+    for label in ("fused_mvdr_eigh_512_256", "gevd_1024_512",
+                  "online_gevd_chunk32"):
+        err = v3[label].get("vs_plain", v3[label].get("vs_cpu"))
+        if not err <= TOL:
+            raise AssertionError(f"V3 {label}: {err} > {TOL}")
+    if not (v3["wpd_scan_taps22"]["enhanced_cosine"] >= W5_BAR and
+            v3["wpd_scan_taps22"]["mask_corr"] >= W5_BAR):
+        raise AssertionError(f"V3 wpd: {v3['wpd_scan_taps22']}")
+
+    # the fused mvdr step at the bench width with either steer, and where
+    # the eigh steer's step spends its device time
+    gwav_d = torch.from_numpy(gwav16).to(dev)
+    steps = {steer: _time_ms(torch, lambda: enhance_batch(
+        gwav_d, gmask_d, cfg, steer=steer)) for steer in ("eigh", "power")}
+    steps["eigh_profile"] = _device_profile(torch, lambda: enhance_batch(
+        gwav_d, gmask_d, cfg, steer="eigh"), steps["eigh"])
+    print(json.dumps({"V3_fused_mvdr_steps_ms": steps, "B": b}))
+
+    # the kernels line's row: the per-utterance CLI's launch (one
+    # utterance's 257 bins, the plain form of mvdr's default steer)
+    main = t1[f"n{counts[0]},eigh"]
+    launches = v2_launch_total
+    row = {
+        "name": "hermitian_eigh", "route": "cuda",
+        "source": "setk_tpu_torch/csrc/eigh_small.cu",
+        "replaces": "none: XLA eigh on the TPU (setk_tpu/ops/linalg.py:27)",
+        "launches": launches,
+        "max_abs_err": max(r["w_abs_err"] for r in v1.values()),
+        "max_rel_err": w_worst, "ms": main["ms"],
+        "eager_ms": main["eager_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
+        "library_ms": lib.get(f"n{counts[0]}"),
+        "shape": f"{counts[0]} matrices of {N} x {N}, {EIGH_SWEEPS} sweeps",
+        "principal_min_cos": cos_worst, "by_count": t1,
+        "linalg_eigh_ms_by_count": lib,
+        "launches_by_path": {**{f"V2 {k}": r["launches"].get(
+            "hermitian_eigh", 0) for k, r in v2.items()},
+            **{f"V3 {k}": r["launches"].get("hermitian_eigh", 0)
+               for k, r in v3.items()}}}
+    return [row], {"V2": v2, "V3": v3, "fused_mvdr_steps_ms": steps}
+
+
 # ---- the BLSTM mask estimator (kernels 20-21) ----
 # MaskNet(arch="blstm") at the train CLI's width (setk_tpu/cli/
 # train_mask_estimator.py:114-115: hidden 512, 3 layers, 257 bins) and the
@@ -2048,6 +2391,12 @@ def main() -> int:
             f"istft_planar<{lg},{bf}>" for lg in (8, 9, 10, 11)
             for bf in (0, 1))}}))
 
+    # the EVD kernel at every M, plain (0) and generalized (1)
+    print(json.dumps({"ptxas_hermitian_eigh": {
+        key: ptxas.get(key, "not built now") for key in (
+            f"hermitian_eigh<{m},{g}>" for m in range(1, 9)
+            for g in (0, 1))}}))
+
     # ---- 3. kernels against their plain versions at the bench shape ----
     cfg = StftConfig()
     t_frames = cfg.num_frames(S)
@@ -2496,11 +2845,9 @@ def main() -> int:
     refused = {}
     wav9 = np.zeros((2, 9, S), np.int16)
     before = torch.cuda.memory_allocated()
-    for label, w, kw in (("gevd", wav16[:2], {"beamformer": "gevd"}),
-                         ("mpdr", wav16[:2], {"beamformer": "mpdr"}),
-                         ("N=9", wav9, {})):
+    for label, kw in (("N=9", {}), ("N=9 gevd", {"beamformer": "gevd"})):
         try:
-            enhance_batch(w, mask_e[:2], cfg_e, **kw)
+            enhance_batch(wav9, mask_e[:2], cfg_e, **kw)
         except NotImplementedError as exc:
             refused[label] = re.search(r"ROADMAP [^;,]*", str(exc)).group(0)
         else:
@@ -2738,7 +3085,10 @@ def main() -> int:
     # ---- 18. N1-N4: the BLSTM mask estimator ----
     blstm_kernels, blstm_steps = _blstm_slice(np, torch, dev)
 
-    # ---- 19. timing at the bench shape ----
+    # ---- 19. V1-V3: the Hermitian EVD and the per-utterance CLI ----
+    evd_kernels, evd_steps = _evd_slice(np, torch, dev)
+
+    # ---- 20. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -3026,7 +3376,7 @@ def main() -> int:
             row[label] = info[name]
         row.update(row_extra.get(name, {}))
         kernels.append(row)
-    kernels += wpe_kernels + blstm_kernels
+    kernels += wpe_kernels + blstm_kernels + evd_kernels
     gevd50_ms = _graph_ms(torch, lambda: mv.gevd_power(grs, grn,
                                                        power_iters=50))
     step_ms = _time_ms(torch, lambda: enhance_batch(

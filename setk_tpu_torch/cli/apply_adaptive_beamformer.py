@@ -3,37 +3,45 @@
 over an scp corpus.
 
 The port's counterpart of ``setk_tpu/cli/apply_adaptive_beamformer.py``,
-with the same flags.  It runs the batched path (``--batch-size`` > 1):
-the native prefetching wav loader, the mask reader, ``BatchEnhancer`` on
-``--device`` (``cuda`` by default; ``cpu`` runs the plain path), offline
-or online (``--chunk-size`` > 0), and the wav writer, with the output
-peak renormalized to the input's and non-finite outputs skipped.  On the
-card, ``--frame-len``, ``--frame-hop`` and ``--center`` choose the
-kernels as ``enhance_batch`` does: the fused kernels for the 512/256
-center geometry, the planar kernels for mvdr at other n_fft = 2 hop
-powers of two from 256 to 2048 (with or without center), and the
-spectrum-domain run (the pair-covariance kernel and the per-bin solves)
-for the rest of mvdr, mvdr with BAN and pmwf-0/1; gevd, mpdr and
-mpdr-whiten outside the fused geometry, and online outside it, raise
-naming their ROADMAP item before the batch reaches the card.  The
-per-utterance path (``--batch-size 1`` and its options: interference
-masks, VAD filtering, post-masking, the PMWF reference channel and
-rank-1 approximation) comes with ROADMAP queue 1 item 14.
+with the same flags, on ``--device`` (``cuda`` by default; ``cpu`` runs
+the plain path).  Outputs are renormalized to the input's peak and
+non-finite ones skipped.
+
+The per-utterance path (``--batch-size 1``, the default) is the JAX CLI's
+``_run`` step by step: the spectrogram reader's STFT on the host, the
+masks turned T x F, the VAD filter (``--vad-proportion``), frames padded
+to a bucket of 64 (or the chunk size) with the noise mask made after the
+padding, ``supervised_run`` (interference masks, ``--pmwf-ref``,
+``--rank1-appro``, ``--ban``) or ``online_supervised_run``
+(``--chunk-size``, ``--alpha``) and the post-mask, then the iSTFT.  On
+the card the covariances run kernels 12 and 13 and every EVD the EVD
+kernel (ops/cuda/eigh_small.hermitian_eigh).
+
+The batched path (``--batch-size`` > 1, without the interference, VAD
+and post-mask options) runs the native prefetching wav loader and
+``BatchEnhancer``, offline or online; on the card ``--frame-len``,
+``--frame-hop`` and ``--center`` choose the kernels as ``enhance_batch``
+does.
 
     python -m setk_tpu_torch.cli apply_adaptive_beamformer wav.scp \\
-        mask.scp out/ --batch-size 64 [--chunk-size 32 --alpha 0.8]
+        mask.scp out/ [--beamformer gevd --ban true] [--chunk-size 32]
 """
 
 import argparse
 
 import numpy as np
+import torch
 
-from setk_tpu_torch.cli.common import (StftParser, refuse_data_parallel,
+from setk_tpu_torch.cli.common import (StftParser, pad_to_bucket,
+                                       refuse_data_parallel,
                                        stft_config_from_args, strtobool)
-from setk_tpu_torch.io import MaskReader, WaveWriter
+from setk_tpu_torch.dsp.stft import inverse_stft
+from setk_tpu_torch.enhance import beamformer as bf
+from setk_tpu_torch.enhance.vad import apply_vad_filter, vad_masks
+from setk_tpu_torch.io import MaskReader, SpectrogramReader, WaveWriter
 from setk_tpu_torch.io.prefetch import PrefetchWaveLoader
 from setk_tpu_torch.parallel.executor import BatchEnhancer
-from setk_tpu_torch.utils.device import resolve_device
+from setk_tpu_torch.utils.device import full_f32_matmuls, resolve_device
 from setk_tpu_torch.utils.logger import get_logger
 from setk_tpu_torch.utils.profiling import ThroughputMeter, trace
 
@@ -43,22 +51,103 @@ BEAMFORMERS = ["mvdr", "mpdr", "mpdr-whiten", "gevd", "pmwf-0", "pmwf-1"]
 
 
 def _check_args(args):
-    """Refuse what the port does not run yet, before any file is read."""
-    per_utt = [flag for flag, on in (
-        ("--batch-size 1", args.batch_size <= 1),
-        ("--itf-mask", bool(args.itf_mask)),
-        ("--vad-proportion", 0.5 < args.vad_proportion < 1),
-        ("--mask", bool(args.mask)),
-        ("--pmwf-ref", args.pmwf_ref != -1),
-        ("--rank1-appro", bool(args.rank1_appro))) if on]
-    if per_utt:
-        raise NotImplementedError(
-            f"{', '.join(per_utt)}: the per-utterance path arrives with "
-            f"ROADMAP queue 1 item 14; the port runs --batch-size > 1 "
-            f"(offline and online) without these options")
+    """Refuse what the chosen path does not take, before any file is
+    read; returns the device."""
     device = resolve_device(args.device)
     refuse_data_parallel(args.data_parallel, device)
+    if args.batch_size > 1 and (args.itf_mask or
+                                0.5 < args.vad_proportion < 1 or args.mask):
+        raise RuntimeError(
+            "--batch-size > 1 supports the offline and online "
+            "paths (no interference/VAD/post-mask options)")
     return device
+
+
+def _enhance(args, cfg, device, obs, m_s, m_n, nsamps):
+    """One utterance: obs (F, N, T) complex64, masks (F, T) -> samples."""
+    obs, m_s, m_n = (torch.from_numpy(x).to(device) for x in (obs, m_s, m_n))
+    if args.chunk_size > 0:
+        enh = bf.online_supervised_run(args.beamformer, obs, m_s,
+                                       mask_n=m_n,
+                                       chunk_size=args.chunk_size,
+                                       alpha=args.alpha, ban=bool(args.ban))
+    else:
+        kwargs = {}
+        if args.beamformer.startswith("pmwf"):
+            kwargs = dict(ref_channel=args.pmwf_ref,
+                          rank1_appro=args.rank1_appro)
+        enh = bf.supervised_run(args.beamformer, obs, m_s, mask_n=m_n,
+                                ban=bool(args.ban), **kwargs)
+    if args.mask:
+        enh = enh * m_s
+    return inverse_stft(enh.transpose(-1, -2), cfg,
+                        nsamps=nsamps).cpu().numpy()
+
+
+def _run_utterances(args, device):
+    """The per-utterance path, the host steps of the JAX CLI's ``_run``
+    (setk_tpu/cli/apply_adaptive_beamformer.py:121-191) in its order:
+    the outputs depend on them (the padded frames count in Rn's mask sum,
+    which scales gevd's and PMWF's weights)."""
+    cfg = stft_config_from_args(args)
+    reader = SpectrogramReader(args.wav_scp, cfg=cfg, transpose=False)
+    tgt_reader = MaskReader(args.fmt, args.tgt_mask)
+    itf_reader = MaskReader(args.fmt, args.itf_mask) if args.itf_mask \
+        else None
+    bucket = args.chunk_size if args.chunk_size > 0 else 64
+    full_f32_matmuls(device)
+    num_done = 0
+    meter = ThroughputMeter("adaptive-beamformer", report_every=100)
+    with WaveWriter(args.dst_dir, sr=args.sr) as writer:
+        for key, stft_mat in reader:
+            if key not in tgt_reader:
+                continue
+            norm = reader.maxabs(key)
+            # stft_mat: N x F x T
+            f_bins = stft_mat.shape[1]
+            speech_mask = np.asarray(tgt_reader[key])
+            interf_mask = np.asarray(itf_reader[key]) if itf_reader else None
+            if interf_mask is None:
+                speech_mask = np.minimum(speech_mask, 1)
+            # ensure T x F orientation
+            if speech_mask.shape[0] == f_bins and \
+                    speech_mask.shape[1] != f_bins:
+                speech_mask = speech_mask.T
+                if interf_mask is not None:
+                    interf_mask = interf_mask.T
+            if 0.5 < args.vad_proportion < 1:
+                silence, n_filtered = vad_masks(stft_mat[0],
+                                                args.vad_proportion)
+                logger.info(f"Filtering {int(n_filtered)} TF-masks...")
+                speech_mask = apply_vad_filter(speech_mask, silence).numpy()
+                if interf_mask is not None:
+                    interf_mask = apply_vad_filter(interf_mask,
+                                                   silence).numpy()
+            obs = stft_mat.transpose(1, 0, 2).astype(np.complex64)
+            m_s = np.ascontiguousarray(speech_mask.T).astype(np.float32)
+            obs, _ = pad_to_bucket(obs, axis=-1, bucket=bucket)
+            m_s, _ = pad_to_bucket(m_s, axis=-1, bucket=bucket)
+            if interf_mask is not None:
+                m_n = np.ascontiguousarray(interf_mask.T).astype(np.float32)
+                m_n, _ = pad_to_bucket(m_n, axis=-1, bucket=bucket)
+            else:
+                # after the padding: padded frames carry m_n = 1
+                m_n = np.maximum(1.0 - m_s, 0.0)
+            samps = _enhance(args, cfg, device, obs, m_s, m_n,
+                             reader.nsamps(key))
+            if not np.isfinite(samps).all():
+                # degenerate covariance: the reference skips the
+                # utterance on a failed solve
+                logger.warning(f"{key}: non-finite output, skipping")
+                continue
+            peak = np.max(np.abs(samps))
+            samps = samps * norm / (peak + 1e-7)
+            writer.write(key, samps)
+            meter.update(samps.shape[-1] / args.sr)
+            num_done += 1
+    meter.report()
+    logger.info(f"Processed {num_done} utterances out of {len(reader)} "
+                f"({device})")
 
 
 def _run_batched(args, device):
@@ -112,7 +201,10 @@ def _run_batched(args, device):
 def run(args):
     device = _check_args(args)
     with trace(args.profile_dir):
-        _run_batched(args, device)
+        if args.batch_size > 1:
+            _run_batched(args, device)
+        else:
+            _run_utterances(args, device)
 
 
 def make_parser():
@@ -129,24 +221,20 @@ def make_parser():
                         choices=["numpy", "kaldi", "exraw"],
                         help="Mask storage format")
     parser.add_argument("--itf-mask", default="",
-                        help="Interference masks (per-utterance path)")
+                        help="Interference masks (optional)")
     parser.add_argument("--sr", "--sample-rate", dest="sr",
                         type=int, default=16000)
     parser.add_argument("--ban", type=strtobool, default=False,
                         help="Blind analytic normalization")
     parser.add_argument("--mask", "--post-masking", dest="mask",
                         type=strtobool, default=False,
-                        help="Mask the beamformer output (per-utterance "
-                        "path)")
+                        help="Mask the beamformer output")
     parser.add_argument("--vad-proportion", type=float, default=1.0,
-                        help="Energy proportion for VAD mask filtering "
-                        "(per-utterance path)")
+                        help="Energy proportion for VAD mask filtering")
     parser.add_argument("--pmwf-ref", type=int, default=-1,
-                        help="PMWF reference channel (-1: by SNR; others "
-                        "per-utterance path)")
+                        help="PMWF reference channel (-1: by SNR)")
     parser.add_argument("--rank1-appro", default="",
-                        choices=["", "eig", "gev"],
-                        help="Rank-1 approximation (per-utterance path)")
+                        choices=["", "eig", "gev"])
     parser.add_argument("--chunk-size", "--online.chunk-size",
                         dest="chunk_size", type=int, default=-1,
                         help=">0 enables online chunked processing")
@@ -158,7 +246,7 @@ def make_parser():
                         help="(accepted for recipe compatibility)")
     parser.add_argument("--batch-size", type=int, default=1,
                         help=">1 runs bucketed batches through the "
-                        "executor (the path the port runs)")
+                        "executor (offline and online paths)")
     parser.add_argument("--data-parallel", action="store_true",
                         help="Shard batches over the cards (one card: "
                         "no-op)")

@@ -7,8 +7,8 @@ T x F), with ``--device`` (``cuda`` by default, ``cpu`` for the plain
 path).  One utterance a call.  On the card ``wpd`` takes its fused path
 (kernels 18 -> 17 -> 19 for the WPE step, 15 for the CGMM, 12 for the
 covariances and 2 for the MVDR weights, each once an outer iteration);
-outside the fused gate it needs an EVD on the card and refuses (ROADMAP
-queue 1 item 13).  ``--device cpu`` runs the scan that the JAX CLI runs
+outside the fused gate (N taps > 128) the scan, with the EVD kernel for
+the steer.  ``--device cpu`` runs the scan that the JAX CLI runs
 on its host.  An utterance whose output is not finite is skipped with a
 warning.
 

@@ -10,17 +10,18 @@ axes, with the same layouts (F: bins, N: mics, T: frames):
     weight  (..., F, N)      beamformer weights
 
 This spectrum-domain path is what ``enhance_batch`` runs on the CPU,
-and on a CUDA device for the geometries neither the fused nor the planar
-kernels cover (mvdr with the power steer, with or without BAN, and
-pmwf-0/1).  There ``compute_covar_pair`` runs the pair-covariance kernel
-(ops/cuda/covariance_pair.pair_covar) for N <= 8, as the JAX package runs
-its Pallas pair kernel on the TPU, and the power-steer MVDR solve runs
-``mvdr_power``.  The single masked covariance (``covar_stats``,
-``compute_covar``) runs the masked covariance kernel
+on a CUDA device for the geometries neither the fused nor the planar
+kernels cover and for the online family outside the online kernels, and
+what the per-utterance CLI runs.  There ``compute_covar_pair`` runs the
+pair-covariance kernel (ops/cuda/covariance_pair.pair_covar) for N <= 8,
+as the JAX package runs its Pallas pair kernel on the TPU, and the
+power-steer MVDR solve runs ``mvdr_power``.  The single masked covariance
+(``covar_stats``, ``compute_covar``) runs the masked covariance kernel
 (ops/cuda/covariance.masked_covar, kernel 13) for N <= 8, one read of
-the observation for all K weight classes of the clustering EM.  What has
-no kernel yet raises on a CUDA tensor: N > 8 (ROADMAP queue 1 item 15)
-and the EVD (``ops.linalg.eigh``).
+the observation for all K weight classes (the clustering EM's, or the
+online run's Rs and Rn of every chunk).  Every EVD (``ops.linalg``'s
+``solve_pevd``) runs the EVD kernel.  N > 8 raises on a CUDA tensor
+(ROADMAP queue 1 item 15).
 """
 
 import functools
@@ -44,6 +45,10 @@ __all__ = [
 ]
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
 def covar_stats(obs: torch.Tensor, mask: torch.Tensor):
     """Unnormalized statistics: num = sum_t m y y^H, den = sum_t m.
 
@@ -54,7 +59,7 @@ def covar_stats(obs: torch.Tensor, mask: torch.Tensor):
     N > 8 there raises (ROADMAP queue 1 item 15).
     """
     den = mask.sum(-1)
-    if obs.device.type != "cuda":
+    if not _on_card(obs):
         num = (mask[..., None, :] * obs) @ obs.conj().transpose(-1, -2)
         return num, den
     *obs_lead, f, n, t = obs.shape
@@ -282,9 +287,11 @@ def supervised_run(beamformer: str,
     """One-shot mask-based beamforming: masks + obs -> enhanced STFT
     (..., F, T).
 
-    On a CUDA tensor the covariance pair runs kernel 12 and mvdr's power
-    steer runs ``mvdr_power``; what needs the EVD (the eigh steer, gevd,
-    mpdr, mpdr-whiten) or the single masked covariance (mpdr's Ry) raises.
+    On a CUDA tensor the covariance pair runs kernel 12, mpdr's Ry kernel
+    13, mvdr's power steer ``mvdr_power``, and what needs an EVD (the eigh
+    steer, gevd, mpdr, mpdr-whiten, the rank-1 approximation) the EVD
+    kernel through ``ops.linalg``; the Capon and PMWF solves are the
+    loaded Cholesky of ``ops.linalg.hermitian_solve``.
     """
     rs, rn = compute_covar_pair(obs, mask_s, mask_n)
     if beamformer in ("mpdr", "mpdr-whiten"):
@@ -314,36 +321,31 @@ def online_supervised_run(beamformer: str,
     each chunk is beamformed with the weights of the state after it.  BAN
     normalizes against the chunk's own Rn, as the JAX package does.  T
     must be a multiple of ``chunk_size`` (pad upstream; masks zero the
-    pad frames).  The plain path: on a CUDA tensor it raises; the card
-    runs online mvdr through the online kernels
-    (enhance/pipeline.mvdr_enhance_fused_online) and the rest of the
-    online family arrives with ROADMAP queue 1 item 13.
+    pad frames).  Every chunk's Rs and Rn come from one masked-covariance
+    pass with the chunks folded into the batch axis and the two masks as
+    classes (kernel 13 on a CUDA tensor): the sums the JAX scan's
+    per-chunk ``compute_covar`` takes.  The EMA runs in chunk order, then
+    one weight solve over chunks x bins (one EVD launch on the card for
+    mvdr and gevd).
     """
     if beamformer not in WEIGHT_FNS:
         raise ValueError(f"Unknown online beamformer: {beamformer}")
-    if obs.device.type == "cuda":
-        raise NotImplementedError(
-            "the spectrum-domain online run on a CUDA device arrives with "
-            "the batched small-matrix EVD kernel, ROADMAP queue 1 item 13; "
-            "enhance_batch runs online mvdr through the online kernels")
-    t_frames = obs.shape[-1]
+    *lead, f, n, t_frames = obs.shape
     if t_frames % chunk_size:
         raise ValueError(f"T={t_frames} not a multiple of {chunk_size}")
+    c = t_frames // chunk_size
     m_n = torch.clamp(1 - mask_s, min=0) if mask_n is None else mask_n
-    rs_ema = rn_ema = None
-    chunks = []
-    for beg in range(0, t_frames, chunk_size):
-        end = beg + chunk_size
-        obs_k = obs[..., beg:end]
-        rs = compute_covar(obs_k, mask_s[..., beg:end])
-        rn = compute_covar(obs_k, m_n[..., beg:end])
-        if rs_ema is None:
-            rs_ema, rn_ema = rs, rn
-        else:
-            rs_ema = rs_ema * alpha + (1.0 - alpha) * rs
-            rn_ema = rn_ema * alpha + (1.0 - alpha) * rn
-        weight = WEIGHT_FNS[beamformer](rs_ema, rn_ema)
-        if ban:
-            weight = do_ban(weight, rn)
-        chunks.append(beamform(weight, obs_k))
-    return torch.cat(chunks, dim=-1)
+    # (..., F, N, T) -> (..., C, F, N, Tc); masks (2, ..., C, F, Tc)
+    obs_c = obs.reshape(*lead, f, n, c, chunk_size).movedim(-2, -4)
+    masks = torch.stack([m.expand(*lead, f, t_frames) for m in (
+        mask_s, m_n)]).reshape(2, *lead, f, c, chunk_size).movedim(-2, -3)
+    r = compute_covar(obs_c, masks)                   # (2, ..., C, F, N, N)
+    state = [r[:, ..., 0, :, :, :]]
+    for k in range(1, c):
+        state.append(state[-1] * alpha + (1.0 - alpha) * r[:, ..., k, :, :, :])
+    ema = torch.stack(state, dim=-4)
+    weight = WEIGHT_FNS[beamformer](ema[0], ema[1])  # (..., C, F, N)
+    if ban:
+        weight = do_ban(weight, r[1])
+    enh = beamform(weight, obs_c)                     # (..., C, F, Tc)
+    return enh.movedim(-3, -2).reshape(*lead, f, t_frames)

@@ -36,6 +36,7 @@ import torch
 from setk_tpu_torch.dsp.stft import StftConfig, inverse_stft
 from setk_tpu_torch.enhance import beamformer as bf
 from setk_tpu_torch.ops.cuda import covariance_pair as cp
+from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
 from setk_tpu_torch.ops.cuda import planar as pl
@@ -103,24 +104,32 @@ class _Ops(typing.NamedTuple):
     stft_planar: typing.Callable
     pair_covar_complement: typing.Callable
     beamform_istft_planar: typing.Callable
+    hermitian_eigh: typing.Callable
 
 
 _KERNELS = _Ops(fm.stft_covar, mv.mvdr_power, mv.gevd_power, mv.pmwf_solve,
                 mv.capon, fm.beamform_istft, fm.stft_covar_chunks,
                 fm.covar_ema, fm.beamform_istft_online, pl.stft_planar,
-                cp.pair_covar_complement, pl.beamform_istft_planar)
+                cp.pair_covar_complement, pl.beamform_istft_planar,
+                es.hermitian_eigh)
 _PLAIN = _Ops(fm.stft_covar_plain, mv.mvdr_power_plain, mv.gevd_power_plain,
               mv.pmwf_solve_plain, mv.capon_plain, fm.beamform_istft_plain,
               fm.stft_covar_chunks_plain, fm.covar_ema_plain,
               fm.beamform_istft_online_plain, pl.stft_planar_plain,
               cp.pair_covar_complement_plain,
-              pl.beamform_istft_planar_plain)
+              pl.beamform_istft_planar_plain, es.hermitian_eigh_plain)
 
 
-def _weights(ops: _Ops, beamformer, rs, rn, ry, power_iters):
+def _weights(ops: _Ops, beamformer, rs, rn, ry, power_iters, steer):
     """The per-bin weight solve of each fused beamformer
     (setk_tpu/enhance/pipeline.py:133-179, iteration counts included);
-    ``ry()`` gives the observation PSD for the mpdr pair."""
+    ``ry()`` gives the observation PSD for the mpdr pair.  mvdr's eigh
+    steer is Rs's principal eigenvector from the EVD kernel, then the
+    spectrum-domain Capon solve, as the JAX package runs
+    ``mvdr_weights(steer="eigh")`` there."""
+    if beamformer == "mvdr" and steer == "eigh":
+        vec = ops.hermitian_eigh(rs)[1][..., -1]
+        return bf._capon(bf.fix_steer_phase(vec), rn)
     if beamformer == "mvdr":
         return ops.mvdr_power(rs, rn, power_iters=power_iters)
     if beamformer == "gevd":
@@ -153,7 +162,7 @@ def _prepare(wav, mask_s, cfg, nsamps):
             mask_s.to(torch.float32).contiguous())
 
 
-def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
+def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps, steer,
          ops: _Ops):
     t, window, wss_inv, mask = _prepare(wav, mask_s, cfg, nsamps)
     rs_num, rn_num = ops.stft_covar(wav, mask, window)   # (B, F, N, N)
@@ -163,21 +172,18 @@ def _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
     rn = rn_num / torch.clamp(den_n, min=1e-6)[..., None, None]
     # the numerators sum to sum_t y y^H over the valid frames
     w = _weights(ops, beamformer, rs, rn, lambda: (rs_num + rn_num) / t,
-                 power_iters)                            # (B, F, N)
+                 power_iters, steer)                     # (B, F, N)
     if ban:
         w = bf.do_ban(w, rn)
     return ops.beamform_istft(wav, w.contiguous(), wss_inv, window)
 
 
 def check_fused_options(beamformer: str, steer: str) -> None:
-    """Raise on what the fused pipeline does not run: an unknown
-    beamformer, or the eigh steer for mvdr."""
+    """Raise ``ValueError`` on an unknown beamformer or steer."""
     if beamformer not in FUSED_BEAMFORMERS:
         raise ValueError(f"Unsupported fused beamformer: {beamformer}")
-    if beamformer == "mvdr" and steer != "power":
-        raise NotImplementedError(
-            "the fused pipeline's eigh steer for mvdr arrives with the "
-            "batched small-matrix EVD kernel, ROADMAP queue 1 item 13")
+    if steer not in ("power", "eigh"):
+        raise ValueError(f"Unknown steer method: {steer}")
 
 
 def enhance_fused(wav: torch.Tensor,
@@ -193,11 +199,12 @@ def enhance_fused(wav: torch.Tensor,
     ``wav`` may be int16: the kernels convert it with 1/32768 folded
     into the analysis window.  The output matches running on
     ``wav.float() / 32768``.  ``steer`` is read only for mvdr, as in the
-    JAX package.
+    JAX package: "power" runs ``mvdr_power``, "eigh" the EVD kernel and
+    the Capon solve between kernels A and B.
     """
     check_fused_options(beamformer, steer)
     return _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
-                _KERNELS)
+                steer, _KERNELS)
 
 
 def enhance_plain(wav: torch.Tensor,
@@ -206,13 +213,14 @@ def enhance_plain(wav: torch.Tensor,
                   beamformer: str = "mvdr",
                   ban: bool = False,
                   power_iters: int = 15,
-                  nsamps: int | None = None) -> torch.Tensor:
+                  nsamps: int | None = None,
+                  steer: str = "power") -> torch.Tensor:
     """``enhance_fused`` through the kernels' plain versions, on the
     tensors' own device: the reference the kernels are held against."""
-    check_fused_options(beamformer, "power")
+    check_fused_options(beamformer, steer)
     full_f32_matmuls(wav.device)
     return _run(wav, mask_s, cfg, beamformer, ban, power_iters, nsamps,
-                _PLAIN)
+                steer, _PLAIN)
 
 
 def _run_online(wav, mask_s, cfg, chunk_size, alpha, power_iters, nsamps,

@@ -14,9 +14,11 @@ elsewhere, or with ``use_fused=False``, the tap-matrix scan, whose
 normal-equation solve is kernel 16 for 16 <= N taps <= 128.  WPD on the
 card takes the fused WPE step with its own lambda, the fused CGMM
 (kernel 15, 3 Jacobi sweeps), the pair covariance (kernel 12) and the
-power-steer MVDR solve (kernel 2); its scan needs an EVD, which on a CUDA
-device arrives with ROADMAP queue 1 item 13 and raises before anything is
-copied.  On the CPU ``use_fused=True`` runs the kernels' plain versions in
+power-steer MVDR solve (kernel 2); outside the gate (N taps > 128) its
+scan runs the CGMM, the masked covariance (kernel 13) and the eigh steer
+(the EVD kernel) as ``setk_tpu/enhance/wpe.py:272`` does, and N > 8 on a
+CUDA device raises (ROADMAP queue 1 item 15) before anything is copied.
+On the CPU ``use_fused=True`` runs the kernels' plain versions in
 the fused order.  Entry points run on ``cuda`` unless ``device="cpu"``.
 """
 
@@ -25,6 +27,7 @@ import torch
 from setk_tpu_torch.enhance import beamformer as bf
 from setk_tpu_torch.enhance.cluster import _as_tensor, cgmm_em
 from setk_tpu_torch.ops.cuda.cholesky import solve_wpe_gram
+from setk_tpu_torch.ops.cuda.eigh_small import MAX_DIM
 from setk_tpu_torch.ops.cuda.mvdr import mvdr_power
 from setk_tpu_torch.ops.cuda.wpe_gram import (tap_rows, wpe_apply, wpe_gram,
                                               wpe_fused_supported)
@@ -160,11 +163,10 @@ def wpd(obs,
     dev = resolve_device(device, like=obs)
     if use_fused is None:
         use_fused = dev.type == "cuda" and wpe_fused_supported(n, taps)
-    if dev.type == "cuda" and not use_fused:
+    if dev.type == "cuda" and not use_fused and n > MAX_DIM:
         raise NotImplementedError(
-            f"WPD outside the fused gate (N = {n}, taps = {taps}) needs a "
-            f"Hermitian EVD on the CUDA device, which arrives with ROADMAP "
-            f"queue 1 item 13")
+            f"WPD of N = {n} > {MAX_DIM} mics on a CUDA device arrives "
+            f"with ROADMAP queue 1 item 15")
     full_f32_matmuls(dev)
     obs = _as_tensor(obs, dev, torch.complex64)
     if use_fused:

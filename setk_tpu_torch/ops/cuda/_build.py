@@ -78,6 +78,7 @@ _SIGNATURES = {
     },
     "eigh_small": {
         "regularized_inverse_launch": [_P, _P, _P, _I, _I, _I, _P],
+        "hermitian_eigh_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
     "cacgmm_em": {
         "cacgmm_em_launch": [_P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,

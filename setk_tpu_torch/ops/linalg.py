@@ -7,8 +7,11 @@ iteration, the principal eigenvector and the generalized EVD by Cholesky
 whitening, and the clustering EM's eigenvalue-floored
 ``regularized_inverse``.  Every op is batched over leading axes.
 
-The EVD runs only on the CPU: on a CUDA tensor ``eigh`` raises (the eigh
-steer and the online family on the card are ROADMAP queue 1 item 13).
+``eigh`` and ``generalized_eigh`` on a CUDA tensor with M <= 8 run the
+batched EVD kernel (ops/cuda/eigh_small.hermitian_eigh: one launch for
+any batch, the generalized form whitening inside the kernel), where the
+JAX package runs XLA's eigh; M > 8 there raises (ROADMAP queue 1 item 15).
+On the CPU they are ``torch.linalg``, as the JAX package's LAPACK there.
 ``hermitian_solve`` on a CUDA tensor with 16 <= N <= 128 runs the medium
 Cholesky kernel (ops/cuda/cholesky.py, kernel 16), as the JAX package runs
 its lane-batched Pallas Cholesky there on the TPU.
@@ -21,7 +24,7 @@ import torch
 
 from setk_tpu_torch.ops.cuda.cholesky import MAX_DIM as MAX_SOLVE_DIM
 from setk_tpu_torch.ops.cuda.cholesky import hermitian_solve_lanes
-from setk_tpu_torch.ops.cuda.eigh_small import MAX_DIM
+from setk_tpu_torch.ops.cuda.eigh_small import MAX_DIM, hermitian_eigh
 from setk_tpu_torch.ops.cuda.eigh_small import \
     regularized_inverse as jacobi_inverse
 from setk_tpu_torch.utils.common import EPSILON
@@ -36,12 +39,24 @@ __all__ = [
 ]
 
 
-def eigh(mat: torch.Tensor):
-    """Batched Hermitian EVD (eigenvalues ascending), CPU tensors only."""
-    if mat.device.type == "cuda":
+def _eigh_kernel(a: torch.Tensor, b: torch.Tensor | None, eps_rel: float):
+    """The EVD kernel on (..., M, M) ``a`` (and ``b``), M <= 8."""
+    m = a.shape[-1]
+    if m > MAX_DIM:
         raise NotImplementedError(
-            "a Hermitian EVD on a CUDA device arrives with the batched "
-            "small-matrix EVD kernel, ROADMAP queue 1 item 13")
+            f"a Hermitian EVD of M = {m} > {MAX_DIM} on a CUDA device "
+            f"arrives with ROADMAP queue 1 item 15")
+    w, v = hermitian_eigh(
+        a.to(torch.complex64),
+        None if b is None else b.to(torch.complex64), eps_rel=eps_rel)
+    return w, v.to(a.dtype)
+
+
+def eigh(mat: torch.Tensor):
+    """Batched Hermitian EVD: (w ascending, V in columns).  On a CUDA
+    tensor the EVD kernel (of herm(mat)), else ``torch.linalg.eigh``."""
+    if _on_card(mat):
+        return _eigh_kernel(mat, None, 0.0)
     return torch.linalg.eigh(mat)
 
 
@@ -124,7 +139,11 @@ def generalized_eigh(a: torch.Tensor, b: torch.Tensor,
     """Generalized Hermitian EVD ``a v = w b v`` by Cholesky whitening of
     the loaded, hermitianized ``b``: eigenvalues ascending, eigenvectors
     normalized so that ``v^H b v = I`` (scipy.linalg.eigh's convention,
-    up to per-vector phase)."""
+    up to per-vector phase).  On a CUDA tensor one launch of the EVD
+    kernel does the loading, the whitening, the EVD and the back
+    substitution."""
+    if _on_card(a):
+        return _eigh_kernel(a, b, eps_rel)
     chol = torch.linalg.cholesky(_diag_load(hermitianize(b), eps_rel))
     # C = L^{-1} a L^{-H}: with X = L^{-1} a (a Hermitian), C = L^{-1} X^H
     li_a = torch.linalg.solve_triangular(chol, hermitianize(a), upper=False)
@@ -162,7 +181,7 @@ def regularized_inverse(covar: torch.Tensor, return_logdet: bool = False):
                 f"device arrives with ROADMAP queue 1 item 15")
         inv, logdet = jacobi_inverse(covar.to(torch.complex64))
         return (inv, logdet) if return_logdet else inv
-    w, v = eigh(hermitianize(covar))
+    w, v = torch.linalg.eigh(hermitianize(covar))
     w = w / torch.clamp(w.max(-1, keepdim=True).values, min=EPSILON)
     w = torch.clamp(w, min=EPSILON)
     inv = torch.einsum("...xy,...y,...zy->...xz", v, (1.0 / w).to(v.dtype),

@@ -4,18 +4,18 @@ Counterpart of ``setk_tpu/parallel/enhance_step.enhance_batch``
 (enhance_step.py:30-121).  On a CUDA device the step follows the JAX
 package's dispatch on the TPU (enhance_step.py:93-121):
   1. the fused kernels (enhance/pipeline.enhance_fused) for every
-     beamformer in ``FUSED_BEAMFORMERS`` inside the fused gate, and for
-     ``chunk_size > 0`` enhance/pipeline.mvdr_enhance_fused_online (mvdr,
-     power steer, no BAN) inside the same gate;
+     beamformer in ``FUSED_BEAMFORMERS`` inside the fused gate (mvdr with
+     either steer), and for ``chunk_size > 0``
+     enhance/pipeline.mvdr_enhance_fused_online (mvdr, power steer, no
+     BAN) inside the same gate;
   2. else, for mvdr with the power steer and no BAN inside the planar
      gate, the planar kernels (enhance/pipeline.mvdr_enhance_planar);
-  3. else the spectrum-domain run: the STFT, ``supervised_run`` (the
-     pair-covariance kernel and the per-bin solves) and the iSTFT, the
-     transforms in ``torch.fft`` as the JAX package leaves them to XLA
-     there; it serves mvdr (power steer, with or without BAN) and
-     pmwf-0/1.
-What no kernel set covers raises ``NotImplementedError`` naming its
-ROADMAP item before anything is copied to the card (``check_cuda_options``).
+  3. else the spectrum-domain run: the STFT, ``supervised_run`` or
+     ``online_supervised_run`` (the covariance kernels, the EVD kernel
+     and the per-bin solves) and the iSTFT, the transforms in
+     ``torch.fft`` as the JAX package leaves them to XLA there.
+N > 8 raises ``NotImplementedError`` naming its ROADMAP item before
+anything is copied to the card (``check_cuda_options``).
 On the CPU it runs the spectrum-domain plain path (STFT -> masked PSDs
 -> weights -> beamform -> iSTFT), one-shot or online (chunked EMA), as
 the JAX package does off the TPU.  The sharded multi-device step comes
@@ -47,10 +47,6 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return x.to(device)
 
 
-# the beamformers whose weights need an EVD outside the fused kernels
-_EVD_BEAMFORMERS = ("gevd", "mpdr", "mpdr-whiten")
-
-
 def check_cuda_options(beamformer: str, ban: bool, steer: str,
                        chunk_size: int, cfg: StftConfig | None = None,
                        num_mics: int | None = None,
@@ -60,51 +56,33 @@ def check_cuda_options(beamformer: str, ban: bool, steer: str,
     geometry (``cfg``, N, S and the output length) return the branch
     that runs it: "fused", "online", "planar" or "spectrum".
 
-    Without the geometry only the options are checked: offline,
-    ``check_fused_options`` (an unknown name, the eigh steer); online,
-    all but mvdr with the power steer and no BAN.  With it: N > 8, online
-    outside the fused online gate, and gevd, mpdr and mpdr-whiten outside
-    the fused gate (their weights need the EVD) raise too.
+    Without the geometry only the names are checked (an unknown
+    beamformer or steer raises ``ValueError``).  With it, N > 8 raises
+    ``NotImplementedError`` (ROADMAP queue 1 item 15) before anything is
+    copied to the card.
     """
     if chunk_size <= 0:
         check_fused_options(beamformer, steer)
-    else:
-        if beamformer not in bf.WEIGHT_FNS:
-            raise ValueError(f"Unknown online beamformer: {beamformer}")
-        if beamformer != "mvdr" or ban or steer != "power":
-            what = beamformer + ("+BAN" if ban else "") + (
-                f" with the {steer} steer" if beamformer == "mvdr" else "")
-            raise NotImplementedError(
-                f"online (chunked EMA) {what} on a CUDA device arrives with "
-                f"the batched small-matrix EVD kernel, ROADMAP queue 1 item "
-                f"13; the online kernels run mvdr with "
-                f"the power steer and no BAN")
+    elif beamformer not in bf.WEIGHT_FNS:
+        raise ValueError(f"Unknown online beamformer: {beamformer}")
     if cfg is None:
         return None
-    where = f"STFT geometry {cfg} with N={num_mics}, S={nsamps}"
     if num_mics > MAX_MICS:
         raise NotImplementedError(
             f"{num_mics} mics on a CUDA device arrive with ROADMAP queue 1 "
             f"item 15; the kernels take N <= {MAX_MICS}")
     cfg.num_frames(nsamps)                   # too short raises ValueError
     if chunk_size > 0:
-        if fused_online_supported(cfg, num_mics, nsamps, out_samps,
-                                  chunk_size):
+        if beamformer == "mvdr" and not ban and steer == "power" and \
+                fused_online_supported(cfg, num_mics, nsamps, out_samps,
+                                       chunk_size):
             return "online"
-        raise NotImplementedError(
-            f"online mvdr at {where} and nsamps {out_samps} is outside the "
-            f"online kernels' gate; its spectrum-domain run (eigh weights) "
-            f"on a CUDA device arrives with ROADMAP queue 1 item 13")
+        return "spectrum"
     if beamformer in FUSED_BEAMFORMERS and fused_supported(
             cfg, num_mics, nsamps, out_samps):
         return "fused"
-    if beamformer in _EVD_BEAMFORMERS:
-        raise NotImplementedError(
-            f"{beamformer} at {where} and nsamps {out_samps} is outside the "
-            f"fused kernels' gate; its weights there need the batched "
-            f"small-matrix EVD kernel, ROADMAP queue 1 item 13")
-    if beamformer == "mvdr" and not ban and planar_supported(cfg, num_mics,
-                                                             nsamps):
+    if beamformer == "mvdr" and not ban and steer == "power" and \
+            planar_supported(cfg, num_mics, nsamps):
         return "planar"
     return "spectrum"
 
@@ -130,11 +108,12 @@ def enhance_batch(wav,
     ``chunk_size > 0`` runs the online (chunked EMA) variant with EMA
     factor ``alpha``; on CUDA it runs the online kernels for mvdr with
     the power steer and no BAN, for any chunk size, inside the fused
-    gate.  One-shot on CUDA: the fused kernels, else the planar kernels,
-    else the spectrum-domain run (module docstring).  On CUDA, what the
-    kernels do not cover raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it, before anything is copied to the card;
-    nothing falls back to a plain path on the card.
+    gate, and the spectrum-domain online run otherwise.  One-shot on
+    CUDA: the fused kernels, else the planar kernels, else the
+    spectrum-domain run (module docstring).  On CUDA, N > 8 raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it,
+    before anything is copied to the card; nothing falls back to a plain
+    path on the card.
     """
     dev = resolve_device(device, like=wav)
     on_cuda = dev.type == "cuda"

@@ -5,9 +5,9 @@
   as a kaldi archive) against setk_tpu's on the same scp, on a tiny
   numpy-made corpus (3 utterances, 4 channels, about 1 s): at most 2
   int16 steps per sample, after both CLIs' peak renormalization;
-- what the CLI refuses (the per-utterance path, data parallelism over
-  several cards, online options the card does not run) before it reads
-  anything;
+- what the CLI refuses (the per-utterance options with --batch-size > 1,
+  no card without --device cpu, data parallelism over several cards)
+  before it reads anything, and the online family it takes on a card;
 - the wav, kaldi and exraw writers of each package read back by the
   other's readers, and the port's SpectrogramReader against setk_tpu's;
 - the port's prefetching loader (native decoder built from
@@ -109,29 +109,40 @@ def test_cli_matches_setk_tpu_cli(corpus, tmp_path, fmt, chunk):
 
 
 def test_cli_refuses_before_reading(monkeypatch, tmp_path):
+    """The per-utterance options with --batch-size > 1 (the JAX CLI's
+    refusal), no card without --device cpu, and data parallelism over
+    several cards are refused before anything is read; the online family
+    on a card (gevd, BAN) is taken, each batch to its branch."""
+    from setk_tpu_torch.cli import apply_adaptive_beamformer as cli
+    from setk_tpu_torch.parallel import enhance_step
     missing = [str(tmp_path / "none.scp"), str(tmp_path / "none_mask.scp"),
                str(tmp_path / "out")]
-    for extra in ([], ["--batch-size", "1"],
-                  ["--batch-size", "2", "--itf-mask", "itf.scp"],
+    for extra in (["--batch-size", "2", "--itf-mask", "itf.scp"],
                   ["--batch-size", "2", "--mask", "true"],
-                  ["--batch-size", "2", "--vad-proportion", "0.7"],
-                  ["--batch-size", "2", "--pmwf-ref", "1"],
-                  ["--batch-size", "2", "--rank1-appro", "eig"]):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 14"):
+                  ["--batch-size", "2", "--vad-proportion", "0.7"]):
+        with pytest.raises(RuntimeError, match="--batch-size > 1 supports"):
             _run("setk_tpu_torch", missing + extra + ["--device", "cpu"])
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        _run("setk_tpu_torch", missing + ["--batch-size", "2"])
+    for extra in ([], ["--batch-size", "1"], ["--batch-size", "2"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _run("setk_tpu_torch", missing + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         _run("setk_tpu_torch", missing + ["--batch-size", "2",
                                           "--data-parallel"])
-    for extra in (["--beamformer", "gevd"], ["--ban", "true"]):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 13"):
-            _run("setk_tpu_torch", missing + ["--batch-size", "2",
-                                              "--chunk-size", "32"] + extra)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cfg = StftConfig()
+    for extra, name, ban in ((["--beamformer", "gevd"], "gevd", False),
+                             (["--ban", "true"], "mvdr", True)):
+        args = cli.make_parser().parse_args(
+            missing + ["--batch-size", "2", "--chunk-size", "32"] + extra)
+        assert cli._check_args(args).type == "cuda"
+        assert enhance_step.check_cuda_options(
+            name, ban, "power", 32, cfg, N_CH, 16384, 16384) == "spectrum"
+        # the executor takes the options at construction
+        tex = importlib.import_module("setk_tpu_torch.parallel.executor")
+        tex.BatchEnhancer(cfg, beamformer=name, ban=ban, chunk_size=32,
+                          device="cuda")
     assert not (tmp_path / "out").exists()
 
 

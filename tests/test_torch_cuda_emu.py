@@ -1015,6 +1015,120 @@ def test_regularized_inverse_edge_cases_match_plain(libs, m):
     assert torch.equal(again, inv)
 
 
+def _eigh_cases(m, n, seed, gen):
+    """n matrices for the EVD: full rank, rank one plus noise at 1e-3,
+    an all-zero matrix, a scaled identity, a diagonal with tied entries
+    and (with b) an all-zero b; the rest well conditioned.  Returns
+    (a, b or None)."""
+    rng = np.random.default_rng(seed)
+    a = _hermitian(rng, n, m, m + 2)
+    a[:4] = _hermitian(rng, 4, m, 1) + 1e-3 * _hermitian(rng, 4, m, m)
+    a[4] = 0
+    a[5] = 0.7 * torch.eye(m)
+    a[6] = torch.diag(torch.tensor([0.5, 2.0] * m)[:m]).to(torch.complex64)
+    if not gen:
+        return a, None
+    b = _hermitian(rng, n, m, m + 3) + 0.1 * torch.eye(m)
+    b[7] = 0
+    return a, b
+
+
+# what the outputs hold before a launch: a slot the kernel never writes
+# keeps it
+_UNWRITTEN = 7.5e30
+
+
+def _eigh_launch(lib, a, b, sweeps=es.EIGH_SWEEPS):
+    n, m = a.shape[0], a.shape[-1]
+    w = torch.full((n, m), _UNWRITTEN)
+    v = torch.full_like(a, _UNWRITTEN)
+    err = lib.hermitian_eigh_launch(a.data_ptr(),
+                                    None if b is None else b.data_ptr(),
+                                    w.data_ptr(), v.data_ptr(), n, m, sweeps,
+                                    1e-6, None)
+    assert err == 0
+    return w, v
+
+
+def _separated_cosines(w, v, w_ref, v_ref, gap):
+    """|cos| between each column and the reference's where the eigenvalue
+    lies more than ``gap`` of the matrix's peak from its neighbours (an
+    eigenvector's phase is arbitrary, and within a cluster so is its
+    direction)."""
+    peak = w_ref.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    pad = torch.full_like(w_ref[:, :1], float("inf"))
+    left = torch.cat([pad, w_ref[:, 1:] - w_ref[:, :-1]], -1)
+    right = torch.cat([w_ref[:, 1:] - w_ref[:, :-1], pad], -1)
+    alone = torch.minimum(left, right) > gap * peak
+    cos = (v.conj() * v_ref).sum(-2).abs() / (
+        torch.linalg.vector_norm(v, dim=-2) *
+        torch.linalg.vector_norm(v_ref, dim=-2))
+    return cos[alone]
+
+
+@pytest.mark.parametrize("gen", [False, True])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_hermitian_eigh_source_matches_plain(libs, m, gen):
+    """The EVD kernel (plain and generalized) on 130 matrices (two blocks,
+    the second partial) of _eigh_cases against hermitian_eigh_plain:
+    eigenvalues ascending and within SOLVE_TOL of each matrix's peak,
+    every slot written, each eigenvector whose eigenvalue stands apart
+    (1e-2 of the peak) within 1e-5 of the plain one's direction (a
+    converged rotation still turns a column's phase by that of a rounding
+    residue, so phases differ); without b, V unitary, V diag(w) V^H the
+    input, and the zero, scaled identity and tied diagonal matrices with
+    V = I exactly, ties in index order, so the zero matrix's principal
+    vector is e_(M-1), as LAPACK gives it."""
+    a, b = _eigh_cases(m, 130, 20 * m + gen, gen)
+    w, v = _eigh_launch(libs["eigh_small"], a, b)
+    w_p, v_p = es.hermitian_eigh_plain(a, b)
+    assert torch.isfinite(w).all() and torch.isfinite(v).all()
+    assert not (w == _UNWRITTEN).any() and not (v.real == _UNWRITTEN).any()
+    peak = w_p.abs().amax(-1).clamp(min=1e-30)
+    assert float(((w - w_p).abs().amax(-1) / peak).max()) < SOLVE_TOL
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    cos = _separated_cosines(w, v, w_p, v_p, 1e-2)
+    assert cos.numel() >= 100 and float(cos.min()) >= 1 - 1e-5
+    if gen:
+        return
+    eye = torch.eye(m, dtype=torch.complex64)
+    assert _rel(v.conj().transpose(-1, -2) @ v, eye.expand_as(v)) < 1e-5
+    rec = v @ torch.diag_embed(w.to(v.dtype)) @ v.conj().transpose(-1, -2)
+    assert float(((rec - a).abs().amax(dim=(-1, -2)) /
+                  a.abs().amax(dim=(-1, -2)).clamp(min=1e-30)).max()) < \
+        SOLVE_TOL
+    for k in (4, 5):
+        assert torch.equal(v[k], eye)
+    assert torch.equal(w[4], torch.zeros(m))
+    order = torch.argsort(torch.tensor([0.5, 2.0] * m)[:m], stable=True)
+    assert torch.equal(v[6], eye[:, order])
+
+
+def test_hermitian_eigh_nan_matrix_fills_every_slot(libs):
+    """A matrix holding a NaN comes out NaN with every output slot
+    written (NaN ranks last, so the ranks stay a permutation), and its
+    neighbours are untouched."""
+    rng = np.random.default_rng(3)
+    a = _hermitian(rng, 3, 4, 6)
+    a[1, 0, 2] = float("nan")
+    w, v = _eigh_launch(libs["eigh_small"], a, None)
+    w_p, _ = es.hermitian_eigh_plain(a)
+    assert not (w == _UNWRITTEN).any() and not (v.real == _UNWRITTEN).any()
+    assert torch.isnan(w[1]).any()
+    for k in (0, 2):
+        assert torch.isfinite(w[k]).all() and torch.isfinite(v[k]).all()
+        assert _rel(w[k], w_p[k]) < SOLVE_TOL
+
+
+def test_hermitian_eigh_entry_rejects_bad_arguments(libs):
+    p = torch.zeros(8).data_ptr()
+    lib = libs["eigh_small"]
+    for n, m, sweeps in ((0, 2, 8), (1, 9, 8), (1, 0, 8), (1, 2, -1)):
+        for b in (None, p):
+            assert lib.hermitian_eigh_launch(p, b, p, p, n, m, sweeps, 1e-6,
+                                             None) != 0
+
+
 def _em_inputs(rng, b, f, m, t, k):
     obs = _cplx(rng, b, f, m, t)
     obs[:, :, 1:] += 0.5 * obs[:, :, :1]

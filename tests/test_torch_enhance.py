@@ -30,6 +30,7 @@ from setk_tpu_torch.convert import stft_config_from_fields
 from setk_tpu_torch.enhance import pipeline
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
+from setk_tpu_torch.parallel import enhance_step
 from setk_tpu_torch.parallel import executor as tex
 from setk_tpu_torch.parallel.enhance_step import enhance_batch
 
@@ -211,37 +212,52 @@ def test_fused_gate_is_the_ports_own():
 
 
 def test_uncovered_options_raise(monkeypatch):
-    """What still raises names its ROADMAP item; the family does not."""
+    """What still raises names its ROADMAP item; the family, mvdr's eigh
+    steer in the fused pipeline and the online family do not, and on a
+    CUDA device each takes its branch."""
     wav, mask = _scene(7, 1, 2, 4096)
     wt, mt = torch.from_numpy(wav), torch.from_numpy(mask)
     # the family runs through the fused pipeline (plain versions on the
     # CPU) and through the CPU entry, one-shot and online
     for name in pipeline.FUSED_BEAMFORMERS:
         pipeline.check_fused_options(name, "power")
-        if name != "mvdr":
-            pipeline.check_fused_options(name, "eigh")  # steer is mvdr's
+        pipeline.check_fused_options(name, "eigh")
         out = pipeline.enhance_fused(wt, mt, CFG, beamformer=name)
         assert out.shape == (1, 4096) and torch.isfinite(out).all()
         assert torch.isfinite(enhance_batch(wt, mt, CFG, beamformer=name,
                                             ban=True)).all()
     assert torch.isfinite(enhance_batch(wt, mt, CFG, chunk_size=32)).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        pipeline.enhance_fused(wt, mt, CFG, steer="eigh")
+    # mvdr's eigh steer in the fused pipeline: the EVD and the Capon solve
+    # between kernels A and B (the EVD kernel's plain version on the CPU),
+    # the spectrum-domain eigh run's MVDR by another route
+    out = pipeline.enhance_fused(wt, mt, CFG, steer="eigh")
+    assert torch.equal(out, pipeline.enhance_plain(wt, mt, CFG,
+                                                   steer="eigh"))
+    ref = enhance_batch(wt, mt, CFG, steer="eigh", device="cpu")
+    assert _peak_err(out, ref) < SLICE_TOL
+    with pytest.raises(ValueError, match="Unknown steer method"):
+        pipeline.enhance_fused(wt, mt, CFG, steer="cholesky")
     with pytest.raises(ValueError, match="Unsupported fused beamformer"):
         pipeline.enhance_fused(wt, mt, CFG, beamformer="ds")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tex.BatchEnhancer(CFG, mesh=object(), device="cpu")
     # on a CUDA device (the device check monkeypatched, as below): the
-    # entry refuses before it copies anything to the card
+    # options the EVD kernel brings take their branch, N = 9 is refused
+    # before anything is copied to the card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for kw, item in (({"chunk_size": 32, "beamformer": "gevd"},
-                      "queue 1 item 13"),
-                     ({"chunk_size": 32, "ban": True}, "queue 1 item 13"),
-                     ({"steer": "eigh"}, "queue 1 item 13"),
-                     ({"nsamps": 4000, "beamformer": "gevd"},
-                      "queue 1 item 13")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            enhance_batch(wav, mask, CFG, device="cuda", **kw)
+    for kw, branch in (({"chunk_size": 32, "beamformer": "gevd"},
+                        "spectrum"),
+                       ({"chunk_size": 32, "ban": True}, "spectrum"),
+                       ({"steer": "eigh"}, "fused"),
+                       ({"nsamps": 4000, "beamformer": "gevd"},
+                        "spectrum")):
+        assert enhance_step.check_cuda_options(
+            kw.get("beamformer", "mvdr"), kw.get("ban", False),
+            kw.get("steer", "power"), kw.get("chunk_size", -1), CFG, 2,
+            4096, kw.get("nsamps", 4096)) == branch, kw
+    wav9, mask9 = _scene(7, 1, 9, 4096)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        enhance_batch(wav9, mask9, CFG, steer="eigh", device="cuda")
     with pytest.raises(ValueError, match="Unsupported fused beamformer"):
         enhance_batch(wav, mask, CFG, beamformer="ds", device="cuda")
 

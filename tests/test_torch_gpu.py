@@ -285,18 +285,95 @@ def test_online_enhance_batch_runs_kernels_only(b, s, chunk):
 
 
 def test_uncovered_cases_raise_on_the_card():
+    """What the EVD kernel brings runs on the card (each option's launch
+    set, finite output); N = 9 and an unknown name still raise."""
     dev = _card()
     cfg, wav, mask = _inputs(1, 2, 4096, False)
     wav_d = torch.from_numpy(wav).to(dev)
     mask_d = torch.from_numpy(mask).to(dev)
-    for kw in ({"chunk_size": 32, "beamformer": "gevd"},
-               {"chunk_size": 32, "ban": True}, {"steer": "eigh"},
-               {"nsamps": 4000, "beamformer": "gevd"},
-               {"nsamps": 4000, "chunk_size": 32}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            enhance_batch(wav_d, mask_d, cfg, **kw)
+    counted = _counted() + (mc.masked_covar, es.hermitian_eigh)
+    for kw, want in (
+            ({"chunk_size": 32, "beamformer": "gevd"},
+             {"masked_covar", "hermitian_eigh"}),
+            ({"chunk_size": 32, "ban": True},
+             {"masked_covar", "hermitian_eigh"}),
+            ({"steer": "eigh"},
+             {"stft_covar", "hermitian_eigh", "beamform_istft"}),
+            ({"nsamps": 4000, "beamformer": "gevd"},
+             {"pair_covar", "hermitian_eigh"}),
+            ({"nsamps": 4000, "chunk_size": 32},
+             {"masked_covar", "hermitian_eigh"})):
+        for fn in counted:
+            fn.launches = 0
+        out = enhance_batch(wav_d, mask_d, cfg, **kw)
+        assert {fn.__name__ for fn in counted if fn.launches} == want, kw
+        assert torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        enhance_batch(np.zeros((1, 9, 4096), np.float32), mask, cfg,
+                      device="cuda")
     with pytest.raises(ValueError):
         enhance_batch(wav_d, mask_d, cfg, beamformer="ds")
+
+
+def _eigh_inputs(n, m, seed, dev):
+    """n Hermitian matrices: full rank, a quarter rank one plus noise,
+    one all zero; and a full-rank b."""
+    rng = np.random.default_rng(seed)
+
+    def herm(count, rank):
+        x = (rng.standard_normal((count, m, rank)) +
+             1j * rng.standard_normal((count, m, rank))).astype(np.complex64)
+        return x @ x.conj().transpose(0, 2, 1)
+
+    a = herm(n, m + 2)
+    a[:n // 4] = herm(n // 4, 1) + 1e-3 * herm(n // 4, m)
+    a[-1] = 0
+    b = herm(n, m + 3)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.parametrize("gen", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 6, 7, 8])
+def test_hermitian_eigh_matches_plain(m, gen):
+    """The EVD kernel against its plain version on the card at 300
+    matrices: eigenvalues within TOL of each matrix's peak, principal
+    vectors within 1e-5 in direction where the top eigenvalue stands 1e-2
+    of the peak from the next; the zero matrix's V = I."""
+    dev = _card()
+    a, b = _eigh_inputs(300, m, m + 10 * gen, dev)
+    b = b if gen else None
+    es.hermitian_eigh.launches = 0
+    w, v = es.hermitian_eigh(a, b)
+    assert es.hermitian_eigh.launches == 1
+    w_p, v_p = es.hermitian_eigh_plain(a, b)
+    peak = w_p.abs().amax(-1).clamp(min=1e-30)
+    assert float(((w - w_p).abs().amax(-1) / peak).max()) < TOL
+    top = v[..., -1]
+    top_p = v_p[..., -1]
+    cos = (top.conj() * top_p).sum(-1).abs() / (
+        torch.linalg.vector_norm(top, dim=-1) *
+        torch.linalg.vector_norm(top_p, dim=-1))
+    apart = (w_p[:, -1] - w_p[:, -2] > 1e-2 * peak) if m > 1 else \
+        torch.ones_like(peak, dtype=torch.bool)
+    apart[-1] = False
+    assert float((1 - cos[apart]).max()) < 1e-5
+    if not gen:
+        assert torch.equal(v[-1].cpu(), torch.eye(m, dtype=torch.complex64))
+
+
+def test_hermitian_eigh_takes_a_batch_in_one_launch():
+    """32,896 matrices (128 utterances x 257 bins) in one launch."""
+    dev = _card()
+    a, b = _eigh_inputs(32896, 6, 3, dev)
+    es.hermitian_eigh.launches = 0
+    w, v = es.hermitian_eigh(a.reshape(128, 257, 6, 6),
+                             b.reshape(128, 257, 6, 6))
+    torch.cuda.synchronize()
+    assert es.hermitian_eigh.launches == 1 and w.shape == (128, 257, 6)
+    w_p, _ = es.hermitian_eigh_plain(a, b)
+    peak = w_p.abs().amax(-1).clamp(min=1e-30)
+    assert float(((w.reshape(-1, 6) - w_p).abs().amax(-1) / peak).max()) \
+        < TOL
 
 
 def _cplx_rel(planes, ref):
@@ -762,7 +839,7 @@ def test_wpe_gram_and_apply_match_plain(n, taps, t):
 def test_wpe_and_wpd_run_kernels_only():
     """wpe: the fused gate launches 18 x3, 17 x3, 19 x1; use_fused=False
     kernel 16 x3.  wpd: 18, 17, 19, 15, 12 and 2 once an outer iteration;
-    outside the gate it refuses with no device memory allocated."""
+    N = 9 refuses with no device memory allocated."""
     from setk_tpu_torch.enhance.wpe import wpd, wpe
     dev = _card()
     rng = np.random.default_rng(12)
@@ -784,7 +861,7 @@ def test_wpe_and_wpd_run_kernels_only():
     assert [fn.launches for fn in counted] == [2, 2, 2, 0, 2, 2, 2]
     assert torch.isfinite(enh).all() and mask.shape == (257, 120)
     before = torch.cuda.memory_allocated()
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
         wpd(np.zeros((257, 9, 40), np.complex64), taps=2, device="cuda")
     assert torch.cuda.memory_allocated() == before
 

@@ -36,6 +36,7 @@ from setk_tpu.enhance.pipeline import \
 from setk_tpu.parallel import executor as jex
 from setk_tpu.parallel.enhance_step import enhance_batch as jax_enhance
 from setk_tpu_torch.convert import stft_config_from_fields
+from setk_tpu_torch.enhance import beamformer as bf
 from setk_tpu_torch.enhance import pipeline
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import mvdr as mv
@@ -242,25 +243,43 @@ def test_cuda_entry_runs_online_kernels(monkeypatch):
 
 
 def test_cuda_entry_refuses_other_online_options(monkeypatch):
-    """gevd/pmwf online, mvdr+BAN online and the eigh steer online raise
-    NotImplementedError naming ROADMAP queue 1 item 13 before anything is
-    copied to the card; an unknown name raises ValueError."""
+    """On a CUDA device gevd/pmwf online, mvdr+BAN online, the eigh steer
+    online and online outside the fused gate take the spectrum-domain
+    online run (the covariance and EVD kernels), which computes what the
+    CPU's run computes; an unknown name raises ValueError before anything
+    is copied to the card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(enhance_step, "_as_tensor",
+                        lambda x, dev: torch.as_tensor(x))
+    calls = []
+
+    def record(name, fn):
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(enhance_step, "mvdr_enhance_fused_online",
+                        record("online kernels",
+                               enhance_step.mvdr_enhance_fused_online))
+    monkeypatch.setattr(enhance_step.bf, "online_supervised_run",
+                        record("spectrum", bf.online_supervised_run))
+    wav, mask = _scene(80, b=1, n=2, s=4096)
+    for kw in ({"beamformer": "gevd"}, {"beamformer": "pmwf-0"},
+               {"beamformer": "pmwf-1"}, {"ban": True},
+               {"steer": "eigh"}, {"nsamps": 4000}):
+        calls.clear()
+        got = enhance_batch(wav, mask, CFG, chunk_size=32, device="cuda",
+                            **kw)
+        assert calls == ["spectrum"], kw
+        ref = enhance_batch(wav, mask, CFG, chunk_size=32, device="cpu",
+                            **kw)
+        assert torch.equal(got, ref), kw
 
     def no_copy(x, dev):
         raise AssertionError("copied to the card before refusing")
 
     monkeypatch.setattr(enhance_step, "_as_tensor", no_copy)
-    wav, mask = _scene(80, b=1, n=2, s=4096)
-    for kw in ({"beamformer": "gevd"}, {"beamformer": "pmwf-0"},
-               {"beamformer": "pmwf-1"}, {"ban": True},
-               {"steer": "eigh"}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 13"):
-            enhance_batch(wav, mask, CFG, chunk_size=32, device="cuda", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        enhance_batch(wav, mask, CFG, chunk_size=32, nsamps=4000,
-                      device="cuda")
     with pytest.raises(ValueError, match="Unknown online beamformer"):
         enhance_batch(wav, mask, CFG, chunk_size=32, beamformer="mpdr",
                       device="cuda")

@@ -337,6 +337,11 @@ SPECTRUM = ["supervised_run", "pair_covar"]
     ({"frame_len": 512, "frame_hop": 128}, 4096, None, "pmwf-0", False,
      SPECTRUM),
     ({}, 4000, None, "pmwf-1", True, SPECTRUM),
+    # what needs an EVD outside the fused gate: the spectrum-domain run
+    ({"frame_len": 512, "frame_hop": 128}, 4096, None, "gevd", True,
+     SPECTRUM),
+    ({"frame_len": 1024, "frame_hop": 512}, 8192, None, "mpdr-whiten",
+     False, SPECTRUM),
     # n_fft 768: inside the JAX planar gate (n_fft % 256 == 0), outside
     # the port's (a power of two): the spectrum-domain run, kernel 12
     ({"frame_len": 768, "frame_hop": 384, "round_power_of_two": False},
@@ -363,6 +368,10 @@ def test_cuda_dispatch_matches_cpu_run(mocked_card):
 
 
 def test_cuda_refusals_come_before_the_copy(monkeypatch):
+    """N > 8 is refused before anything is copied to the card; what the
+    EVD kernel brings (gevd, mpdr and mpdr-whiten outside the fused gate,
+    the eigh steer, online outside the online kernels' gate) takes the
+    spectrum-domain branch, decided from the batch's geometry."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
 
     def no_copy(x, dev):
@@ -372,27 +381,34 @@ def test_cuda_refusals_come_before_the_copy(monkeypatch):
     _, spec_cfg = _cfgs(frame_len=512, frame_hop=128)
     _, wide_cfg = _cfgs(frame_len=1024, frame_hop=512)
     _, cfg = _cfgs()
-    cases = [(spec_cfg, 3, 4096, {"beamformer": "gevd"}, "queue 1 item 13"),
-             (spec_cfg, 3, 4096, {"beamformer": "mpdr"}, "queue 1 item 13"),
+    cases = [(spec_cfg, 3, 4096, {"beamformer": "gevd"}, "spectrum"),
+             (spec_cfg, 3, 4096, {"beamformer": "mpdr"}, "spectrum"),
              (wide_cfg, 3, 8192, {"beamformer": "mpdr-whiten"},
-              "queue 1 item 13"),
+              "spectrum"),
              (cfg, 3, 4000, {"beamformer": "gevd", "ban": True},
-              "queue 1 item 13"),
-             (spec_cfg, 3, 4096, {"steer": "eigh"}, "queue 1 item 13"),
+              "spectrum"),
+             (spec_cfg, 3, 4096, {"steer": "eigh"}, "spectrum"),
+             (wide_cfg, 3, 8192, {"steer": "eigh"}, "spectrum"),
              (spec_cfg, 9, 4096, {}, "queue 1 item 15"),
              (cfg, 9, 4096, {"beamformer": "pmwf-0"}, "queue 1 item 15"),
-             (spec_cfg, 3, 4096, {"chunk_size": 32}, "queue 1 item 13"),
-             (cfg, 3, 4000, {"chunk_size": 32}, "queue 1 item 13")]
-    for c, n, s, kw, item in cases:
-        wav, mask = _scene(40, 1, n, s, c)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            enhance_batch(wav, mask, c, device="cuda", **kw)
-    # the batch's geometry decides: BatchEnhancer takes gevd at
-    # construction and refuses its 512/128 batch before the copy
+             (spec_cfg, 3, 4096, {"chunk_size": 32}, "spectrum"),
+             (cfg, 3, 4000, {"chunk_size": 32}, "spectrum")]
+    for c, n, s, kw, want in cases:
+        if want.startswith("queue"):
+            wav, mask = _scene(40, 1, n, s, c)
+            with pytest.raises(NotImplementedError, match=f"ROADMAP {want}"):
+                enhance_batch(wav, mask, c, device="cuda", **kw)
+            continue
+        assert enhance_step.check_cuda_options(
+            kw.get("beamformer", "mvdr"), kw.get("ban", False),
+            kw.get("steer", "power"), kw.get("chunk_size", -1), c, n, s,
+            s) == want, kw
+    # the batch's geometry decides: BatchEnhancer takes N = 9 at
+    # construction and refuses its batch before the copy
     enhancer = tex.BatchEnhancer(spec_cfg, beamformer="gevd", device="cuda")
-    wav, mask = _scene(41, 1, 3, 4096, spec_cfg)
+    wav, mask = _scene(41, 1, 9, 4096, spec_cfg)
     enhancer.add("u0", wav[0], mask[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
         enhancer.flush()
     assert enhance_step.check_cuda_options("mvdr", False, "power", -1) is None
     assert pipeline.planar_supported(wide_cfg, 8, 1024)

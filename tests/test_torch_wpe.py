@@ -39,6 +39,7 @@ from setk_tpu_torch.dsp.stft import StftConfig, forward_stft, inverse_stft
 from setk_tpu_torch.enhance import wpe as tw
 from setk_tpu_torch.ops import linalg as tla
 from setk_tpu_torch.ops.cuda import cholesky as ch
+from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import wpe_gram as wg
 from setk_tpu_torch.parallel import executor as tex
 
@@ -283,8 +284,10 @@ def test_cuda_dispatch_launch_counts(mocked_card):
 
 def test_cuda_wpd_launches_and_refusals(mocked_card, monkeypatch):
     """WPD in the gate runs the fused WPE step once an outer iteration
-    and the inner CGMM with 3 sweeps; outside it (N = 9) it refuses
-    naming ROADMAP queue 1 item 13 before anything is copied."""
+    and the inner CGMM with 3 sweeps; outside it the scan takes the EVD
+    kernel once an outer iteration for its steer, as the JAX package's
+    scan takes its eigh; N = 9 refuses naming ROADMAP queue 1 item 15
+    before anything is copied."""
     counts = mocked_card
     sweeps = []
     cgmm = tw.cgmm_em
@@ -299,15 +302,24 @@ def test_cuda_wpd_launches_and_refusals(mocked_card, monkeypatch):
     assert counts == {"wpe_gram": 3, "solve_wpe_gram": 3, "wpe_apply": 3}
     assert sweeps == [3, 3, 3]
     assert torch.isfinite(enh).all() and mask.shape == (4, 32)
+    counts.clear()
+
+    def eigh(a, b=None, sweeps=es.EIGH_SWEEPS, eps_rel=1e-6):
+        counts["hermitian_eigh"] = counts.get("hermitian_eigh", 0) + 1
+        return es.hermitian_eigh_plain(a, b, sweeps, eps_rel)
+
+    monkeypatch.setattr(tla, "hermitian_eigh", eigh)
+    mask, enh = tw.wpd(obs, cgmm_iters=2, wpd_iters=3, taps=4, delay=2,
+                       use_fused=False)
+    assert counts == {"hermitian_eigh": 3}   # N taps = 12: torch.linalg
+    assert torch.isfinite(enh).all() and mask.shape == (4, 32)
 
     def no_copy(x, dev, dtype):
         raise AssertionError("copied to the card before refusing")
 
     monkeypatch.setattr(tw, "_as_tensor", no_copy)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
         tw.wpd(np.zeros((4, 9, 32), np.complex64), taps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        tw.wpd(obs, taps=4, use_fused=False)
     # the kernels' wrappers on CPU tensors never count a launch
     for fn in (wg.wpe_gram, wg.wpe_apply, ch.solve_wpe_gram,
                ch.hermitian_solve_lanes):
