@@ -173,16 +173,20 @@ the CUDA toolkit.  In order it:
      8, B = 1) and B = 1 at H = 512, and the serving (B = 64 and B = 1) and
      training steps with their profiles;
   19. V1-V3, the batched Hermitian EVD kernel (csrc/eigh_small.cu
-     hermitian_eigh_kernel, which replaces XLA's eigh) and what it
-     brings: V1 holds it against its plain version at M = 1-8, plain and
-     generalized, at 257, 4,112 and 32,896 matrices (one utterance's bins,
-     8 s at chunk 32, B = 128): the gated scene's Rs/Rn at M = 6, else a
-     quarter rank one plus noise and the rest full rank, one all-zero
-     matrix each (eigenvalues within 1e-4 of each matrix's peak; principal
-     vectors, where the top eigenvalue stands 1e-3 of the peak above the
-     next, within 1 - 1e-5 in |cos|), and times it at M = 6 (graph
-     replay, eager, plain) with its bound beside torch.linalg.eigh at the
-     counts it takes; V2 runs the per-utterance CLI (no --batch-size) on
+     hermitian_eigh_kernel, a thread a matrix, and
+     hermitian_eigh_lanes_kernel, a lane group a matrix; it replaces
+     XLA's eigh) and what it brings: V1 holds each form built at M
+     (eigh_forms: a thread at M <= 3 and 5-7, lanes at M >= 4) against the plain
+     version at M = 1-8, plain and generalized, at 257, 4,112 and 32,896
+     matrices (one utterance's bins, 8 s at chunk 32, B = 128): the gated
+     scene's Rs/Rn at M = 6, else a quarter rank one plus noise and the
+     rest full rank, one all-zero matrix each (eigenvalues within 1e-4 of
+     each matrix's peak; principal vectors, where the top eigenvalue
+     stands 1e-3 of the peak above the next, within 1 - 1e-5 in |cos|),
+     and times both forms and the launcher's pick at M = 6 (graph replay,
+     eager, plain) beside the bound recounted from the sweeps the
+     matrices take (eigh_sweeps_needed: mean and largest) and
+     torch.linalg.eigh at the counts it takes; V2 runs the per-utterance CLI (no --batch-size) on
      the card and with --device cpu over 4 gated-scene utterances of 6 ch
      x 8 s for mvdr, gevd+BAN, mpdr, mpdr-whiten, pmwf-0 with the GEV
      rank-1 approximation and --pmwf-ref 0, pmwf-1 with --itf-mask, mvdr
@@ -446,7 +450,8 @@ def _ptxas_summary(log: str) -> dict:
         m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
                       r"|covar_ema|beamform_istft_online|beamform_istft"
                       r"|istft_planar|stft_planar|pair_covar|masked_covar"
-                      r"|regularized_inverse|hermitian_eigh|hermitian_solve"
+                      r"|regularized_inverse|hermitian_eigh_lanes|hermitian_eigh"
+                      r"|hermitian_solve"
                       r"|gram_solve"
                       r"|wpe_gram|wpe_apply|em_warp|warp_jacobi)"
                       r"_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?([fs]?)E",
@@ -1539,7 +1544,7 @@ def _wpe_slice(np, torch, dev, cfg):
 
 
 # ---- the Hermitian EVD and the per-utterance CLI (V1-V3) ----
-EIGH_SWEEPS = 8                 # ops/cuda/eigh_small.EIGH_SWEEPS
+EIGH_SWEEPS = 8                 # ops/cuda/eigh_small.EIGH_SWEEPS, a cap
 V_COUNTS = (257, 4112, 32896)   # one utterance; 8 s at chunk 32; B = 128
 V_LIBRARY_COUNTS = (257, 4112, 16384, 32896)
 V_GAP = 1e-3    # a principal vector counts where its eigenvalue stands
@@ -1574,7 +1579,7 @@ def _flops_eigh(m, sweeps, gen):
     generalized form adds two Cholesky factorizations, the whitening
     (2 M triangular substitutions) and the back substitution (M)."""
     rot = 25 + 3 * m * 20
-    flops = sweeps * m * (m - 1) // 2 * rot
+    flops = sweeps * (m * (m - 1) // 2) * rot
     if gen:
         flops += 2 * _chol_flops(m) + 3 * m * _tri_flops(m)
     return flops
@@ -1681,16 +1686,17 @@ def _evd_slice(np, torch, dev, card="cuda", counts=V_COUNTS,
                                  scene=scene if m == N else None)
             for gen in (False, True):
                 bb = bm if gen else None
-                w, v = es.hermitian_eigh(a, bb)
                 w_p, v_p = es.hermitian_eigh_plain(a, bb)
-                w_err, w_abs, cos, kept = _eigh_errs(torch, w, v, w_p,
-                                                     v_p)
-                v1[f"M{m},n{n},{'gen' if gen else 'eigh'}"] = {
-                    "w_err": w_err, "w_abs_err": w_abs,
-                    "principal_min_cos": cos,
-                    "counted": kept,
-                    "finite": bool(torch.isfinite(w[:-1]).all() and
-                                   torch.isfinite(v[:-1]).all())}
+                for form in es.eigh_forms(m):
+                    w, v = es.hermitian_eigh(a, bb, form=form)
+                    w_err, w_abs, cos, kept = _eigh_errs(torch, w, v, w_p,
+                                                         v_p)
+                    v1[f"M{m},n{n},{'gen' if gen else 'eigh'},{form}"] = {
+                        "w_err": w_err, "w_abs_err": w_abs,
+                        "principal_min_cos": cos,
+                        "counted": kept,
+                        "finite": bool(torch.isfinite(w[:-1]).all() and
+                                       torch.isfinite(v[:-1]).all())}
     w_worst = max(r["w_err"] for r in v1.values())
     cos_worst = min(r["principal_min_cos"] for r in v1.values())
     print(json.dumps({"V1_eigh_vs_plain": v1, "w_bar": TOL,
@@ -1699,20 +1705,33 @@ def _evd_slice(np, torch, dev, card="cuda", counts=V_COUNTS,
             all(r["finite"] for r in v1.values())):
         raise AssertionError(f"V1: eigenvalue error {w_worst} (bar {TOL}) "
                              f"or principal cosine {cos_worst}")
-    # times at M = 6 on the gated scene's covariances, both forms
+    # times at M = 6 on the gated scene's covariances, plain and
+    # generalized, each form and the launcher's pick; the bound from the
+    # sweeps these matrices take
     t1 = {}
     for n in counts:
         a, bm = _eigh_inputs(torch, dev, n, N, seed=7, scene=scene)
         for gen in (False, True):
             bb = bm if gen else None
             nbytes = a.nbytes * (2 if gen else 1) + a.nbytes + n * N * 4
-            t1[f"n{n},{'gen' if gen else 'eigh'}"] = {
-                "ms": _graph_ms(torch, lambda: es.hermitian_eigh(a, bb)),
-                "eager_ms": _time_ms(torch, lambda: es.hermitian_eigh(a, bb)),
+            taken = es.eigh_sweeps_needed(a, bb)
+            row = t1[f"n{n},{'gen' if gen else 'eigh'}"] = {
+                "form": es.eigh_form(n, N),
                 "plain_ms": _time_ms(torch, lambda: es.hermitian_eigh_plain(
                     a, bb), iters=3, warmup=1),
-                "bound": _bound(nbytes, n * _flops_eigh(N, EIGH_SWEEPS,
-                                                        gen))}
+                "sweeps_mean": float(taken.float().mean()),
+                "sweeps_max": int(taken.max()),
+                "bound": _bound(nbytes, _flops_eigh(
+                    N, float(taken.sum()), False) + n * _flops_eigh(
+                        N, 0, gen)),
+                "bound_at_cap": _bound(nbytes, n * _flops_eigh(
+                    N, EIGH_SWEEPS, gen))}
+            for form in (None,) + es.eigh_forms(N):
+                key = "" if form is None else f"{form}_"
+                row[f"{key}ms"] = _graph_ms(torch, lambda: es.hermitian_eigh(
+                    a, bb, form=form))
+                row[f"{key}eager_ms"] = _time_ms(
+                    torch, lambda: es.hermitian_eigh(a, bb, form=form))
     lib = {}
     for n in library_counts:
         a, _ = _eigh_inputs(torch, dev, n, N, seed=8, scene=scene)
@@ -1846,7 +1865,10 @@ def _evd_slice(np, torch, dev, card="cuda", counts=V_COUNTS,
         "eager_ms": main["eager_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
         "library_ms": lib.get(f"n{counts[0]}"),
-        "shape": f"{counts[0]} matrices of {N} x {N}, {EIGH_SWEEPS} sweeps",
+        "shape": f"{counts[0]} matrices of {N} x {N}, at most "
+                 f"{EIGH_SWEEPS} sweeps ({main['sweeps_mean']} taken on "
+                 f"average, {main['sweeps_max']} at most), the "
+                 f"{main['form']} form",
         "principal_min_cos": cos_worst, "by_count": t1,
         "linalg_eigh_ms_by_count": lib,
         "launches_by_path": {**{f"V2 {k}": r["launches"].get(
@@ -2391,11 +2413,12 @@ def main() -> int:
             f"istft_planar<{lg},{bf}>" for lg in (8, 9, 10, 11)
             for bf in (0, 1))}}))
 
-    # the EVD kernel at every M, plain (0) and generalized (1)
+    # the EVD kernel at every M, plain (0) and generalized (1), a thread
+    # and a lane group a matrix
     print(json.dumps({"ptxas_hermitian_eigh": {
         key: ptxas.get(key, "not built now") for key in (
-            f"hermitian_eigh<{m},{g}>" for m in range(1, 9)
-            for g in (0, 1))}}))
+            f"hermitian_eigh{form}<{m},{g}>" for form in ("", "_lanes")
+            for m in range(1, 9) for g in (0, 1))}}))
 
     # ---- 3. kernels against their plain versions at the bench shape ----
     cfg = StftConfig()

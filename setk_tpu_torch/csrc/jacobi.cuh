@@ -5,8 +5,7 @@
 // jacobi_regularized_inverse (:40-167), statement for statement: hermitianize
 // on load, a fixed number of cyclic sweeps over the (p, q) pairs, each a
 // complex Givens similarity A <- G^H A G applied to the columns, then the
-// rows, then V <- V G (jacobi_sweeps, which the EVD of eigh_small.cu's
-// hermitian_eigh_kernel shares); then w = diag(A) / max(max(w), EPS)
+// rows, then V <- V G (jacobi_sweeps); then w = diag(A) / max(max(w), EPS)
 // floored at EPS, inv = V diag(1 / w) V^H and logdet = sum log w of the
 // scaled spectrum.
 // The rotation phase defaults to 1 (not 0) where the off-diagonal is already
@@ -50,15 +49,11 @@ __device__ __forceinline__ void hermitianize(const float (&ar)[M][M],
 
 // V = I, then `sweeps` cyclic sweeps of complex Givens similarities on the
 // Hermitian A (diagonalized in place) accumulated into V, so that the
-// input equals V diag(A) V^H.  kSkipAnnihilated false is kernel 14's
-// rotation: an annihilated off-diagonal still rotates by the angle of its
-// diagonal pair (tau = 0 gives 45 degrees on equal diagonal entries),
-// harmless to the floored inverse, whose V diag(1 / w) V^H does not see
-// a basis of equal eigenvalues.  True (the EVD, eigh_small.cu's
-// hermitian_eigh_kernel) sets t = 0 there, as setk_tpu/ops/jacobi.py's
-// _rotation does, so a zero or scaled-identity matrix keeps V = I, the
-// eigenvectors LAPACK gives it.
-template <int M, bool kSkipAnnihilated>
+// input equals V diag(A) V^H.  An annihilated off-diagonal still rotates
+// by the angle of its diagonal pair (tau = 0 gives 45 degrees on equal
+// diagonal entries), harmless to the floored inverse, whose
+// V diag(1 / w) V^H does not see a basis of equal eigenvalues.
+template <int M>
 __device__ __forceinline__ void jacobi_sweeps(float (&a_re)[M][M],
                                               float (&a_im)[M][M],
                                               float (&v_re)[M][M],
@@ -89,8 +84,7 @@ __device__ __forceinline__ void jacobi_sweeps(float (&a_re)[M][M],
         // real 2x2 [[app, r], [r, aqq]] Jacobi angle
         const float tau = (a_re[q][q] - a_re[p][p]) / (2.0f * r);
         const float sgn = tau >= 0.0f ? 1.0f : -1.0f;
-        float t = sgn / (fabsf(tau) + sqrtf(1.0f + tau * tau));
-        if (kSkipAnnihilated && !safe) t = 0.0f;
+        const float t = sgn / (fabsf(tau) + sqrtf(1.0f + tau * tau));
         const float c = 1.0f / sqrtf(1.0f + t * t);
         const float s = t * c;
         // G[p][p] = c, G[p][q] = s, G[q][p] = -conj(ph) s, G[q][q] = conj(ph) c
@@ -138,7 +132,7 @@ __device__ __forceinline__ void jacobi_regularized_inverse(
     float (&inv_re)[M][M], float (&inv_im)[M][M], float& logdet) {
   float a_re[M][M], a_im[M][M], v_re[M][M], v_im[M][M];
   hermitianize<M>(ar, ai, a_re, a_im);
-  jacobi_sweeps<M, false>(a_re, a_im, v_re, v_im, sweeps);
+  jacobi_sweeps<M>(a_re, a_im, v_re, v_im, sweeps);
 
   // w /= max(max(w), EPS); w = max(w, EPS); inv = V diag(1/w) V^H
   float wmax = a_re[0][0];

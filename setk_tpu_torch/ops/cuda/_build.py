@@ -79,6 +79,9 @@ _SIGNATURES = {
     "eigh_small": {
         "regularized_inverse_launch": [_P, _P, _P, _I, _I, _I, _P],
         "hermitian_eigh_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+        "hermitian_eigh_form_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                       _P],
+        "hermitian_eigh_pick": [_I, _I],
     },
     "cacgmm_em": {
         "cacgmm_em_launch": [_P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,

@@ -21,8 +21,12 @@ same cyclic sweeps and statements as ``jacobi_regularized_inverse``
       Cholesky whitening of the loaded b (v^H B v = I), the statements of
       setk_tpu/ops/linalg.py:178-199.  No TPU kernel: the JAX package runs
       XLA's eigh there.  Kernel source csrc/eigh_small.cu
-      ``hermitian_eigh_kernel``; ``hermitian_eigh_plain`` is its plain
-      version, the same sweeps (with an annihilated entry left alone), the
+      ``hermitian_eigh_kernel`` (a thread a matrix) and
+      ``hermitian_eigh_lanes_kernel`` (a lane group a matrix);
+      ``hermitian_eigh_plain`` is their plain version: the same round-robin
+      sweeps (``eigh_schedule``), angle formulas and stop (every
+      off-diagonal |a_pq| <= M EPS ||A||_F at a sweep's start; ``sweeps``
+      is a cap, ``eigh_sweeps_needed`` counts what each matrix takes), the
       same Cholesky, substitutions and order of columns.
 """
 
@@ -33,7 +37,8 @@ from setk_tpu_torch.utils.common import EPSILON
 
 __all__ = ["MAX_DIM", "SWEEPS", "EIGH_SWEEPS", "regularized_inverse",
            "jacobi_regularized_inverse_plain", "hermitian_eigh",
-           "hermitian_eigh_plain"]
+           "hermitian_eigh_plain", "eigh_schedule", "eigh_sweeps_needed",
+           "eigh_form", "eigh_forms"]
 
 MAX_DIM = 8
 SWEEPS = 6
@@ -51,11 +56,9 @@ def _hermitianize_planes(a_re: torch.Tensor, a_im: torch.Tensor):
     return a_re, a_im
 
 
-def _jacobi_sweeps(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int,
-                   skip_annihilated: bool):
+def _jacobi_sweeps(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
     """jacobi.cuh's jacobi_sweeps: diagonalizes the Hermitian planes in
-    place and returns V = (v_re, v_im).  ``skip_annihilated`` gives an
-    entry of |a_pq|^2 <= 1e-30 the identity rotation (the EVD's form)."""
+    place and returns V = (v_re, v_im)."""
     m = a_re.shape[-1]
     v_re = torch.eye(m, dtype=a_re.dtype, device=a_re.device).expand(
         a_re.shape).clone()
@@ -74,41 +77,142 @@ def _jacobi_sweeps(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int,
                 tau = (a_re[:, q, q] - a_re[:, p, p]) / (2.0 * r)
                 sgn = torch.where(tau >= 0, one, -one)
                 t = sgn / (tau.abs() + torch.sqrt(1.0 + tau * tau))
-                if skip_annihilated:
-                    t = torch.where(safe, t, 0.0 * one)
                 c = 1.0 / torch.sqrt(1.0 + t * t)
                 s = t * c
-                gqp_re, gqp_im = (-ph_re * s)[:, None], (ph_im * s)[:, None]
-                gqq_re, gqq_im = (ph_re * c)[:, None], (-ph_im * c)[:, None]
-                gpq_re, c = s[:, None], c[:, None]
-                # columns: A <- A G on columns p, q
-                akp_re, akp_im = a_re[:, :, p].clone(), a_im[:, :, p].clone()
-                akq_re, akq_im = a_re[:, :, q].clone(), a_im[:, :, q].clone()
-                a_re[:, :, p] = akp_re * c + akq_re * gqp_re - akq_im * gqp_im
-                a_im[:, :, p] = akp_im * c + akq_re * gqp_im + akq_im * gqp_re
-                a_re[:, :, q] = (akp_re * gpq_re + akq_re * gqq_re -
-                                 akq_im * gqq_im)
-                a_im[:, :, q] = (akp_im * gpq_re + akq_re * gqq_im +
-                                 akq_im * gqq_re)
-                # rows: A <- G^H A on rows p, q
-                apk_re, apk_im = a_re[:, p, :].clone(), a_im[:, p, :].clone()
-                aqk_re, aqk_im = a_re[:, q, :].clone(), a_im[:, q, :].clone()
-                a_re[:, p, :] = apk_re * c + aqk_re * gqp_re + aqk_im * gqp_im
-                a_im[:, p, :] = apk_im * c + aqk_im * gqp_re - aqk_re * gqp_im
-                a_re[:, q, :] = (apk_re * gpq_re + aqk_re * gqq_re +
-                                 aqk_im * gqq_im)
-                a_im[:, q, :] = (apk_im * gpq_re + aqk_im * gqq_re -
-                                 aqk_re * gqq_im)
-                # V <- V G
-                vkp_re, vkp_im = v_re[:, :, p].clone(), v_im[:, :, p].clone()
-                vkq_re, vkq_im = v_re[:, :, q].clone(), v_im[:, :, q].clone()
-                v_re[:, :, p] = vkp_re * c + vkq_re * gqp_re - vkq_im * gqp_im
-                v_im[:, :, p] = vkp_im * c + vkq_re * gqp_im + vkq_im * gqp_re
-                v_re[:, :, q] = (vkp_re * gpq_re + vkq_re * gqq_re -
-                                 vkq_im * gqq_im)
-                v_im[:, :, q] = (vkp_im * gpq_re + vkq_re * gqq_im +
-                                 vkq_im * gqq_re)
+                _rotate(a_re, a_im, v_re, v_im, [(p, q)],
+                        [(c, s, ph_re, ph_im)])
     return v_re, v_im
+
+
+def _rotate(a_re, a_im, v_re, v_im, pairs, angles):
+    """A <- G^H A G and V <- V G for the disjoint rotations of ``pairs``
+    ((x, y) each: G[x][x] = c, G[x][y] = s, G[y][x] = -conj(ph) s,
+    G[y][y] = conj(ph) c, with ``angles`` (c, s, ph_re, ph_im) each):
+    every pair's columns, then every pair's rows, then V's columns."""
+    gs = []
+    for c, s, ph_re, ph_im in angles:
+        gs.append((c[:, None], s[:, None], (-ph_re * s)[:, None],
+                   (ph_im * s)[:, None], (ph_re * c)[:, None],
+                   (-ph_im * c)[:, None]))
+    for (x, y), (c, gxy, gyx_re, gyx_im, gyy_re, gyy_im) in zip(pairs, gs):
+        # columns: A <- A G on columns x, y
+        akx_re, akx_im = a_re[:, :, x].clone(), a_im[:, :, x].clone()
+        aky_re, aky_im = a_re[:, :, y].clone(), a_im[:, :, y].clone()
+        a_re[:, :, x] = akx_re * c + aky_re * gyx_re - aky_im * gyx_im
+        a_im[:, :, x] = akx_im * c + aky_re * gyx_im + aky_im * gyx_re
+        a_re[:, :, y] = akx_re * gxy + aky_re * gyy_re - aky_im * gyy_im
+        a_im[:, :, y] = akx_im * gxy + aky_re * gyy_im + aky_im * gyy_re
+    for (x, y), (c, gxy, gyx_re, gyx_im, gyy_re, gyy_im) in zip(pairs, gs):
+        # rows: A <- G^H A on rows x, y
+        axk_re, axk_im = a_re[:, x, :].clone(), a_im[:, x, :].clone()
+        ayk_re, ayk_im = a_re[:, y, :].clone(), a_im[:, y, :].clone()
+        a_re[:, x, :] = axk_re * c + ayk_re * gyx_re + ayk_im * gyx_im
+        a_im[:, x, :] = axk_im * c + ayk_im * gyx_re - ayk_re * gyx_im
+        a_re[:, y, :] = axk_re * gxy + ayk_re * gyy_re + ayk_im * gyy_im
+        a_im[:, y, :] = axk_im * gxy + ayk_im * gyy_re - ayk_re * gyy_im
+    for (x, y), (c, gxy, gyx_re, gyx_im, gyy_re, gyy_im) in zip(pairs, gs):
+        # V <- V G
+        vkx_re, vkx_im = v_re[:, :, x].clone(), v_im[:, :, x].clone()
+        vky_re, vky_im = v_re[:, :, y].clone(), v_im[:, :, y].clone()
+        v_re[:, :, x] = vkx_re * c + vky_re * gyx_re - vky_im * gyx_im
+        v_im[:, :, x] = vkx_im * c + vky_re * gyx_im + vky_im * gyx_re
+        v_re[:, :, y] = vkx_re * gxy + vky_re * gyy_re - vky_im * gyy_im
+        v_im[:, :, y] = vkx_im * gxy + vky_re * gyy_im + vky_im * gyy_re
+
+
+def eigh_schedule(m: int) -> list:
+    """One sweep of the EVD's round-robin ("chess tournament", Brent-Luk)
+    order, as eigh_small.cu's rr_player gives it: a list of rounds, each
+    a list of disjoint (x, y) pairs, every pair {x, y} of 0..M-1 once a
+    sweep.  Players 0..P-1 (P = M rounded up to even; index M is the bye
+    of an odd M) sit at positions 0..P-1; position 0 keeps player 0,
+    position k >= 1 holds player (k - 1 + r) % (P - 1) + 1 in round r;
+    slot i pairs positions i and P-1-i.  P - 1 rounds a sweep."""
+    players = m + (m & 1)
+
+    def player(pos, r):
+        return 0 if pos == 0 else (pos - 1 + r) % (players - 1) + 1
+
+    return [[(player(i, r), player(players - 1 - i, r))
+             for i in range(players // 2)
+             if max(player(i, r), player(players - 1 - i, r)) < m]
+            for r in range(players - 1)]
+
+
+def _eigh_angle(app, aqq, apq_re, apq_im, still):
+    """eigh_small.cu's rr_angle: (c, s, ph_re, ph_im) of the rotation
+    that annihilates a_pq, the identity where ``still`` is False or
+    |a_pq|^2 <= 1e-30; one rsqrt for the phase and tau, one reciprocal
+    for t, one rsqrt for c."""
+    one = torch.ones((), dtype=app.dtype, device=app.device)
+    zero = torch.zeros((), dtype=app.dtype, device=app.device)
+    r2 = apq_re * apq_re + apq_im * apq_im
+    rotate = still & (r2 > _TINY)
+    rs = torch.rsqrt(torch.where(rotate, r2, one))
+    ph_re = torch.where(rotate, apq_re * rs, one)
+    ph_im = torch.where(rotate, apq_im * rs, zero)
+    tau = (aqq - app) * 0.5 * rs
+    q = tau * tau + 1.0
+    sgn = torch.where(tau >= 0, one, -one)
+    # past ~1.8e19 t is below 3e-20: 0
+    t = torch.where(rotate & (q < float("inf")),
+                    sgn / (tau.abs() + q * torch.rsqrt(q)), zero)
+    c = torch.where(rotate, torch.rsqrt(t * t + 1.0), one)
+    s = torch.where(rotate, t * c, zero)
+    return c, s, ph_re, ph_im
+
+
+def _eigh_tolerance(a_re, a_im):
+    """The stopping test's bar on |a_pq|^2, (M EPS ||A||_F)^2: ||A||_F^2
+    summed in the kernel's row-major order.  Below M EPS ||A||_F an entry
+    sits at f32's rounding floor, where a bar of EPS ||A||_F alone is
+    missed by a few matrices in a thousand (rank one plus noise), which
+    then run every sweep."""
+    m = a_re.shape[-1]
+    f2 = torch.zeros_like(a_re[:, 0, 0])
+    for i in range(m):
+        for j in range(m):
+            f2 = f2 + (a_re[:, i, j] * a_re[:, i, j] +
+                       a_im[:, i, j] * a_im[:, i, j])
+    return (m * EPSILON) ** 2 * f2
+
+
+def _eigh_converged(a_re, a_im, tol2):
+    """Every off-diagonal |a_pq|^2 <= tol2 (p < q), per matrix."""
+    m = a_re.shape[-1]
+    done = torch.ones_like(tol2, dtype=torch.bool)
+    for p in range(m - 1):
+        for q in range(p + 1, m):
+            done &= (a_re[:, p, q] * a_re[:, p, q] +
+                     a_im[:, p, q] * a_im[:, p, q]) <= tol2
+    return done
+
+
+def _eigh_sweeps(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
+    """The EVD kernel's sweeps on Hermitian planes, in place: at most
+    ``sweeps`` round-robin sweeps, each round's angles from the round's
+    starting A, then its columns, rows and V; a matrix stops (identity
+    rotations) once every off-diagonal entry passes _eigh_converged at a
+    sweep's start.  Returns (v_re, v_im, sweeps each matrix took)."""
+    m = a_re.shape[-1]
+    v_re = torch.eye(m, dtype=a_re.dtype, device=a_re.device).expand(
+        a_re.shape).clone()
+    v_im = torch.zeros_like(a_re)
+    taken = torch.zeros(a_re.shape[0], dtype=torch.int64,
+                        device=a_re.device)
+    tol2 = _eigh_tolerance(a_re, a_im)
+    rounds = eigh_schedule(m)
+    for _ in range(sweeps):
+        still = ~_eigh_converged(a_re, a_im, tol2)
+        if not bool(still.any()):
+            break
+        taken += still.to(torch.int64)
+        for pairs in rounds:
+            angles = [_eigh_angle(a_re[:, x, x], a_re[:, y, y],
+                                  a_re[:, x, y], a_im[:, x, y], still)
+                      for x, y in pairs]
+            _rotate(a_re, a_im, v_re, v_im, pairs, angles)
+    return v_re, v_im, taken
 
 
 def _jacobi_planes(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
@@ -116,7 +220,7 @@ def _jacobi_planes(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
     (inv_re, inv_im, logdet)."""
     m = a_re.shape[-1]
     a_re, a_im = _hermitianize_planes(a_re, a_im)
-    v_re, v_im = _jacobi_sweeps(a_re, a_im, sweeps, skip_annihilated=False)
+    v_re, v_im = _jacobi_sweeps(a_re, a_im, sweeps)
     # w /= max(max(w), EPS); w = max(w, EPS); inv = V diag(1/w) V^H
     w = torch.diagonal(a_re, dim1=-2, dim2=-1)
     wmax = w[:, 0]
@@ -252,11 +356,11 @@ def _back_substitute_planes(v_re, v_im, l_re, l_im, dinv):
         v_im[:, i, :] = im * dinv[:, i, None]
 
 
-def hermitian_eigh_plain(a: torch.Tensor, b: torch.Tensor | None = None,
-                         sweeps: int = EIGH_SWEEPS, eps_rel: float = 1e-6):
-    """Plain version of the EVD kernel: (w (..., M) f32 ascending,
-    V (..., M, M) in a's complex type)."""
-    lead, m = a.shape[:-2], a.shape[-1]
+def _eigh_planes(a: torch.Tensor, b: torch.Tensor | None, sweeps: int,
+                 eps_rel: float):
+    """The EVD kernel's arithmetic on (n, M, M) inputs: (diag of the
+    diagonalized A (n, M), V planes, sweeps each matrix took)."""
+    m = a.shape[-1]
     flat = a.reshape(-1, m, m)
     a_re, a_im = _hermitianize_planes(flat.real.to(torch.float32),
                                       flat.imag.to(torch.float32))
@@ -266,10 +370,18 @@ def hermitian_eigh_plain(a: torch.Tensor, b: torch.Tensor | None = None,
                                        fb.imag.to(torch.float32), eps_rel)
         _whiten_planes(a_re, a_im, *chol)
         a_re, a_im = _hermitianize_planes(a_re, a_im)
-    v_re, v_im = _jacobi_sweeps(a_re, a_im, sweeps, skip_annihilated=True)
+    v_re, v_im, taken = _eigh_sweeps(a_re, a_im, sweeps)
     if b is not None:
         _back_substitute_planes(v_re, v_im, *chol)
-    w = torch.diagonal(a_re, dim1=-2, dim2=-1)
+    return torch.diagonal(a_re, dim1=-2, dim2=-1), v_re, v_im, taken
+
+
+def hermitian_eigh_plain(a: torch.Tensor, b: torch.Tensor | None = None,
+                         sweeps: int = EIGH_SWEEPS, eps_rel: float = 1e-6):
+    """Plain version of the EVD kernel: (w (..., M) f32 ascending,
+    V (..., M, M) in a's complex type)."""
+    lead, m = a.shape[:-2], a.shape[-1]
+    w, v_re, v_im, _ = _eigh_planes(a, b, sweeps, eps_rel)
     # ascending, NaN last, ties in index order: the kernel's ranks
     order = torch.argsort(torch.where(torch.isnan(w), float("inf"), w),
                           dim=-1, stable=True)
@@ -280,17 +392,36 @@ def hermitian_eigh_plain(a: torch.Tensor, b: torch.Tensor | None = None,
             v.reshape(*lead, m, m).to(a.dtype))
 
 
+def eigh_sweeps_needed(a: torch.Tensor, b: torch.Tensor | None = None,
+                       sweeps: int = EIGH_SWEEPS, eps_rel: float = 1e-6):
+    """The sweeps the EVD takes on each matrix of ``a`` (and ``b``), (...)
+    int64, at most ``sweeps``: what its operation count (the bound of a
+    loop that ends early) is taken from."""
+    return _eigh_planes(a, b, sweeps, eps_rel)[3].reshape(a.shape[:-2])
+
+
+_FORMS = {None: -1, "thread": 0, "lanes": 1}
+
+
 def hermitian_eigh(a: torch.Tensor, b: torch.Tensor | None = None,
-                   sweeps: int = EIGH_SWEEPS, eps_rel: float = 1e-6):
+                   sweeps: int = EIGH_SWEEPS, eps_rel: float = 1e-6,
+                   form: str | None = None):
     """The EVD kernel: (w (..., M) f32 ascending, V (..., M, M) complex64).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (``hermitian_eigh.launches`` counts those launches), one thread a
-    matrix, any batch in one launch.
+    (``hermitian_eigh.launches`` counts those launches), any batch in one
+    launch, in the form the launcher picks by the matrix count and M
+    (``form`` None), or a thread a matrix ("thread") or a lane group a
+    matrix ("lanes") where ``eigh_forms`` offers it.
     """
+    if form not in _FORMS:
+        raise ValueError(f"hermitian_eigh: form {form!r} is not one of "
+                         f"{sorted(_FORMS, key=str)}")
     if a.device.type == "cpu":
         return hermitian_eigh_plain(a, b, sweeps, eps_rel)
     m = a.shape[-1]
+    if form is not None and form not in eigh_forms(m):
+        raise ValueError(f"hermitian_eigh: no {form!r} form at M = {m}")
     for x in (a,) if b is None else (a, b):
         if x.dtype != torch.complex64 or x.ndim < 2 or \
                 x.shape[-2] != m or x.shape != a.shape or \
@@ -307,12 +438,30 @@ def hermitian_eigh(a: torch.Tensor, b: torch.Tensor | None = None,
     bsrc = None if b is None else b.contiguous()
     w = torch.empty(a.shape[:-1], dtype=torch.float32, device=a.device)
     v = torch.empty_like(src)
-    _build.launch("eigh_small", "hermitian_eigh_launch", a.device,
+    _build.launch("eigh_small", "hermitian_eigh_form_launch", a.device,
                   src.data_ptr(), None if bsrc is None else bsrc.data_ptr(),
                   w.data_ptr(), v.data_ptr(), src.numel() // (m * m), m,
-                  sweeps, eps_rel)
+                  sweeps, eps_rel, _FORMS[form])
     hermitian_eigh.launches += 1
     return w, v
+
+
+# the M at which each form of the EVD kernel is built: those at which its
+# launcher's pick (eigh_small.cu kLanesUpTo) can take it
+_BUILT = {"thread": (1, 2, 3, 5, 6, 7), "lanes": (4, 5, 6, 7, 8)}
+
+
+def eigh_forms(m: int) -> tuple:
+    """The forms the EVD kernel is built in at M: a thread a matrix at M
+    <= 3 and 5-7, a lane group a matrix at M >= 4."""
+    return tuple(form for form, ms in _BUILT.items() if m in ms)
+
+
+def eigh_form(n: int, m: int) -> str:
+    """The form the EVD kernel's launcher takes for n matrices of M x M
+    (builds the kernel library)."""
+    pick = _build.library("eigh_small").hermitian_eigh_pick(n, m)
+    return "lanes" if pick else "thread"
 
 
 hermitian_eigh.launches = 0

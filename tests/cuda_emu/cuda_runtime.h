@@ -222,6 +222,34 @@ inline float __shfl_sync(unsigned, float v, int src_lane) {
   return got;
 }
 
+// the warp votes: every lane of the calling warp (as many as the block
+// has) through the exchange, as the shuffles
+inline unsigned __ballot_sync(unsigned, int pred) {
+  static int exchange[1024];
+  exchange[threadIdx.x] = pred != 0;
+  __syncthreads();
+  const unsigned first = threadIdx.x & ~31u;
+  unsigned votes = 0;
+  for (unsigned k = first; k < first + 32 && k < blockDim.x; ++k)
+    votes |= (exchange[k] ? 1u : 0u) << (k - first);
+  __syncthreads();
+  return votes;
+}
+
+inline int __all_sync(unsigned, int pred) {
+  static int exchange[1024];
+  exchange[threadIdx.x] = pred != 0;
+  __syncthreads();
+  const unsigned first = threadIdx.x & ~31u;
+  int all = 1;
+  for (unsigned k = first; k < first + 32 && k < blockDim.x; ++k)
+    all &= exchange[k];
+  __syncthreads();
+  return all;
+}
+
+inline float __fdividef(float x, float y) { return x / y; }
+
 template <typename K, typename... A>
 void emu_launch(dim3 grid, int block, size_t smem, cudaStream_t, K kernel,
                 A... args) {

@@ -1038,14 +1038,18 @@ def _eigh_cases(m, n, seed, gen):
 _UNWRITTEN = 7.5e30
 
 
-def _eigh_launch(lib, a, b, sweeps=es.EIGH_SWEEPS):
+def _eigh_launch(lib, a, b, sweeps=es.EIGH_SWEEPS, form=None):
+    """The EVD entry (``form`` None: the launcher's pick; 0 a thread a
+    matrix, 1 a lane group) on outputs filled with _UNWRITTEN."""
     n, m = a.shape[0], a.shape[-1]
     w = torch.full((n, m), _UNWRITTEN)
     v = torch.full_like(a, _UNWRITTEN)
-    err = lib.hermitian_eigh_launch(a.data_ptr(),
-                                    None if b is None else b.data_ptr(),
-                                    w.data_ptr(), v.data_ptr(), n, m, sweeps,
-                                    1e-6, None)
+    args = (a.data_ptr(), None if b is None else b.data_ptr(), w.data_ptr(),
+            v.data_ptr(), n, m, sweeps, 1e-6)
+    if form is None:
+        err = lib.hermitian_eigh_launch(*args, None)
+    else:
+        err = lib.hermitian_eigh_form_launch(*args, form, None)
     assert err == 0
     return w, v
 
@@ -1081,6 +1085,15 @@ def test_hermitian_eigh_source_matches_plain(libs, m, gen):
     vector is e_(M-1), as LAPACK gives it."""
     a, b = _eigh_cases(m, 130, 20 * m + gen, gen)
     w, v = _eigh_launch(libs["eigh_small"], a, b)
+    _assert_eigh_matches_plain(a, b, w, v)
+
+
+def _assert_eigh_matches_plain(a, b, w, v, counted=100, cases=True):
+    """test_hermitian_eigh_source_matches_plain's checks of (w, v) on
+    _eigh_cases' matrices (a, b); ``cases`` False: on other matrices, so
+    without the checks of _eigh_cases' special ones."""
+    m = a.shape[-1]
+    gen = b is not None
     w_p, v_p = es.hermitian_eigh_plain(a, b)
     assert torch.isfinite(w).all() and torch.isfinite(v).all()
     assert not (w == _UNWRITTEN).any() and not (v.real == _UNWRITTEN).any()
@@ -1088,7 +1101,7 @@ def test_hermitian_eigh_source_matches_plain(libs, m, gen):
     assert float(((w - w_p).abs().amax(-1) / peak).max()) < SOLVE_TOL
     assert bool((w[:, 1:] >= w[:, :-1]).all())
     cos = _separated_cosines(w, v, w_p, v_p, 1e-2)
-    assert cos.numel() >= 100 and float(cos.min()) >= 1 - 1e-5
+    assert cos.numel() >= counted and float(cos.min()) >= 1 - 1e-5
     if gen:
         return
     eye = torch.eye(m, dtype=torch.complex64)
@@ -1097,11 +1110,153 @@ def test_hermitian_eigh_source_matches_plain(libs, m, gen):
     assert float(((rec - a).abs().amax(dim=(-1, -2)) /
                   a.abs().amax(dim=(-1, -2)).clamp(min=1e-30)).max()) < \
         SOLVE_TOL
+    if not cases:
+        return
     for k in (4, 5):
         assert torch.equal(v[k], eye)
     assert torch.equal(w[4], torch.zeros(m))
     order = torch.argsort(torch.tensor([0.5, 2.0] * m)[:m], stable=True)
     assert torch.equal(v[6], eye[:, order])
+
+
+@pytest.mark.parametrize("form", [0, 1])
+@pytest.mark.parametrize("gen", [False, True])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_hermitian_eigh_forms_match_plain(libs, m, gen, form):
+    """Each form forced (0 a thread a matrix, 1 a lane group) on 130 of
+    _eigh_cases' matrices, a distinct diagonal at 7 (with b: b = 0 there):
+    the first warp holds matrices converged at the first test (zero,
+    scaled identity, diagonals) beside full ones, and the last block is
+    partial; the checks of test_hermitian_eigh_source_matches_plain, and
+    the distinct diagonal sorted with V its permutation.  A form not
+    built at M (eigh_forms: a thread at M = 8, lanes at M = 1) is
+    refused."""
+    a, b = _eigh_cases(m, 130, 30 * m + gen, gen)
+    a[7] = torch.diag(torch.arange(m, 0, -1, dtype=torch.float32) * 0.3)
+    if ("thread", "lanes")[form] not in es.eigh_forms(m):
+        p = a.data_ptr()
+        assert libs["eigh_small"].hermitian_eigh_form_launch(
+            p, None if b is None else b.data_ptr(), p, p, 130, m, 8, 1e-6,
+            form, None) != 0
+        return
+    w, v = _eigh_launch(libs["eigh_small"], a, b, form=form)
+    _assert_eigh_matches_plain(a, b, w, v)
+    if not gen:
+        eye = torch.eye(m, dtype=torch.complex64)
+        assert torch.equal(v[7], eye.flip(-1))
+        assert torch.equal(w[7], torch.arange(1, m + 1) * 0.3)
+
+
+def _near_diagonal(m, count):
+    """``count`` matrices that pass the EVD's stopping test as loaded but
+    whose rotation would turn them: ascending diagonal 1, 1 + 2 EPS, 2,
+    3, ..., and a_01 = (0.6 + 0.8i) 1e-7, under the bar M EPS ||A||_F
+    (3.4e-7 at M = 2; a rotation there has tau ~ 1.2, t ~ 0.36)."""
+    a = torch.diag(torch.tensor([1.0, 1.0 + 2 * 2.0 ** -23] +
+                                list(range(2, m)))[:m])
+    a = a.to(torch.complex64)
+    a[0, 1] = complex(0.6e-7, 0.8e-7)
+    a[1, 0] = complex(0.6e-7, -0.8e-7)
+    return a.expand(count, m, m).clone()
+
+
+@pytest.mark.parametrize("gen", [False, True])
+@pytest.mark.parametrize("m,form", [
+    (m, form) for m in range(2, 9) for form in (0, 1)
+    if ("thread", "lanes")[form] in es.eigh_forms(m)])
+def test_hermitian_eigh_form_stops_once_converged(libs, m, form, gen):
+    """Each form on 130 matrices, full rank and _near_diagonal's in turn
+    (with b: the identity for the near-diagonal ones), so every warp and
+    lane group runs sweeps for its full matrices beside matrices that have
+    stopped: the near-diagonal ones take no sweep (the plain version
+    counts 0) and come out with V diagonal, the identity without b, and w
+    their diagonal.  A group that sweeps on past its matrix's stop (at M
+    = 5 and 6 the lane form's idle lane) turns them."""
+    rng = np.random.default_rng(80 + 2 * m + gen)
+    a = _hermitian(rng, 130, m, m + 2)
+    a[1::2] = _near_diagonal(m, 65)
+    b = None
+    if gen:
+        b = _hermitian(rng, 130, m, m + 3) + 0.1 * torch.eye(m)
+        b[1::2] = torch.eye(m)
+    taken = es.eigh_sweeps_needed(a, b)
+    assert bool((taken[1::2] == 0).all()) and bool((taken[::2] > 0).all())
+    w, v = _eigh_launch(libs["eigh_small"], a, b, form=form)
+    w_p, v_p = es.hermitian_eigh_plain(a, b)
+    off = ~torch.eye(m, dtype=torch.bool)
+    for x, y in ((w, v), (w_p, v_p)):
+        assert torch.equal(y[1::2][:, off], torch.zeros(65, m * (m - 1),
+                                                        dtype=y.dtype))
+        if not gen:
+            assert torch.equal(y[1::2], torch.eye(m, dtype=y.dtype).expand(
+                65, m, m))
+            assert torch.equal(x[1::2], a[1::2].diagonal(0, -2, -1).real)
+    _assert_eigh_matches_plain(a[::2].contiguous(),
+                               None if b is None else b[::2].contiguous(),
+                               w[::2], v[::2], counted=50, cases=False)
+
+
+@pytest.mark.parametrize("m", range(2, 9))
+def test_hermitian_eigh_small_batch_takes_lane_groups(libs, m):
+    """13 matrices take the lane form (hermitian_eigh_pick) where it is
+    built (M >= 4), in one 32-lane block whose last groups lie past n,
+    and a thread a matrix at M <= 3; the same outputs as that form
+    forced, and the plain version's."""
+    lib = libs["eigh_small"]
+    form = 1 if "lanes" in es.eigh_forms(m) else 0
+    assert lib.hermitian_eigh_pick(13, m) == form
+    a, _ = _eigh_cases(m, 13, 50 + m, False)
+    w, v = _eigh_launch(lib, a, None)
+    w1, v1 = _eigh_launch(lib, a, None, form=form)
+    assert torch.equal(w, w1) and torch.equal(v, v1)
+    _assert_eigh_matches_plain(a, None, w, v, counted=8)
+
+
+@pytest.mark.parametrize("form", [0, 1])
+def test_hermitian_eigh_zero_sweeps_sort_the_diagonal(libs, form):
+    """sweeps = 0: every matrix's w is its sorted diagonal and V the
+    identity in that order, from either form."""
+    a, _ = _eigh_cases(6, 37, 7, False)
+    w, v = _eigh_launch(libs["eigh_small"], a, None, sweeps=0, form=form)
+    diag, order = torch.sort(a.diagonal(0, -2, -1).real, stable=True)
+    eye = torch.eye(6, dtype=torch.complex64).expand_as(a)
+    assert torch.equal(w, diag)
+    assert torch.equal(v, eye.gather(-1, order[:, None, :].expand(-1, 6,
+                                                                   -1)))
+
+
+def test_hermitian_eigh_pick_by_count_and_size(libs):
+    """The launcher's pick: a lane group a matrix up to its count at M =
+    5-7 (8,224; 16,448; 16,448) and at every count at M = 4 and 8 (at 8 a
+    thread's registers spill), a thread a matrix past it and at M <= 3;
+    each picked form is one eigh_forms offers, and a form offered at
+    every M is picked somewhere."""
+    lib = libs["eigh_small"]
+    assert lib.hermitian_eigh_pick(257, 6) == 1
+    assert lib.hermitian_eigh_pick(16448, 6) == 1
+    assert lib.hermitian_eigh_pick(16449, 6) == 0
+    assert lib.hermitian_eigh_pick(32896, 6) == 0
+    assert lib.hermitian_eigh_pick(8224, 5) == 1
+    assert lib.hermitian_eigh_pick(8225, 5) == 0
+    assert lib.hermitian_eigh_pick(32896, 7) == 0
+    assert lib.hermitian_eigh_pick(32896, 8) == 1
+    assert lib.hermitian_eigh_pick(65792, 4) == 1
+    assert lib.hermitian_eigh_pick(257, 3) == 0
+    assert lib.hermitian_eigh_pick(257, 1) == 0
+    for m in range(1, 9):
+        picked = {("thread", "lanes")[lib.hermitian_eigh_pick(n, m)]
+                  for n in (1, 257, 4112, 8224, 16448, 32896, 1 << 30)}
+        assert picked == set(es.eigh_forms(m))
+
+
+def test_hermitian_eigh_form_entry_rejects_bad_arguments(libs):
+    p = torch.zeros(8).data_ptr()
+    lib = libs["eigh_small"]
+    for n, m, sweeps, form in ((0, 2, 8, 0), (1, 9, 8, 1), (1, 2, -1, 0),
+                               (1, 2, 8, 2), (1, 2, 8, -2), (1, 8, 8, 0),
+                               (1, 4, 8, 0), (1, 1, 8, 1), (1, 3, 8, 1)):
+        assert lib.hermitian_eigh_form_launch(p, None, p, p, n, m, sweeps,
+                                              1e-6, form, None) != 0
 
 
 def test_hermitian_eigh_nan_matrix_fills_every_slot(libs):

@@ -95,6 +95,87 @@ def test_plain_generalized_eigh_matches_jax(m):
     assert np.allclose(got[11], ref[11], rtol=TOL, atol=0)
 
 
+@pytest.mark.parametrize("m", range(1, 9))
+def test_schedule_rounds_are_disjoint_and_cover_every_pair(m):
+    """eigh_schedule: M - 1 rounds (M for odd M), each of disjoint pairs,
+    every pair of 0..M-1 exactly once a sweep."""
+    rounds = es.eigh_schedule(m)
+    assert len(rounds) == max(m + (m & 1) - 1, 1)
+    seen = []
+    for pairs in rounds:
+        members = [i for pair in pairs for i in pair]
+        assert len(members) == len(set(members))
+        assert all(0 <= i < m and x != y for x, y in pairs for i in (x, y))
+        seen += [frozenset(pair) for pair in pairs]
+    assert sorted(seen, key=sorted) == sorted(
+        (frozenset((p, q)) for p in range(m) for q in range(p + 1, m)),
+        key=sorted)
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+def test_converged_matrices_take_no_sweep(m):
+    """A zero, a scaled identity, a diagonal with distinct entries and one
+    with ties take 0 sweeps: V = I up to the ascending order, ties in
+    index order; beside them full-rank matrices stop before the cap and
+    give the same bits with a higher one."""
+    rng = np.random.default_rng(40 + m)
+    a = _hermitian(rng, 8, m, m + 2)
+    a[0] = 0
+    a[1] = 0.7 * np.eye(m)
+    a[2] = np.diag(np.arange(m, 0, -1) * 0.3)
+    a[3] = np.diag(np.array([0.5, 2.0] * m)[:m])
+    at = torch.from_numpy(a)
+    taken = es.eigh_sweeps_needed(at).numpy()
+    assert (taken[:4] == 0).all()
+    assert (taken[4:] < es.EIGH_SWEEPS).all()
+    assert (taken[4:] > 0).all() if m > 1 else (taken[4:] == 0).all()
+    w, v = (x.numpy() for x in es.hermitian_eigh_plain(at))
+    eye = np.eye(m, dtype=np.complex64)
+    for k in range(4):
+        order = np.argsort(np.diag(a[k]).real, kind="stable")
+        assert np.array_equal(v[k], eye[:, order])
+        assert np.array_equal(w[k], np.diag(a[k]).real[order])
+    for got, ref in zip(es.hermitian_eigh_plain(at),
+                        es.hermitian_eigh_plain(at, sweeps=20)):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("gen", [False, True])
+def test_zero_sweeps_give_the_sorted_diagonal(gen):
+    """sweeps = 0: no rotation, w the sorted diagonal of herm(a) (of the
+    whitened a with b) and V = I in that order (L^{-H} in that order with
+    b); every matrix counts 0 sweeps."""
+    a, rng = _cases(6, 70 + gen)
+    at = torch.from_numpy(a)
+    bt = torch.from_numpy(_hermitian(rng, 12, 6, 9)) if gen else None
+    w, v = es.hermitian_eigh_plain(at, bt, sweeps=0)
+    assert int(es.eigh_sweeps_needed(at, bt, sweeps=0).max()) == 0
+    if gen:
+        # V = L^{-H} in the order of C's diagonal: v^H B v = I (up to the
+        # loading) and the diagonal of v^H A v is w, ascending
+        vh = v.conj().transpose(-1, -2)
+        eye = torch.eye(6, dtype=torch.complex64)
+        assert float((vh @ bt @ v - eye).abs().max()) < 1e-4
+        got = (vh @ at @ v).diagonal(0, -2, -1).real
+        assert float(((got - w).abs().amax(-1) /
+                      w.abs().amax(-1).clamp(min=1e-30)).max()) < TOL
+        assert bool((w[:, 1:] >= w[:, :-1]).all())
+        return
+    diag = np.diagonal(a, 0, -2, -1).real
+    order = np.argsort(diag, axis=-1, kind="stable")
+    assert np.array_equal(w.numpy(), np.take_along_axis(diag, order, -1))
+    eye = np.eye(6, dtype=np.complex64)
+    assert all(np.array_equal(v.numpy()[k], eye[:, order[k]])
+               for k in range(12))
+
+
+def test_hermitian_eigh_refuses_an_unknown_form():
+    a = torch.zeros((2, 3, 3), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="form"):
+        es.hermitian_eigh(a, form="warp")
+    assert es.hermitian_eigh(a, form="lanes")[0].shape == (2, 3)
+
+
 @pytest.fixture
 def card(monkeypatch):
     """ops.linalg as on a card, tensors on the CPU: every EVD goes through

@@ -361,6 +361,43 @@ def test_hermitian_eigh_matches_plain(m, gen):
         assert torch.equal(v[-1].cpu(), torch.eye(m, dtype=torch.complex64))
 
 
+@pytest.mark.parametrize("form", ["thread", "lanes"])
+@pytest.mark.parametrize("gen", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 6, 8])
+def test_hermitian_eigh_forms_match_plain(m, gen, form):
+    """Each form of the EVD kernel forced, at 301 matrices (a partial
+    last block and lane group), against the plain version: eigenvalues
+    within TOL of each matrix's peak, principal vectors within 1e-5 in
+    direction where the top eigenvalue stands 1e-2 of the peak from the
+    next; sweeps = 0 gives V = I and the sorted diagonal.  A form not
+    built at M (a thread at M = 8, lanes at M = 1) is refused."""
+    dev = _card()
+    a, b = _eigh_inputs(301, m, 2 * m + gen, dev)
+    b = b if gen else None
+    if form not in es.eigh_forms(m):
+        with pytest.raises(ValueError):
+            es.hermitian_eigh(a, b, form=form)
+        return
+    w, v = es.hermitian_eigh(a, b, form=form)
+    w_p, v_p = es.hermitian_eigh_plain(a, b)
+    peak = w_p.abs().amax(-1).clamp(min=1e-30)
+    assert float(((w - w_p).abs().amax(-1) / peak).max()) < TOL
+    cos = (v[..., -1].conj() * v_p[..., -1]).sum(-1).abs() / (
+        torch.linalg.vector_norm(v[..., -1], dim=-1) *
+        torch.linalg.vector_norm(v_p[..., -1], dim=-1))
+    apart = (w_p[:, -1] - w_p[:, -2] > 1e-2 * peak) if m > 1 else \
+        torch.ones_like(peak, dtype=torch.bool)
+    apart[-1] = False
+    assert float((1 - cos[apart]).max()) < 1e-5
+    if not gen:
+        w0, v0 = es.hermitian_eigh(a, sweeps=0, form=form)
+        diag, order = torch.sort(a.diagonal(0, -2, -1).real, stable=True)
+        eye = torch.eye(m, dtype=torch.complex64, device=dev).expand_as(a)
+        assert torch.equal(w0, diag)
+        assert torch.equal(v0, eye.gather(
+            -1, order[:, None, :].expand(-1, m, -1)))
+
+
 def test_hermitian_eigh_takes_a_batch_in_one_launch():
     """32,896 matrices (128 utterances x 257 bins) in one launch."""
     dev = _card()
