@@ -89,7 +89,10 @@ the CUDA toolkit.  In order it:
      bucket, a frame mask): the masked covariance (kernel 13) on the
      scan's K=2 weights and the Jacobi inverse (kernel 14) on those
      covariances against their plain versions (1e-4 of the peak, of each
-     matrix's peak for kernel 14); the fused EM (kernel 15) against its
+     matrix's peak for kernel 14, in the launcher's form and each form
+     forced, with the sweeps the matrices take and the worst matrices'
+     sweeps and smallest scaled eigenvalue); the fused EM (kernel 15)
+     against its
      plain version at 4 iterations for cgmm with the Higuchi init,
      cacgmm from one generator-drawn gamma, cacgmm with the Higuchi init,
      K=3 cacgmm at B=16, cgmm at WPD's shape (B = 32, the first 251
@@ -210,7 +213,9 @@ the CUDA toolkit.  In order it:
      with CUDA events (warm-up, then 20 calls; fewer for the slow plain
      versions and the EM; kernel 15 also at WPD's shape, kernel 9 also at
      P2, kernel 14 also at the CGMM CLI resume's launch of one
-     utterance's 2 x 257 matrices, held to its plain version there),
+     utterance's 2 x 257 matrices, held to its plain version there in
+     each form, each form timed at both shapes, the bound from the sweeps
+     the matrices take),
      profiles the fused, P1, E and EM steps
      (torch.profiler: device time by kernel, the device's idle share)
      and prints the kernels line (kernels 16-19 timed at W's scene, with
@@ -450,7 +455,8 @@ def _ptxas_summary(log: str) -> dict:
         m = re.search(r"(mvdr_power|gevd_power|pmwf_solve|capon|stft_covar"
                       r"|covar_ema|beamform_istft_online|beamform_istft"
                       r"|istft_planar|stft_planar|pair_covar|masked_covar"
-                      r"|regularized_inverse|hermitian_eigh_lanes|hermitian_eigh"
+                      r"|regularized_inverse_lanes|regularized_inverse"
+                      r"|hermitian_eigh_lanes|hermitian_eigh"
                       r"|hermitian_solve"
                       r"|gram_solve"
                       r"|wpe_gram|wpe_apply|em_warp|warp_jacobi)"
@@ -791,6 +797,40 @@ def _flops_jacobi(m, sweeps):
     rot = 25 + 3 * m * 20
     return (sweeps * m * (m - 1) // 2 * rot + m * (m + 1) // 2 * m * 8 +
             4 * m)
+
+
+def _flops_inverse(m, sweeps_taken, n):
+    """Kernel 14 on n matrices that take ``sweeps_taken`` sweeps in all
+    (a loop that ends early: the sweeps this data needs): the rotations as
+    _flops_jacobi counts them, then each matrix's floored inverse and
+    logdet."""
+    return (sweeps_taken * m * (m - 1) // 2 * (25 + 3 * m * 20) +
+            n * _flops_jacobi(m, 0))
+
+
+def _inverse_check(torch, es, a, forms):
+    """Kernel 14 on ``a`` in each of ``forms`` (None: the launcher's pick)
+    against its plain version: {form: (largest error over each matrix's
+    peak, largest absolute error of inv and logdet)}, the sweeps each
+    matrix takes, and the five worst matrices (by the pick's error) with
+    their sweeps and smallest eigenvalue over the largest."""
+    inv_p, ld_p = es.regularized_inverse_plain(a)
+    peak = inv_p.abs().amax(dim=(-1, -2))
+    taken = es.inverse_sweeps_needed(a)
+    out, worst = {}, None
+    for form in forms:
+        inv, ld = es.regularized_inverse(a, form=form)
+        per = (inv - inv_p).abs().amax(dim=(-1, -2)) / peak
+        out[form or "pick"] = (float(per.max()),
+                               max(_abs(inv, inv_p), _abs(ld, ld_p)))
+        if form is None:
+            worst = torch.topk(per.reshape(-1), 5).indices
+    flat = a.reshape(-1, *a.shape[-2:])
+    w = torch.linalg.eigvalsh(flat[worst].cpu().to(torch.complex128))
+    rows = [{"matrix": int(i), "sweeps": int(taken.reshape(-1)[i]),
+             "min_scaled_eig": float(wi[0] / wi[-1].clamp(min=1e-300))}
+            for i, wi in zip(worst.tolist(), w)]
+    return out, taken, rows
 
 
 def _flops_em(bins, m, t, k, iters, sweeps):
@@ -2413,6 +2453,11 @@ def main() -> int:
             f"istft_planar<{lg},{bf}>" for lg in (8, 9, 10, 11)
             for bf in (0, 1))}}))
 
+    # kernel 14 at every M, a thread and a lane group a matrix
+    print(json.dumps({"ptxas_regularized_inverse": {
+        key: ptxas.get(key, "not built now") for key in (
+            f"regularized_inverse{form}<{m}>" for form in ("", "_lanes")
+            for m in range(1, 9))}}))
     # the EVD kernel at every M, plain (0) and generalized (1), a thread
     # and a lane group a matrix
     print(json.dumps({"ptxas_hermitian_eigh": {
@@ -2902,18 +2947,27 @@ def main() -> int:
     num_p = mc.masked_covar_plain(cobs, w13)
     den13 = torch.clamp((g4 * cfm).sum(-1), min=1.1920929e-07)
     cov13 = (num_p / den13[..., None, None]).contiguous()
+    # kernel 14 in the launcher's form and each form forced
+    inv_forms = (None,) + es.inverse_forms(N)
+    c14, taken13, worst13 = _inverse_check(torch, es, cov13, inv_forms)
     inv_k, ld_k = es.regularized_inverse(cov13)
-    inv_p, ld_p = es.jacobi_regularized_inverse_plain(cov13)
-    peak14 = inv_p.abs().amax(dim=(-1, -2))
     cl_errs = {"masked_covar": _rel(num_k, num_p),
-               "regularized_inverse": float(((inv_k - inv_p).abs().amax(
-                   dim=(-1, -2)) / peak14).max()),
-               "regularized_inverse_logdet": _abs(ld_k, ld_p)}
+               "regularized_inverse": max(e for e, _ in c14.values()),
+               "regularized_inverse_by_form": {k: e for k, (e, _) in
+                                               c14.items()}}
     cl_abs = {"masked_covar": _abs(num_k, num_p),
-              "regularized_inverse": max(_abs(inv_k, inv_p),
-                                         _abs(ld_k, ld_p))}
+              "regularized_inverse": max(a for _, a in c14.values())}
     print(json.dumps({"C1_kernel_vs_plain": cl_errs, "T": t_frames,
-                      "bucket": bucket, "tol": TOL}))
+                      "bucket": bucket, "tol": TOL,
+                      "C1_inverse_form": es.inverse_form(
+                          cov13.numel() // (N * N), N),
+                      "C1_inverse_sweeps": {
+                          "mean": float(taken13.float().mean()),
+                          "max": int(taken13.max()),
+                          "histogram": torch.bincount(
+                              taken13.reshape(-1),
+                              minlength=es.SWEEPS + 1).tolist()},
+                      "C1_inverse_worst": worst13}))
     for name in ("masked_covar", "regularized_inverse"):
         if not cl_errs[name] <= TOL:
             raise AssertionError(f"C1 {name}: kernel vs plain "
@@ -3296,9 +3350,9 @@ def main() -> int:
                 _flops_masked_covar(B * f_bins, N, bucket, 2))),
         ("regularized_inverse", "setk_tpu/ops/pallas/eigh_small.py:183",
          lambda: es.regularized_inverse(cov13),
-         lambda: es.jacobi_regularized_inverse_plain(cov13),
+         lambda: es.regularized_inverse_plain(cov13),
          _bound(cov13.nbytes + inv_k.nbytes + ld_k.nbytes,
-                n_mat * _flops_jacobi(N, CL_SWEEPS))),
+                _flops_inverse(N, float(taken13.sum()), n_mat))),
         ("em", "setk_tpu/ops/pallas/cacgmm_em.py:301", em_run, em_plain_run,
          _bound(cobs.nbytes + cfm.nbytes + em_out[0].nbytes +
                 em_out[1].nbytes,
@@ -3337,19 +3391,33 @@ def main() -> int:
     # kernel 14 at the CGMM CLI resume's launch (one utterance's K = 2 x
     # 257 matrices, as C3 launches it 36 times)
     res14 = cov13[:, 0].contiguous()
-    inv_r, _ = es.regularized_inverse(res14)
-    inv_rp, _ = es.jacobi_regularized_inverse_plain(res14)
-    res14_err = float(((inv_r - inv_rp).abs().amax(dim=(-1, -2)) /
-                       inv_rp.abs().amax(dim=(-1, -2))).max())
+    r14, taken_r, worst_r = _inverse_check(torch, es, res14, inv_forms)
+    res14_err = max(e for e, _ in r14.values())
+    print(json.dumps({"C1_inverse_resume_514": {
+        "max_rel_err_by_form": {k: e for k, (e, _) in r14.items()},
+        "form": es.inverse_form(res14.numel() // (N * N), N),
+        "sweeps_mean": float(taken_r.float().mean()),
+        "sweeps_max": int(taken_r.max()), "worst": worst_r}, "tol": TOL}))
     if not res14_err <= TOL:
         raise AssertionError(f"kernel 14 at the resume's shape: {res14_err} "
                              f"> {TOL}")
+    # each form's time at both shapes, and the bound at the resume's
+    inv_ms = {}
+    for label, mats in (("C1_65792", cov13), ("resume_514", res14)):
+        for form in inv_forms:
+            inv_ms[f"{label},{form or 'pick'}"] = _graph_ms(
+                torch, lambda: es.regularized_inverse(mats, form=form))
+    print(json.dumps({"C1_inverse_ms": inv_ms}))
     row_extra = {"regularized_inverse": {
-        "resume_514_ms": _graph_ms(torch, lambda: es.regularized_inverse(
-            res14)),
+        "resume_514_ms": inv_ms["resume_514,pick"],
         "resume_514_eager_ms": _time_ms(torch, lambda: es.regularized_inverse(
             res14)),
-        "resume_514_max_rel_err": res14_err},
+        "resume_514_max_rel_err": res14_err,
+        "resume_514_bound_ms": _bound(
+            2 * res14.nbytes + res14.numel() // (N * N) * 4,
+            _flops_inverse(N, float(taken_r.sum()),
+                           res14.numel() // (N * N)))[0],
+        "forms_ms": inv_ms, "sweeps_mean": float(taken13.float().mean())},
         "stft_planar": {"P2_S128100_ms": _graph_ms(
             torch, lambda: pl.stft_planar(wav2_d, window, True))},
         "istft_planar": {"main_path": "none: the planar path launches "

@@ -1,31 +1,44 @@
 // Kernel 14 (sm_90a): the eigenvalue-floored inverse of batched small
-// Hermitian matrices by cyclic complex Jacobi, one matrix a thread; and
-// beside it the batched Hermitian EVD by round-robin Jacobi
-// (hermitian_eigh_kernel and hermitian_eigh_lanes_kernel, below), which
-// replaces no TPU kernel.
+// Hermitian matrices; and the batched Hermitian EVD (hermitian_eigh_kernel
+// and hermitian_eigh_lanes_kernel, below), which replaces no TPU kernel.
+// Both run the same round-robin Jacobi sweeps with a stop, in the same two
+// forms (a thread a matrix, a lane group a matrix); they differ in the
+// ending.
 //
-// Replaces setk_tpu/ops/pallas/eigh_small.py _jacobi_flat (:183, body
-// _jacobi_kernel :170) via regularized_inverse_pallas (:207), the
-// regularized inverse of the clustering EM's scan and of its non-Higuchi
-// inits (ops/linalg.regularized_inverse).  a (n, M, M) complex64 ->
-// inv (n, M, M) complex64 and logdet (n) f32, M <= 8, `sweeps` sweeps.
-// The arithmetic is jacobi.cuh's, shared with kernel 15.
+// Kernel 14 replaces setk_tpu/ops/pallas/eigh_small.py _jacobi_flat
+// (:183, body _jacobi_kernel :170) via regularized_inverse_pallas (:207),
+// the regularized inverse of the clustering EM's scan and of its
+// non-Higuchi inits (ops/linalg.regularized_inverse).  a (n, M, M)
+// complex64, hermitianized on load -> inv (n, M, M) complex64 and logdet
+// (n) f32, M <= 8: at most `sweeps` round-robin sweeps (the EVD's, below;
+// the TPU's six cyclic sweeps are the cap), then w = diag(A) scaled by
+// max(max w, EPS) and floored at EPS, logdet = sum log w, inv = V diag(1 /
+// w) V^H, its upper triangle mirrored (jacobi.cuh's ending, the TPU
+// kernel's).  The plain version is ops/cuda/eigh_small.py
+// regularized_inverse_plain.
+// - regularized_inverse_kernel: a thread a matrix, the thread form's
+//   sweeps, then the ending in registers, each entry summed over y = 0..M-1
+//   in order.  For large batches at M = 5-7, and at M <= 3.
+// - regularized_inverse_lanes_kernel: a lane group a matrix, a lane a pair
+//   (the lane form's sweeps and hand-over); every lane gets the true
+//   columns' eigenvalues by shuffles (the bye's column and idle lanes hold
+//   zeros and never enter the maximum, the floor or the logdet), adds its
+//   two columns' terms v v^H / w into the upper triangle and writes it to
+//   shared memory; lane l sums the group's G triangles at entries l, l +
+//   G, ... of the row-major matrix and stores them, so a group's stores
+//   are G adjacent entries an instruction.  Measured against a sum by xor
+//   shuffles (2 steps of 42 floats at M = 6): 4-12 % faster at the
+//   resume's 514 matrices (PERF.md).  For the per-utterance
+//   resume's 514 matrices, where a
+//   thread a matrix leaves the card idle and the launch lasts one
+//   thread's chain; at M = 4 and 8 for every batch.
+// regularized_inverse_pick chooses by n and M (kInverseLanesUpTo).
 //
-// Bound on the card: operations.  At K = 2 classes of B = 128 utterances x
-// 257 bins (65,792 matrices of 6 x 6) six sweeps are about 36 kFLOP a
-// matrix, ~2.35 GFLOP in all (~0.035 ms at 67 TFLOP/s f32), against 38 MB
-// read and written (~0.01 ms).  One thread keeps its matrix, the rotation
-// state and the eigenvectors in registers (4 M^2 floats, 144 at M = 6), so
-// the sweeps never touch memory; the TPU's entry-major (8, 128) planes have
-// no counterpart.  Loads and stores are strided by M^2 complex values
-// between threads, a few percent of the time at these sizes.  The CGMM
-// CLI's per-utterance resume launches it on 2 x 257 = 514 matrices, where
-// the launch lasts one thread's chain of 90 rotations.  Lane groups
-// (jacobi_regularized_inverse_group, kernel 15's body) measured slower on
-// the H100 at both counts, since the rotation's angle is a serial chain
-// that a group does not shorten, and staging each warp's matrices through
-// shared memory gained no more than the spread between runs on the EM's
-// covariances (PERF.md).
+// Bound on the card: operations, from the sweeps the matrices take
+// (ops/cuda/eigh_small.inverse_sweeps_needed): a rotation ~385 FLOP at M =
+// 6 (chip_smoke.py _flops_jacobi), 15 a sweep, then the inverse (8 FLOP a
+// term, M^2 (M + 1) / 2 terms) and the logdet; against 2 x 288 bytes a
+// matrix at M = 6.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -36,35 +49,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-regularized_inverse_kernel(const float2* __restrict__ a,
-                           float2* __restrict__ inv,
-                           float* __restrict__ logdet, int n, int sweeps) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= n) return;
-  const float2* src = a + (size_t)idx * M * M;
-  float ar[M][M], ai[M][M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const float2 v = src[i * M + j];
-      ar[i][j] = v.x;
-      ai[i][j] = v.y;
-    }
-  }
-  float ir[M][M], ii[M][M], ld;
-  setk::jacobi_regularized_inverse<M>(ar, ai, sweeps, ir, ii, ld);
-  float2* dst = inv + (size_t)idx * M * M;
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) dst[i * M + j] = make_float2(ir[i][j], ii[i][j]);
-  }
-  if (logdet != nullptr) logdet[idx] = ld;
-}
 
 // L of herm(B) + (eps_rel * mean(diag) + EPS) I, left-looking: pivot
 // d_j = B[j][j] + load - sum_q |L[j][q]|^2, dinv[j] = 1 / sqrtf(d_j),
@@ -126,8 +110,9 @@ __device__ __forceinline__ void loaded_cholesky(const float2* src,
 // 32,768 matrices in one call on the H100 (PERF.md), and a batch of 128
 // utterances has 32,896 bins.  The rotation order, the angle's formulas
 // and the sweep count are this kernel's own, held to the
-// eigendecomposition's bars (kernels 14 and 15 keep jacobi.cuh's cyclic
-// statements, which follow the TPU kernel's).
+// eigendecomposition's bars (kernel 15 keeps jacobi.cuh's cyclic
+// statements, which follow the TPU kernel's; kernel 14 runs these
+// sweeps).
 //
 // GEN false: a (n, M, M) complex64, hermitianized on load, then at most
 // `sweeps` round-robin Jacobi sweeps, then w (n, M) f32 ascending and V
@@ -414,24 +399,18 @@ __device__ __forceinline__ int eigh_rank(const float (&key)[M], int i,
   return rank;
 }
 
-// One matrix a thread.  Threads past n take a zero matrix, converged at
-// once, and vote with the rest of their warp.
-template <int M, bool GEN>
-__global__ void __launch_bounds__(kThreads)
-hermitian_eigh_kernel(const float2* __restrict__ a,
-                      const float2* __restrict__ b,
-                      float* __restrict__ w_out,
-                      float2* __restrict__ v_out, int n, int sweeps,
-                      float eps_rel) {
+// V = I, then at most `sweeps` round-robin sweeps on one thread's matrix
+// (the thread form of the EVD and of kernel 14).  Threads past n hold a
+// zero matrix, converged at once, and vote with the rest of their warp.
+template <int M>
+__device__ __forceinline__ void thread_sweeps(float (&a_re)[M][M],
+                                              float (&a_im)[M][M],
+                                              float (&v_re)[M][M],
+                                              float (&v_im)[M][M],
+                                              float tol2, int sweeps,
+                                              EighClock& clk) {
   using RR = RoundRobin<M>;
   constexpr int P = RR::kPlayers;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = idx < n;
-  EighClock clk;
-  float a_re[M][M], a_im[M][M];
-  eigh_load<M, GEN>(a, b, idx, active, eps_rel, a_re, a_im);
-  const float tol2 = eigh_tolerance<M>(a_re, a_im);
-  float v_re[M][M], v_im[M][M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
 #pragma unroll
@@ -490,6 +469,24 @@ hermitian_eigh_kernel(const float2* __restrict__ a,
       clk.mark(kPhaseUpdates);
     }
   }
+}
+
+// One matrix a thread.
+template <int M, bool GEN>
+__global__ void __launch_bounds__(kThreads)
+hermitian_eigh_kernel(const float2* __restrict__ a,
+                      const float2* __restrict__ b,
+                      float* __restrict__ w_out,
+                      float2* __restrict__ v_out, int n, int sweeps,
+                      float eps_rel) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = idx < n;
+  EighClock clk;
+  float a_re[M][M], a_im[M][M];
+  eigh_load<M, GEN>(a, b, idx, active, eps_rel, a_re, a_im);
+  const float tol2 = eigh_tolerance<M>(a_re, a_im);
+  float v_re[M][M], v_im[M][M];
+  thread_sweeps<M>(a_re, a_im, v_re, v_im, tol2, sweeps, clk);
   if (active) {
     if constexpr (GEN) {
       // the factor again, then V = L^{-H} U column by column, in place
@@ -569,41 +566,23 @@ __device__ __forceinline__ float entry_at(const float (&col)[M], int k) {
 // loads (and, GEN, whitens) the whole matrix and keeps its two columns.
 // Every lane of the warp meets every shuffle and vote: a group past n
 // holds a zero matrix, converged at once.
-template <int M, bool GEN>
-__global__ void __launch_bounds__(kThreads)
-hermitian_eigh_lanes_kernel(const float2* __restrict__ a,
-                            const float2* __restrict__ b,
-                            float* __restrict__ w_out,
-                            float2* __restrict__ v_out, int n, int sweeps,
-                            float eps_rel) {
+//
+// At most `sweeps` round-robin sweeps of the lane form (the lane form of
+// the EVD and of kernel 14): each round a lane computes its pair's angle,
+// turns its two columns of A (tr, ti, br, bi) and V (vtr, vti, vbr, vbi),
+// turns the round's rows of them with the others' angles (__shfl_sync),
+// and hands its columns to the next round's owners.  The EVD keeps its
+// columns in separate arrays: a struct holding them cost its lane form 2
+// registers and 5-10 % (PERF.md).
+template <int M>
+__device__ __forceinline__ void lane_sweeps(
+    float (&tr)[M], float (&ti)[M], float (&br)[M], float (&bi)[M],
+    float (&vtr)[M], float (&vti)[M], float (&vbr)[M], float (&vbi)[M],
+    int l, int base, bool own, int ct, int cb, float tol2, int sweeps,
+    EighClock& clk) {
   using RR = RoundRobin<M>;
-  constexpr int P = RR::kPlayers, H = RR::kSlots, G = RR::kLanes;
+  constexpr int P = RR::kPlayers, H = RR::kSlots;
   constexpr unsigned all = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int l = lane & (G - 1);
-  const int base = lane - l;
-  const int idx = (blockIdx.x * blockDim.x + threadIdx.x) / G;
-  const bool active = idx < n;
-  const bool own = l < H;
-  // this lane's columns at a sweep's start (M: none, or the bye)
-  const int ct = own ? l : M, cb = own ? P - 1 - l : M;
-  EighClock clk;
-  float tr[M], ti[M], br[M], bi[M];   // A's columns
-  float tol2;
-  {
-    float a_re[M][M], a_im[M][M];
-    eigh_load<M, GEN>(a, b, idx, active, eps_rel, a_re, a_im);
-    tol2 = eigh_tolerance<M>(a_re, a_im);
-    take_column<M>(a_re, a_im, ct, tr, ti);
-    take_column<M>(a_re, a_im, cb, br, bi);
-  }
-  float vtr[M], vti[M], vbr[M], vbi[M];   // V's columns
-#pragma unroll
-  for (int k = 0; k < M; ++k) {
-    vtr[k] = k == ct ? 1.0f : 0.0f;
-    vbr[k] = k == cb ? 1.0f : 0.0f;
-    vti[k] = vbi[k] = 0.0f;
-  }
   clk.mark(kPhaseLoad);
   // the votes of the group's H lanes that hold a pair (at M = 5 and 6 a
   // group of 4 has 3)
@@ -680,6 +659,45 @@ hermitian_eigh_lanes_kernel(const float2* __restrict__ a,
       clk.mark(kPhaseHandover);
     }
   }
+}
+
+template <int M, bool GEN>
+__global__ void __launch_bounds__(kThreads)
+hermitian_eigh_lanes_kernel(const float2* __restrict__ a,
+                            const float2* __restrict__ b,
+                            float* __restrict__ w_out,
+                            float2* __restrict__ v_out, int n, int sweeps,
+                            float eps_rel) {
+  using RR = RoundRobin<M>;
+  constexpr int P = RR::kPlayers, H = RR::kSlots, G = RR::kLanes;
+  constexpr unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (G - 1);
+  const int base = lane - l;
+  const int idx = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const bool active = idx < n;
+  const bool own = l < H;
+  // this lane's columns at a sweep's start (M: none, or the bye)
+  const int ct = own ? l : M, cb = own ? P - 1 - l : M;
+  EighClock clk;
+  float tr[M], ti[M], br[M], bi[M];   // A's columns
+  float tol2;
+  {
+    float a_re[M][M], a_im[M][M];
+    eigh_load<M, GEN>(a, b, idx, active, eps_rel, a_re, a_im);
+    tol2 = eigh_tolerance<M>(a_re, a_im);
+    take_column<M>(a_re, a_im, ct, tr, ti);
+    take_column<M>(a_re, a_im, cb, br, bi);
+  }
+  float vtr[M], vti[M], vbr[M], vbi[M];   // V's columns
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    vtr[k] = k == ct ? 1.0f : 0.0f;
+    vbr[k] = k == cb ? 1.0f : 0.0f;
+    vti[k] = vbi[k] = 0.0f;
+  }
+  lane_sweeps<M>(tr, ti, br, bi, vtr, vti, vbr, vbi, l, base, own, ct, cb,
+                 tol2, sweeps, clk);
   // the diagonal: column ct's entry ct, cb's entry cb; V = L^{-H} U
   const float dt = entry_at<M>(tr, ct), db = entry_at<M>(br, cb);
   if constexpr (GEN) {
@@ -718,32 +736,178 @@ hermitian_eigh_lanes_kernel(const float2* __restrict__ a,
   clk.flush(active && own);
 }
 
-}  // namespace
+// ---- kernel 14: the floored inverse on the same sweeps ----
 
-// a, inv: (n, m, m) complex64; logdet: (n) f32 or null.  1 <= m <= 8,
-// sweeps >= 0.
-extern "C" int regularized_inverse_launch(const void* a, void* inv,
-                                          void* logdet, int n, int m,
-                                          int sweeps, void* stream) {
-  if (n < 1 || m < 1 || m > 8 || sweeps < 0) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto src = static_cast<const float2*>(a);
-  auto dst = static_cast<float2*>(inv);
-  auto ld = static_cast<float*>(logdet);
-  const int grid = (n + kThreads - 1) / kThreads;
-  switch (m) {
-#define CASE(mm)                                                          \
-  case mm:                                                                \
-    regularized_inverse_kernel<mm><<<grid, kThreads, 0, st>>>(src, dst,  \
-                                                              ld, n,     \
-                                                              sweeps);   \
-    break;
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-#undef CASE
-    default: return cudaErrorInvalidValue;
+// w / max(max w, EPS) floored at EPS, over the true columns' eigenvalues
+// in index order: winv = 1 / w, returns logdet = sum log w (jacobi.cuh's
+// statements, IEEE division and logf)
+template <int M>
+__device__ __forceinline__ float floored_spectrum(const float (&w)[M],
+                                                  float (&winv)[M]) {
+  float wmax = w[0];
+#pragma unroll
+  for (int i = 1; i < M; ++i) wmax = fmaxf(wmax, w[i]);
+  wmax = fmaxf(wmax, setk::kEps);
+  float ld = 0.0f;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const float wi = fmaxf(w[i] / wmax, setk::kEps);
+    ld += logf(wi);
+    winv[i] = 1.0f / wi;
   }
-  return cudaGetLastError();
+  return ld;
 }
+
+// entry (i, j) of the upper triangle (j >= i) in a packed row-major array
+__host__ __device__ constexpr int upper_at(int m, int i, int j) {
+  return i * m - i * (i - 1) / 2 + (j - i);
+}
+
+// One matrix a thread: inv[i][j] = sum_y V[i][y] winv[y] conj(V[j][y])
+// over y = 0..M-1 in order, stored with its mirror conj at (j, i).
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+regularized_inverse_kernel(const float2* __restrict__ a,
+                           float2* __restrict__ inv,
+                           float* __restrict__ logdet, int n, int sweeps) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = idx < n;
+  EighClock clk;
+  float a_re[M][M], a_im[M][M];
+  eigh_load<M, false>(a, nullptr, idx, active, 0.0f, a_re, a_im);
+  const float tol2 = eigh_tolerance<M>(a_re, a_im);
+  float v_re[M][M], v_im[M][M];
+  thread_sweeps<M>(a_re, a_im, v_re, v_im, tol2, sweeps, clk);
+  if (active) {
+    float w[M], winv[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) w[i] = a_re[i][i];
+    const float ld = floored_spectrum<M>(w, winv);
+    float2* dst = inv + (size_t)idx * M * M;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int j = i; j < M; ++j) {
+        float acc_re = 0.0f, acc_im = 0.0f;
+#pragma unroll
+        for (int y = 0; y < M; ++y) {
+          const float p_re = v_re[i][y] * v_re[j][y] + v_im[i][y] * v_im[j][y];
+          const float p_im = v_im[i][y] * v_re[j][y] - v_re[i][y] * v_im[j][y];
+          acc_re += p_re * winv[y];
+          acc_im += p_im * winv[y];
+        }
+        dst[i * M + j] = make_float2(acc_re, acc_im);
+        if (j != i) dst[j * M + i] = make_float2(acc_re, -acc_im);
+      }
+    }
+    if (logdet != nullptr) logdet[idx] = ld;
+  }
+  clk.mark(kPhaseStore);
+  clk.flush(active);
+}
+
+// A lane group a matrix, a lane a pair (the lane form's sweeps).  Every
+// lane takes the true columns' eigenvalues from their lanes, so the bye's
+// column and idle lanes (zeros) enter neither the maximum nor the floor nor
+// the logdet; adds its own columns' terms V[i][y] winv[y] conj(V[j][y]) into
+// the packed upper triangle (a lane without a column adds zeros) and
+// writes it to shared memory; lane l sums the group's G triangles (in lane
+// order) at entries l, l + G, ... of the row-major matrix and stores them.
+// Every lane of the warp meets the __syncwarp.
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+regularized_inverse_lanes_kernel(const float2* __restrict__ a,
+                                 float2* __restrict__ inv,
+                                 float* __restrict__ logdet, int n,
+                                 int sweeps) {
+  using RR = RoundRobin<M>;
+  constexpr int P = RR::kPlayers, H = RR::kSlots, G = RR::kLanes;
+  constexpr int T = M * (M + 1) / 2;
+  constexpr unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int l = lane & (G - 1);
+  const int base = lane - l;
+  const int idx = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const bool active = idx < n;
+  const bool own = l < H;
+  const int ct = own ? l : M, cb = own ? P - 1 - l : M;
+  EighClock clk;
+  // the lane's columns of A and V in one local struct: so built, the
+  // kernel takes 96 registers and ~0.015 ms at the resume's 514 matrices
+  // (M = 6), against 80 and ~0.0185 with eight separate arrays (PERF.md)
+  struct {
+    float tr[M], ti[M], br[M], bi[M], vtr[M], vti[M], vbr[M], vbi[M];
+  } c;
+  float tol2;
+  {
+    float a_re[M][M], a_im[M][M];
+    eigh_load<M, false>(a, nullptr, idx, active, 0.0f, a_re, a_im);
+    tol2 = eigh_tolerance<M>(a_re, a_im);
+    take_column<M>(a_re, a_im, ct, c.tr, c.ti);
+    take_column<M>(a_re, a_im, cb, c.br, c.bi);
+  }
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    c.vtr[k] = k == ct ? 1.0f : 0.0f;
+    c.vbr[k] = k == cb ? 1.0f : 0.0f;
+    c.vti[k] = c.vbi[k] = 0.0f;
+  }
+  lane_sweeps<M>(c.tr, c.ti, c.br, c.bi, c.vtr, c.vti, c.vbr, c.vbi, l, base,
+                 own, ct, cb, tol2, sweeps, clk);
+  float (&tr)[M] = c.tr, (&br)[M] = c.br;
+  float (&vtr)[M] = c.vtr, (&vti)[M] = c.vti, (&vbr)[M] = c.vbr,
+        (&vbi)[M] = c.vbi;
+  const float dt = entry_at<M>(tr, ct), db = entry_at<M>(br, cb);
+  float w[M], winv[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+    w[j] = __shfl_sync(all, j < H ? dt : db, base + (j < H ? j : P - 1 - j));
+  const float ld = floored_spectrum<M>(w, winv);
+  // this lane's weights: 0 for no column or the bye
+  const float wt = entry_at<M>(winv, ct), wb = entry_at<M>(winv, cb);
+  float sr[T], si[T];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = i; j < M; ++j) {
+      const float t_re = vtr[i] * vtr[j] + vti[i] * vti[j];
+      const float t_im = vti[i] * vtr[j] - vtr[i] * vti[j];
+      const float b_re = vbr[i] * vbr[j] + vbi[i] * vbi[j];
+      const float b_im = vbi[i] * vbr[j] - vbr[i] * vbi[j];
+      sr[upper_at(M, i, j)] = t_re * wt + b_re * wb;
+      si[upper_at(M, i, j)] = t_im * wt + b_im * wb;
+    }
+  }
+  // the group's sum through shared memory: each lane's triangle, then
+  // lane l sums the group's G triangles at the entries it stores
+  __shared__ float part[kThreads][2 * T];
+#pragma unroll
+  for (int k = 0; k < T; ++k) {
+    part[threadIdx.x][k] = sr[k];
+    part[threadIdx.x][T + k] = si[k];
+  }
+  __syncwarp();
+  if (active) {
+    float2* dst = inv + (size_t)idx * M * M;
+    const int first = threadIdx.x - l;
+    for (int e = l; e < M * M; e += G) {
+      const int i = e / M, j = e % M;
+      const int k = j >= i ? upper_at(M, i, j) : upper_at(M, j, i);
+      float re = 0.0f, im = 0.0f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        re += part[first + g][k];
+        im += part[first + g][T + k];
+      }
+      dst[e] = make_float2(re, j >= i ? im : -im);
+    }
+    if (logdet != nullptr && l == 0) logdet[idx] = ld;
+  }
+  clk.mark(kPhaseStore);
+  clk.flush(active && own);
+}
+
+}  // namespace
 
 // The form hermitian_eigh_launch takes for n matrices of m x m: 1 (lane
 // groups) up to kLanesUpTo[m] matrices, else 0 (a thread a matrix).  On
@@ -764,14 +928,27 @@ extern "C" int hermitian_eigh_pick(int n, int m) {
   return m >= 1 && m <= 8 && n <= kLanesUpTo[m] ? 1 : 0;
 }
 
-// one form's launch: blocks of 128 threads, of 32 where that leaves fewer
-// blocks than the card has SMs
+// a launch's block: 128 threads, 32 where 128 leaves fewer blocks than
+// the card has SMs
+static int launch_block(long long threads, int sms) {
+  return (threads + kThreads - 1) / kThreads >= sms ? kThreads : 32;
+}
+
+// the card's SM count
+static int device_sms(int* sms) {
+  int dev = 0;
+  const int err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// one form's launch
 template <int M, bool LANES>
 void eigh_launch_form(const float2* a, const float2* b, float* w, float2* v,
                       int n, int sweeps, float eps_rel, int sms,
                       cudaStream_t st) {
   const long long threads = (long long)n * (LANES ? RoundRobin<M>::kLanes : 1);
-  const int block = (threads + kThreads - 1) / kThreads >= sms ? kThreads : 32;
+  const int block = launch_block(threads, sms);
   const int grid = (int)((threads + block - 1) / block);
   if constexpr (LANES) {
     if (b != nullptr)
@@ -821,10 +998,8 @@ extern "C" int hermitian_eigh_form_launch(const void* a, const void* b,
   if (n < 1 || m < 1 || m > 8 || sweeps < 0 || form < -1 || form > 1)
     return cudaErrorInvalidValue;
   if (form < 0) form = hermitian_eigh_pick(n, m);
-  int dev = 0, sms = 0;
-  int err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const int err = device_sms(&sms);
   if (err != cudaSuccess) return err;
   auto st = static_cast<cudaStream_t>(stream);
   auto src = static_cast<const float2*>(a);
@@ -848,6 +1023,78 @@ extern "C" int hermitian_eigh_launch(const void* a, const void* b, void* w,
                                      float eps_rel, void* stream) {
   return hermitian_eigh_form_launch(a, b, w, v, n, m, sweeps, eps_rel, -1,
                                     stream);
+}
+
+// The form regularized_inverse_launch takes for n matrices of m x m: 1
+// (lane groups) up to kInverseLanesUpTo[m] matrices, else 0 (a thread a
+// matrix), measured on the H100 for this kernel at 514, 4,112, 16,448 and
+// 65,792 matrices (PERF.md, tools/inverse_profile.py): a thread wins at M
+// = 3 at every count and at M = 2 up to 4,112 (past it lanes by <= 6 %; a
+// group there is one lane), lane groups at M = 4 and 8 at every count (at
+// 8 a thread's registers spill), and lane groups up to 4,112 at M = 5-7,
+// a thread from 16,448 (at M = 6 the two within 0.1 % there).  Each form
+// is built only at the M where the pick can take it.
+constexpr int kInverseLanesUpTo[9] = {0, 0, 0, 0, INT_MAX, 4112, 4112, 4112,
+                                      INT_MAX};
+
+constexpr bool inverse_built(int form, int m) {
+  return form ? kInverseLanesUpTo[m] > 0 : kInverseLanesUpTo[m] < INT_MAX;
+}
+
+extern "C" int regularized_inverse_pick(int n, int m) {
+  return m >= 1 && m <= 8 && n <= kInverseLanesUpTo[m] ? 1 : 0;
+}
+
+template <int M>
+int inverse_launch_m(int form, const float2* a, float2* inv, float* logdet,
+                     int n, int sweeps, int sms, cudaStream_t st) {
+  if constexpr (inverse_built(1, M)) {
+    if (form == 1) {
+      const long long threads = (long long)n * RoundRobin<M>::kLanes;
+      const int block = launch_block(threads, sms);
+      const int grid = (int)((threads + block - 1) / block);
+      regularized_inverse_lanes_kernel<M><<<grid, block, 0, st>>>(
+          a, inv, logdet, n, sweeps);
+      return cudaGetLastError();
+    }
+  }
+  if constexpr (inverse_built(0, M)) {
+    if (form == 0) {
+      const int block = launch_block(n, sms);
+      const int grid = (n + block - 1) / block;
+      regularized_inverse_kernel<M><<<grid, block, 0, st>>>(a, inv, logdet,
+                                                            n, sweeps);
+      return cudaGetLastError();
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// a, inv: (n, m, m) complex64; logdet: (n) f32 or null.  1 <= m <= 8,
+// sweeps >= 0 (a cap); form 0 a thread a matrix, 1 lane groups (each where
+// it is built, else refused), -1 regularized_inverse_pick's.
+extern "C" int regularized_inverse_launch(const void* a, void* inv,
+                                          void* logdet, int n, int m,
+                                          int sweeps, int form,
+                                          void* stream) {
+  if (n < 1 || m < 1 || m > 8 || sweeps < 0 || form < -1 || form > 1)
+    return cudaErrorInvalidValue;
+  if (form < 0) form = regularized_inverse_pick(n, m);
+  int sms = 0;
+  const int err = device_sms(&sms);
+  if (err != cudaSuccess) return err;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto src = static_cast<const float2*>(a);
+  auto dst = static_cast<float2*>(inv);
+  auto ld = static_cast<float*>(logdet);
+  switch (m) {
+#define CASE(mm)                                                         \
+  case mm:                                                               \
+    return inverse_launch_m<mm>(form, src, dst, ld, n, sweeps, sms, st);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 #ifdef SETK_EIGH_PHASES

@@ -11,7 +11,9 @@
 // The rotation phase defaults to 1 (not 0) where the off-diagonal is already
 // annihilated: with 0 the rotation goes singular and eigenvalues are lost.
 // jacobi_regularized_inverse holds the matrix in one thread's registers
-// (kernel 14, eigh_small.cu); jacobi_regularized_inverse_group spreads the
+// (the statements as the TPU kernel runs them, held by the emulator tests
+// against the group's; kernel 14 in eigh_small.cu runs the EVD's
+// round-robin sweeps instead); jacobi_regularized_inverse_group spreads the
 // same statements over a lane group of a warp, a few rows a lane in
 // registers (kernel 15, cacgmm_em.cu).  The plain PyTorch version is
 // setk_tpu_torch/ops/cuda/eigh_small.py jacobi_regularized_inverse_plain.

@@ -77,7 +77,8 @@ _SIGNATURES = {
         "masked_covar_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "eigh_small": {
-        "regularized_inverse_launch": [_P, _P, _P, _I, _I, _I, _P],
+        "regularized_inverse_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "regularized_inverse_pick": [_I, _I],
         "hermitian_eigh_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
         "hermitian_eigh_form_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _I,
                                        _P],

@@ -1,19 +1,23 @@
-"""Eigenvalue-floored inverse of small Hermitian matrices by cyclic
-complex Jacobi (kernel 14), and the batched Hermitian EVD on the same
-sweeps.
+"""Eigenvalue-floored inverse of small Hermitian matrices (kernel 14), and
+the batched Hermitian EVD, both by round-robin complex Jacobi with a stop.
 
 Counterpart of ``setk_tpu/ops/pallas/eigh_small.py``: ``_jacobi_flat``
 (:183) via ``regularized_inverse_pallas`` (:207); kernel source
-``setk_tpu_torch/csrc/eigh_small.cu`` over ``csrc/jacobi.cuh``, the
-Jacobi that kernel 15 shares:
+``setk_tpu_torch/csrc/eigh_small.cu``:
 
   regularized_inverse: a (..., M, M) complex64 -> (inv (..., M, M)
       complex64, logdet (...) f32): eigenvalues scaled by their maximum,
       floored at EPSILON and inverted, the logdet of the scaled spectrum.
+      ``regularized_inverse_kernel`` (a thread a matrix) and
+      ``regularized_inverse_lanes_kernel`` (a lane group a matrix), picked
+      by the matrix count and M; ``regularized_inverse_plain`` is their
+      plain version: the EVD's sweeps below (``sweeps`` = 6, the TPU's
+      count, a cap), then the TPU kernel's floored inverse.  M <= 8 on the
+      card.
 
-``jacobi_regularized_inverse_plain`` is the plain PyTorch version: the
-same cyclic sweeps and statements as ``jacobi_regularized_inverse``
-(eigh_small.py:40-167), vectorised over the matrices.  M <= 8 on the card.
+``jacobi_regularized_inverse_plain`` keeps the TPU kernel's own cyclic
+sweeps and statements (eigh_small.py:40-167, ``csrc/jacobi.cuh``), which
+kernel 15's Jacobi runs.
 
   hermitian_eigh: a (..., M, M) [, b (..., M, M)] complex64 -> (w (..., M)
       f32 ascending, V (..., M, M) complex64 in columns): the EVD of
@@ -36,11 +40,14 @@ from setk_tpu_torch.ops.cuda import _build
 from setk_tpu_torch.utils.common import EPSILON
 
 __all__ = ["MAX_DIM", "SWEEPS", "EIGH_SWEEPS", "regularized_inverse",
+           "regularized_inverse_plain", "inverse_sweeps_needed",
+           "inverse_form", "inverse_forms",
            "jacobi_regularized_inverse_plain", "hermitian_eigh",
            "hermitian_eigh_plain", "eigh_schedule", "eigh_sweeps_needed",
            "eigh_form", "eigh_forms"]
 
 MAX_DIM = 8
+# kernel 14's sweeps: the TPU kernel's _SWEEPS, a cap on the card
 SWEEPS = 6
 # the EVD's sweeps: setk_tpu/ops/jacobi.py jacobi_eigh's default
 EIGH_SWEEPS = 8
@@ -215,14 +222,14 @@ def _eigh_sweeps(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
     return v_re, v_im, taken
 
 
-def _jacobi_planes(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
-    """The Jacobi of eigh_small.py:40-167 on (n, M, M) f32 planes; returns
-    (inv_re, inv_im, logdet)."""
-    m = a_re.shape[-1]
-    a_re, a_im = _hermitianize_planes(a_re, a_im)
-    v_re, v_im = _jacobi_sweeps(a_re, a_im, sweeps)
-    # w /= max(max(w), EPS); w = max(w, EPS); inv = V diag(1/w) V^H
-    w = torch.diagonal(a_re, dim1=-2, dim2=-1)
+def _floored_inverse(w: torch.Tensor, v_re: torch.Tensor,
+                     v_im: torch.Tensor):
+    """The TPU kernel's ending on the eigenvalues w (n, M) and V planes:
+    w /= max(max(w), EPS); w = max(w, EPS); inv = V diag(1/w) V^H, each
+    entry summed over y = 0..M-1 in order, the upper triangle mirrored;
+    logdet = sum log w in index order.  Returns (inv_re, inv_im,
+    logdet)."""
+    m = w.shape[-1]
     wmax = w[:, 0]
     for i in range(1, m):
         wmax = torch.maximum(wmax, w[:, i])
@@ -233,8 +240,8 @@ def _jacobi_planes(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
         wi = torch.clamp(w[:, i] / wmax, min=EPSILON)
         logdet = logdet + torch.log(wi)
         winv.append(1.0 / wi)
-    inv_re = torch.empty_like(a_re)
-    inv_im = torch.empty_like(a_im)
+    inv_re = torch.empty_like(v_re)
+    inv_im = torch.empty_like(v_im)
     for i in range(m):
         for j in range(i, m):
             acc_re = torch.zeros_like(wmax)
@@ -252,9 +259,20 @@ def _jacobi_planes(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
     return inv_re, inv_im, logdet
 
 
+def _jacobi_planes(a_re: torch.Tensor, a_im: torch.Tensor, sweeps: int):
+    """The Jacobi of eigh_small.py:40-167 on (n, M, M) f32 planes; returns
+    (inv_re, inv_im, logdet)."""
+    a_re, a_im = _hermitianize_planes(a_re, a_im)
+    v_re, v_im = _jacobi_sweeps(a_re, a_im, sweeps)
+    return _floored_inverse(torch.diagonal(a_re, dim1=-2, dim2=-1), v_re,
+                            v_im)
+
+
 def jacobi_regularized_inverse_plain(covar: torch.Tensor,
                                      sweeps: int = SWEEPS):
-    """Plain version of kernel 14: (inv, logdet) of (..., M, M) complex."""
+    """The TPU kernel's cyclic Jacobi (eigh_small.py:40-167, jacobi.cuh's
+    statements, which kernel 15 runs): (inv, logdet) of (..., M, M)
+    complex."""
     lead, m = covar.shape[:-2], covar.shape[-1]
     flat = covar.reshape(-1, m, m)
     inv_re, inv_im, logdet = _jacobi_planes(
@@ -263,14 +281,52 @@ def jacobi_regularized_inverse_plain(covar: torch.Tensor,
     return inv.to(covar.dtype), logdet.reshape(lead)
 
 
-def regularized_inverse(covar: torch.Tensor, sweeps: int = SWEEPS):
+def _inverse_planes(covar: torch.Tensor, sweeps: int):
+    """Kernel 14's arithmetic on (..., M, M) ``covar``: (inv_re, inv_im,
+    logdet, sweeps each matrix took), flat over the leading axes."""
+    m = covar.shape[-1]
+    flat = covar.reshape(-1, m, m)
+    a_re, a_im = _hermitianize_planes(flat.real.to(torch.float32),
+                                      flat.imag.to(torch.float32))
+    v_re, v_im, taken = _eigh_sweeps(a_re, a_im, sweeps)
+    return (*_floored_inverse(torch.diagonal(a_re, dim1=-2, dim2=-1), v_re,
+                              v_im), taken)
+
+
+def regularized_inverse_plain(covar: torch.Tensor, sweeps: int = SWEEPS):
+    """Plain version of kernel 14: (inv, logdet) of (..., M, M) complex,
+    the EVD's round-robin sweeps (at most ``sweeps``, each matrix stopping
+    once it passes the EVD's test), then the floored inverse."""
+    lead, m = covar.shape[:-2], covar.shape[-1]
+    inv_re, inv_im, logdet, _ = _inverse_planes(covar, sweeps)
+    inv = torch.complex(inv_re, inv_im).reshape(*lead, m, m)
+    return inv.to(covar.dtype), logdet.reshape(lead)
+
+
+def inverse_sweeps_needed(covar: torch.Tensor, sweeps: int = SWEEPS):
+    """The sweeps kernel 14 takes on each matrix of ``covar``, (...)
+    int64, at most ``sweeps``: what its operation count is taken from."""
+    return _inverse_planes(covar, sweeps)[3].reshape(covar.shape[:-2])
+
+
+_FORMS = {None: -1, "thread": 0, "lanes": 1}
+
+
+def regularized_inverse(covar: torch.Tensor, sweeps: int = SWEEPS,
+                        form: str | None = None):
     """Kernel 14: (inv (..., M, M) complex64, logdet (...) f32).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (``regularized_inverse.launches`` counts those launches).
+    (``regularized_inverse.launches`` counts those launches), any batch in
+    one launch, in the form the launcher picks by the matrix count and M
+    (``form`` None), or a thread a matrix ("thread") or a lane group a
+    matrix ("lanes") where ``inverse_forms`` offers it.
     """
+    if form not in _FORMS:
+        raise ValueError(f"regularized_inverse: form {form!r} is not one of "
+                         f"{sorted(_FORMS, key=str)}")
     if covar.device.type == "cpu":
-        return jacobi_regularized_inverse_plain(covar, sweeps)
+        return regularized_inverse_plain(covar, sweeps)
     m = covar.shape[-1]
     if covar.dtype != torch.complex64 or covar.ndim < 2 or \
             covar.shape[-2] != m or covar.numel() == 0:
@@ -279,18 +335,39 @@ def regularized_inverse(covar: torch.Tensor, sweeps: int = SWEEPS):
                          f"{covar.dtype} {tuple(covar.shape)}")
     if m > MAX_DIM:
         raise ValueError(f"regularized_inverse: M = {m} > {MAX_DIM}")
+    if sweeps < 0:
+        raise ValueError(f"regularized_inverse: sweeps = {sweeps} < 0")
+    if form is not None and form not in inverse_forms(m):
+        raise ValueError(f"regularized_inverse: no {form!r} form at M = {m}")
     lead = covar.shape[:-2]
     src = covar.contiguous()
     inv = torch.empty_like(src)
     logdet = torch.empty(lead, dtype=torch.float32, device=covar.device)
     _build.launch("eigh_small", "regularized_inverse_launch", covar.device,
                   src.data_ptr(), inv.data_ptr(), logdet.data_ptr(),
-                  src.numel() // (m * m), m, sweeps)
+                  src.numel() // (m * m), m, sweeps, _FORMS[form])
     regularized_inverse.launches += 1
     return inv, logdet
 
 
 regularized_inverse.launches = 0
+
+# the M at which each form of kernel 14 is built: those at which its
+# launcher's pick (eigh_small.cu kInverseLanesUpTo) can take it
+_INVERSE_BUILT = {"thread": (1, 2, 3, 5, 6, 7), "lanes": (4, 5, 6, 7, 8)}
+
+
+def inverse_forms(m: int) -> tuple:
+    """The forms kernel 14 is built in at M: a thread a matrix at M <= 3
+    and 5-7, a lane group a matrix at M >= 4."""
+    return tuple(form for form, ms in _INVERSE_BUILT.items() if m in ms)
+
+
+def inverse_form(n: int, m: int) -> str:
+    """The form kernel 14's launcher takes for n matrices of M x M (builds
+    the kernel library)."""
+    pick = _build.library("eigh_small").regularized_inverse_pick(n, m)
+    return "lanes" if pick else "thread"
 
 
 def _loaded_cholesky_planes(b_re: torch.Tensor, b_im: torch.Tensor,
@@ -398,9 +475,6 @@ def eigh_sweeps_needed(a: torch.Tensor, b: torch.Tensor | None = None,
     int64, at most ``sweeps``: what its operation count (the bound of a
     loop that ends early) is taken from."""
     return _eigh_planes(a, b, sweeps, eps_rel)[3].reshape(a.shape[:-2])
-
-
-_FORMS = {None: -1, "thread": 0, "lanes": 1}
 
 
 def hermitian_eigh(a: torch.Tensor, b: torch.Tensor | None = None,

@@ -170,11 +170,12 @@ def regularized_inverse(covar: torch.Tensor, return_logdet: bool = False):
     The reference's regularization: eigenvalues scaled by their maximum,
     floored at EPSILON and inverted, with the logdet of the scaled
     spectrum.  On the CPU one batched ``torch.linalg.eigh``; on a CUDA
-    tensor with M <= 8 the Jacobi kernel (kernel 14); M > 8 on the card
-    raises (ROADMAP queue 1 item 15).
+    tensor with M <= 8 the Jacobi kernel (kernel 14, the EVD's round-robin
+    sweeps with the TPU kernel's floored inverse); M > 8 on the card raises
+    (ROADMAP queue 1 item 15).
     """
     m = covar.shape[-1]
-    if covar.device.type == "cuda":
+    if _on_card(covar):
         if m > MAX_DIM:
             raise NotImplementedError(
                 f"a regularized inverse of M = {m} > {MAX_DIM} on a CUDA "

@@ -5,10 +5,14 @@ numpy seeds fed to both packages:
 
 - kernel 13's plain version against ``masked_covar_pallas`` in interpret
   mode and the JAX ``covar_stats``, one observation against K classes;
-- kernel 14's plain Jacobi against ``regularized_inverse_pallas`` in
-  interpret mode (the same algorithm) and the port's eigh-based
-  ``regularized_inverse`` against the JAX one, near-singular matrices
-  included;
+- kernel 14's plain version (the EVD's round-robin sweeps with the
+  TPU kernel's floored inverse) and the cyclic plain Jacobi (the TPU
+  kernel's statements, kernel 15's) against ``regularized_inverse_pallas``
+  in interpret mode and the JAX eigh-based ``regularized_inverse``, and
+  the port's eigh-based ``regularized_inverse`` against the JAX one,
+  near-singular matrices included; a CGMM resume with ``ops.linalg``'s
+  card branch taken on the CPU (kernel 14's plain version) against the
+  JAX resume;
 - kernel 15's plain version against ``cacgmm_em_pallas`` /
   ``cgmm_em_pallas`` in interpret mode: both entries, both models, a
   frame mask, K = 3;
@@ -158,6 +162,58 @@ def test_regularized_inverse_matches_setk_tpu():
     assert _np(tla.regularized_inverse(torch.from_numpy(a))).shape == a.shape
     jac_inv, _ = es.jacobi_regularized_inverse_plain(torch.from_numpy(a))
     assert _peak_errs(_np(jac_inv), ref_inv)[12:].max() < 5e-3
+
+
+@pytest.mark.parametrize("m", [2, 4, 6])
+def test_inverse_plain_matches_pallas_and_setk_tpu(m):
+    """Kernel 14's plain version (round-robin sweeps with the stop, at most
+    6) against the Pallas Jacobi in interpret mode and the JAX eigh-based
+    regularized_inverse, test_jacobi_plain_matches_pallas' bars: 1e-5 of
+    each matrix's peak on full-rank matrices (logdet atol 1e-5), the
+    structural bars of test_pallas.py:266-276 on rank-one ones."""
+    rng = np.random.default_rng(20 + m)
+    a = _covars(rng, 30, m, singular=10)
+    got_inv, got_ld = es.regularized_inverse_plain(torch.from_numpy(a))
+    pallas = regularized_inverse_pallas(jnp.asarray(a), return_logdet=True,
+                                        interpret=True)
+    xla = jax_reg_inverse(jnp.asarray(a), return_logdet=True,
+                          use_pallas=False)
+    for ref_inv, ref_ld in (pallas, xla):
+        err = _peak_errs(_np(got_inv), np.asarray(ref_inv))
+        assert err[10:].max() < 1e-5
+        np.testing.assert_allclose(_np(got_ld)[10:],
+                                   np.asarray(ref_ld)[10:], atol=1e-5)
+        assert err[:10].max() < 0.3
+        np.testing.assert_allclose(_np(got_ld)[:10],
+                                   np.asarray(ref_ld)[:10], atol=0.5)
+
+
+def test_cgmm_resume_through_the_card_branch_matches_setk_tpu(
+        monkeypatch):
+    """A CGMM resume (4 iterations from a JAX state, then 5 resumed) with
+    ops.linalg's card branch taken on CPU tensors, so every regularized
+    inverse of the scan and the predict is kernel 14's plain version,
+    against the JAX resume on the same well-conditioned scene: masks
+    within 2e-3 (chip_smoke.py C3's card-vs-CPU bar)."""
+    rng = np.random.default_rng(12)
+    obs = _scene(rng, 2, m=4)
+    _, _, jstate = jc.cgmm_em(obs, 2, num_iters=4, return_state=True,
+                              use_fused=False)
+    jstate = {k: np.array(v) for k, v in jstate.items()}
+    ref, _ = jc.cgmm_em(obs, 2, num_iters=5, state=jstate)
+    calls = []
+    plain = es.regularized_inverse
+
+    def counted(covar, *args, **kwargs):
+        calls.append(tuple(covar.shape))
+        return plain(covar, *args, **kwargs)
+
+    monkeypatch.setattr(tla, "_on_card", lambda x: True)
+    monkeypatch.setattr(tla, "jacobi_inverse", counted)
+    got, _ = tc.cgmm_em(obs, 2, num_iters=5, device="cpu",
+                        state=em_state_from_numpy(jstate, "cpu"))
+    assert len(calls) == 6 and calls[0] == (2, 2, 12, 4, 4)
+    assert np.abs(_np(got) - np.asarray(ref)).max() <= 2e-3
 
 
 # ---- kernel 15 ----

@@ -58,14 +58,15 @@ _LAUNCH = re.compile(r"(\w+<[^;]*?>)<<<(.*?)>>>\(", re.S)
 _DYNAMIC_SMEM = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 
-def _emu_library(name, out, defines=()):
-    """Source ``name`` compiled with g++ against the emulator into
-    ``out``, with -D ``defines``, loaded and its entry points typed."""
+def _emu_library(name, out, defines=(), source=None, signatures=None):
+    """Source ``name`` (or the file ``source``) compiled with g++ against
+    the emulator into ``out``, with -D ``defines``, loaded and its entry
+    points (``signatures``, else the port's) typed."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to compile the kernel sources for the CPU")
-    code = _LAUNCH.sub(r"emu_launch(\2, \1, ",
-                       (_build.SOURCE_DIR / _build.SOURCES[name]).read_text())
+    source = source or _build.SOURCE_DIR / _build.SOURCES[name]
+    code = _LAUNCH.sub(r"emu_launch(\2, \1, ", source.read_text())
     code = _DYNAMIC_SMEM.sub(
         r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", code)
     cpp = out / f"{name}.cpp"
@@ -79,7 +80,7 @@ def _emu_library(name, out, defines=()):
         pytest.skip("g++ without C++20 support")
     assert proc.returncode == 0, proc.stderr[-4000:]
     handle = ctypes.CDLL(str(lib))
-    for fn, argtypes in _build._SIGNATURES[name].items():
+    for fn, argtypes in (signatures or _build._SIGNATURES[name]).items():
         getattr(handle, fn).argtypes = argtypes
         getattr(handle, fn).restype = ctypes.c_int
     handle.emu_set_device_attributes(EMU_SMS, EMU_SMEM)
@@ -950,28 +951,51 @@ def test_masked_covar_source_matches_plain(libs, n, k):
     assert _rel(num, mc.masked_covar_plain(obs, w)) < TOL
 
 
+# what the outputs hold before a launch: a slot the kernel never writes
+# keeps it
+_UNWRITTEN = 7.5e30
+
+
 def _hermitian(rng, count, m, rank):
     a = _cplx(rng, count, m, rank)
     return (a @ a.conj().transpose(-1, -2)).contiguous()
 
 
-@pytest.mark.parametrize("m", [1, 3, 6, 8])
-def test_regularized_inverse_source_matches_plain(libs, m):
-    """130 matrices (two blocks, the second partial), full rank and, for
-    a fifth of them, rank one (the EPSILON floor)."""
-    rng = np.random.default_rng(m)
-    a = _hermitian(rng, 130, m, m + 2)
-    a[:26] = _hermitian(rng, 26, m, 1)
-    inv = torch.empty_like(a)
-    logdet = torch.empty(130)
-    err = libs["eigh_small"].regularized_inverse_launch(
-        a.data_ptr(), inv.data_ptr(), logdet.data_ptr(), 130, m, 6, None)
-    assert err == 0
-    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
+def _inverse_launch(lib, a, form=None, sweeps=es.SWEEPS, logdet=True):
+    """Kernel 14's entry (``form`` None: the launcher's pick; 0 a thread a
+    matrix, 1 a lane group) on outputs filled with _UNWRITTEN."""
+    n, m = a.shape[0], a.shape[-1]
+    inv = torch.full_like(a, _UNWRITTEN)
+    ld = torch.full((n,), _UNWRITTEN)
+    assert lib.regularized_inverse_launch(
+        a.data_ptr(), inv.data_ptr(), ld.data_ptr() if logdet else None, n,
+        m, sweeps, -1 if form is None else form, None) == 0
+    return inv, ld
+
+
+def _assert_inverse_matches_plain(a, inv, ld, sweeps=es.SWEEPS):
+    """Within SOLVE_TOL of each matrix's peak of regularized_inverse_plain,
+    logdet within SOLVE_TOL * M, every slot written."""
+    m = a.shape[-1]
+    ref_inv, ref_ld = es.regularized_inverse_plain(a, sweeps)
+    assert not (inv.real == _UNWRITTEN).any() and not (ld == _UNWRITTEN).any()
     peak = ref_inv.abs().amax(dim=(-1, -2))
     assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) < \
         SOLVE_TOL
-    assert float((logdet - ref_ld).abs().max()) < SOLVE_TOL * m
+    assert float((ld - ref_ld).abs().max()) < SOLVE_TOL * m
+
+
+@pytest.mark.parametrize("m", [1, 3, 6, 8])
+def test_regularized_inverse_source_matches_plain(libs, m):
+    """130 matrices (two blocks, the second partial), full rank and, for
+    a fifth of them, rank one (the EPSILON floor), in the launcher's form,
+    against kernel 14's plain version (the round-robin sweeps with the
+    stop, then the floored inverse)."""
+    rng = np.random.default_rng(m)
+    a = _hermitian(rng, 130, m, m + 2)
+    a[:26] = _hermitian(rng, 26, m, 1)
+    inv, logdet = _inverse_launch(libs["eigh_small"], a)
+    _assert_inverse_matches_plain(a, inv, logdet)
 
 
 def _jacobi_cases(m, n, seed):
@@ -992,27 +1016,104 @@ def _jacobi_cases(m, n, seed):
 
 @pytest.mark.parametrize("m", range(1, 9))
 def test_regularized_inverse_edge_cases_match_plain(libs, m):
-    """Kernel 14 on the cases of _jacobi_cases, 37 matrices (a partial
-    last warp), a logdet pointer of null for one launch: within SOLVE_TOL
-    of each matrix's peak of the plain Jacobi, logdet within SOLVE_TOL *
-    M, and the same inverse without the logdet."""
+    """Kernel 14 in the launcher's form on the cases of _jacobi_cases, 37
+    matrices (a partial last warp), a logdet pointer of null for one
+    launch: within SOLVE_TOL of each matrix's peak of its plain version,
+    logdet within SOLVE_TOL * M, and the same inverse without the
+    logdet."""
     n = 37
     a = _jacobi_cases(m, n, seed=10 * m)
-    inv = torch.empty_like(a)
-    logdet = torch.empty(n)
     lib = libs["eigh_small"]
-    assert lib.regularized_inverse_launch(a.data_ptr(), inv.data_ptr(),
-                                          logdet.data_ptr(), n, m, 6,
-                                          None) == 0
-    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
-    peak = ref_inv.abs().amax(dim=(-1, -2))
-    assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) < \
-        SOLVE_TOL
-    assert float((logdet - ref_ld).abs().max()) < SOLVE_TOL * m
-    again = torch.empty_like(a)
-    assert lib.regularized_inverse_launch(a.data_ptr(), again.data_ptr(),
-                                          None, n, m, 6, None) == 0
+    inv, logdet = _inverse_launch(lib, a)
+    _assert_inverse_matches_plain(a, inv, logdet)
+    again, _ = _inverse_launch(lib, a, logdet=False)
     assert torch.equal(again, inv)
+
+
+def _inverse_cases(m, n, seed):
+    """_jacobi_cases' matrices with _near_diagonal's (under the stopping
+    bar, but a rotation would turn them) at every third slot from 9, so
+    every warp and lane group holds matrices that have stopped beside
+    full ones."""
+    a = _jacobi_cases(m, n, seed)
+    if m > 1:
+        a[9::3] = _near_diagonal(m, len(range(9, n, 3)))
+    return a
+
+
+INVERSE_FORMS = [pytest.param(m, form, id=f"{m}-{form}")
+                 for m in range(1, 9) for form in ("thread", "lanes")]
+
+
+@pytest.mark.parametrize("m,form", INVERSE_FORMS)
+def test_regularized_inverse_forms_match_plain(libs, m, form):
+    """Each form forced, M = 1-8, on 130 of _inverse_cases' matrices (the
+    last block or group partial; at odd M the lane form's bye column and
+    at M = 5, 6 an idle lane a group) and on 13 (one 32-lane block, groups
+    past n): within SOLVE_TOL of each matrix's peak of the plain version,
+    logdet within SOLVE_TOL * M (log EPS of a bye or an idle lane counted
+    once would move it by 16), the same inverse with a null logdet
+    pointer; the near-diagonal matrices take no sweep and come out as the
+    inverse of their scaled diagonal with zeros off it, exactly as the
+    plain version gives them, which a form that sweeps on past a matrix's
+    stop does not.  A form not built at M is refused."""
+    lib = libs["eigh_small"]
+    code = ("thread", "lanes").index(form)
+    if form not in es.inverse_forms(m):
+        a = _inverse_cases(m, 13, 60 + m)
+        p = a.data_ptr()
+        assert lib.regularized_inverse_launch(p, p, p, 13, m, 6, code,
+                                              None) != 0
+        return
+    for n in (130, 13):
+        a = _inverse_cases(m, n, 60 + m + n)
+        inv, logdet = _inverse_launch(lib, a, code)
+        _assert_inverse_matches_plain(a, inv, logdet)
+        again, _ = _inverse_launch(lib, a, code, logdet=False)
+        assert torch.equal(again, inv)
+        if m == 1:
+            continue
+        near = a[9::3]
+        assert bool((es.inverse_sweeps_needed(near) == 0).all())
+        ref, _ = es.regularized_inverse_plain(near)
+        off = ~torch.eye(m, dtype=torch.bool)
+        assert torch.equal(inv[9::3][:, off], torch.zeros_like(ref[:, off]))
+        assert torch.equal(ref[:, off], torch.zeros_like(ref[:, off]))
+        assert torch.equal(inv[9::3].diagonal(0, -2, -1),
+                           ref.diagonal(0, -2, -1))
+
+
+@pytest.mark.parametrize("form", ["thread", "lanes"])
+def test_regularized_inverse_zero_sweeps_invert_the_diagonal(libs, form):
+    """sweeps = 0: every matrix's inverse is that of its floored, scaled
+    diagonal, zeros off it, from either form, as the plain version gives
+    it."""
+    a = _jacobi_cases(6, 37, 7)
+    inv, logdet = _inverse_launch(libs["eigh_small"], a,
+                                  ("thread", "lanes").index(form), sweeps=0)
+    ref, ref_ld = es.regularized_inverse_plain(a, 0)
+    off = ~torch.eye(6, dtype=torch.bool)
+    assert torch.equal(inv[:, off], torch.zeros_like(inv[:, off]))
+    assert torch.equal(inv.diagonal(0, -2, -1), ref.diagonal(0, -2, -1))
+    assert float((logdet - ref_ld).abs().max()) < SOLVE_TOL * 6
+
+
+def test_regularized_inverse_pick_by_count_and_size(libs):
+    """The launcher's pick (kInverseLanesUpTo): each picked form is one
+    inverse_forms offers, every form offered at M is picked at some count,
+    and the pick gives the same bits as that form forced."""
+    lib = libs["eigh_small"]
+    for m in range(1, 9):
+        picked = {("thread", "lanes")[lib.regularized_inverse_pick(n, m)]
+                  for n in (1, 514, 4112, 16448, 65792, 1 << 30)}
+        assert picked == set(es.inverse_forms(m))
+    for m in (2, 6, 8):
+        a = _jacobi_cases(m, 13, 90 + m)
+        form = lib.regularized_inverse_pick(13, m)
+        got = _inverse_launch(lib, a)
+        forced = _inverse_launch(lib, a, form)
+        assert torch.equal(got[0], forced[0])
+        assert torch.equal(got[1], forced[1])
 
 
 def _eigh_cases(m, n, seed, gen):
@@ -1031,11 +1132,6 @@ def _eigh_cases(m, n, seed, gen):
     b = _hermitian(rng, n, m, m + 3) + 0.1 * torch.eye(m)
     b[7] = 0
     return a, b
-
-
-# what the outputs hold before a launch: a slot the kernel never writes
-# keeps it
-_UNWRITTEN = 7.5e30
 
 
 def _eigh_launch(lib, a, b, sweeps=es.EIGH_SWEEPS, form=None):
@@ -1370,11 +1466,24 @@ def test_em_source_shapes_match_plain(libs, model, init, k, m, f, t):
     _em_source_case(libs, model, init, k, m, True, 1, f, t, 3, t + m)
 
 
+@pytest.fixture(scope="module")
+def thread_jacobi(tmp_path_factory):
+    """tests/cuda_emu/jacobi_thread.cu: jacobi.cuh's one-thread cyclic
+    Jacobi (the TPU kernel's statements) behind jacobi_thread_launch."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _emu_library(
+        "jacobi_thread", tmp_path_factory.mktemp("jacobi_thread"),
+        source=EMU / "jacobi_thread.cu",
+        signatures={"jacobi_thread_launch": [p, p, p, i, i, i, p]})
+
+
 @pytest.mark.parametrize("m", [1, 3, 6, 8])
-def test_warp_jacobi_matches_thread_jacobi(libs, m):
+def test_warp_jacobi_matches_thread_jacobi(libs, thread_jacobi, m):
     """jacobi_regularized_inverse_group (16 matrices a warp, 21 of them:
-    a partial last warp) against kernel 14's thread version on the same
-    matrices: full rank, rank one (the EPSILON floor), and near-diagonal
+    a partial last warp) against jacobi.cuh's one-thread statements of
+    the TPU kernel (jacobi_regularized_inverse, which kernel 14 ran before
+    it took the EVD's round-robin sweeps; tests/cuda_emu/jacobi_thread.cu)
+    on the same matrices: full rank, rank one (the EPSILON floor), and near-diagonal
     (every off-diagonal entry 1e-20, below the rotation's threshold, so
     the phase defaults to 1) and exactly diagonal ones; within a few ulps
     of each matrix's peak."""
@@ -1385,11 +1494,11 @@ def test_warp_jacobi_matches_thread_jacobi(libs, m):
     diag = torch.diag(torch.arange(1, m + 1, dtype=torch.float32) * 0.7)
     a[4] = diag + 1e-20 * (1 + 1j) * (1 - torch.eye(m))
     a[5] = diag.to(torch.complex64)
-    got, ref = torch.empty_like(a), torch.empty_like(a)
-    got_ld, ref_ld = torch.empty(n), torch.empty(n)
+    got, got_ld = torch.empty_like(a), torch.empty(n)
     assert libs["cacgmm_em"].warp_jacobi_launch(
         a.data_ptr(), got.data_ptr(), got_ld.data_ptr(), n, m, 6, None) == 0
-    assert libs["eigh_small"].regularized_inverse_launch(
+    ref, ref_ld = torch.empty_like(a), torch.empty(n)
+    assert thread_jacobi.jacobi_thread_launch(
         a.data_ptr(), ref.data_ptr(), ref_ld.data_ptr(), n, m, 6, None) == 0
     peak = ref.abs().amax(dim=(-1, -2))
     ulp = float(np.finfo(np.float32).eps)
@@ -1475,8 +1584,10 @@ def test_clustering_entry_points_reject_bad_arguments(libs):
                            (1, 2, 4, 0), (1, 2, 4, 5)):
         assert lib.masked_covar_launch(p, p, p, nbins, n, t, k, None) != 0
     lib = libs["eigh_small"]
-    for n, m, sweeps in ((0, 2, 6), (1, 9, 6), (1, 0, 6), (1, 2, -1)):
-        assert lib.regularized_inverse_launch(p, p, p, n, m, sweeps,
+    for n, m, sweeps, form in ((0, 2, 6, -1), (1, 9, 6, -1), (1, 0, 6, -1),
+                               (1, 2, -1, -1), (1, 2, 6, 2), (1, 2, 6, -2),
+                               (1, 0, 6, 0), (1, 9, 6, 1)):
+        assert lib.regularized_inverse_launch(p, p, p, n, m, sweeps, form,
                                               None) != 0
     lib = libs["cacgmm_em"]
     for nb, f, t, m, k, iters, higuchi in ((0, 1, 4, 2, 2, 1, 0),

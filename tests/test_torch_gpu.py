@@ -623,7 +623,7 @@ def test_masked_covar_matches_plain(n, k):
 
 @pytest.mark.parametrize("m", [1, 6, 8])
 def test_regularized_inverse_matches_plain(m):
-    """Kernel 14 against its plain Jacobi (1e-4 of each matrix's peak),
+    """Kernel 14 against its plain version (1e-4 of each matrix's peak),
     and ops.linalg.regularized_inverse on the card against the eigh-based
     CPU path on well-conditioned matrices."""
     from setk_tpu_torch.ops.linalg import regularized_inverse
@@ -634,7 +634,7 @@ def test_regularized_inverse_matches_plain(m):
     es.regularized_inverse.launches = 0
     inv, logdet = es.regularized_inverse(a)
     assert es.regularized_inverse.launches == 1
-    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
+    ref_inv, ref_ld = es.regularized_inverse_plain(a)
     peak = ref_inv.abs().amax(dim=(-1, -2))
     assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) \
         < TOL
@@ -646,21 +646,22 @@ def test_regularized_inverse_matches_plain(m):
     assert float((ld2.cpu() - cpu_ld).abs().max()) < 1e-3 * m
 
 
+@pytest.mark.parametrize("form", [None, "thread", "lanes"])
 @pytest.mark.parametrize("count", [514, 65792])
-def test_regularized_inverse_launch_shapes_match_plain(count):
+def test_regularized_inverse_launch_shapes_match_plain(count, form):
     """Kernel 14 at the CGMM CLI resume's launch (514 = 2 x 257 matrices
-    of 6 x 6: five blocks) and at the bench shape (65,792): one launch
-    each, within 1e-4 of each matrix's peak of the plain Jacobi, logdet
-    within 1e-4 * M, on sample covariances of 16 frames (full rank, as
-    the EM's are)."""
+    of 6 x 6) and at the bench shape (65,792), in the launcher's form and
+    each form forced: one launch each, within 1e-4 of each matrix's peak
+    of its plain version, logdet within 1e-4 * M, on sample covariances of
+    16 frames (full rank, as the EM's are)."""
     dev = _card()
     rng = np.random.default_rng(count)
     z = _cplx(rng, count, 6, 16, dev=dev)
     a = (z @ z.conj().transpose(-1, -2) / 16).contiguous()
     es.regularized_inverse.launches = 0
-    inv, logdet = es.regularized_inverse(a)
+    inv, logdet = es.regularized_inverse(a, form=form)
     assert es.regularized_inverse.launches == 1
-    ref_inv, ref_ld = es.jacobi_regularized_inverse_plain(a)
+    ref_inv, ref_ld = es.regularized_inverse_plain(a)
     peak = ref_inv.abs().amax(dim=(-1, -2))
     assert float(((inv - ref_inv).abs().amax(dim=(-1, -2)) / peak).max()) \
         < TOL
@@ -726,11 +727,36 @@ def test_em_kernel_is_deterministic(model, k):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
+@pytest.fixture(scope="module")
+def thread_jacobi(tmp_path_factory):
+    """tests/cuda_emu/jacobi_thread.cu built with nvcc as the port's
+    sources are: jacobi.cuh's one-thread cyclic statements (the TPU
+    kernel's, which kernel 14 ran before it took the round-robin sweeps)
+    behind jacobi_thread_launch."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+    from setk_tpu_torch.ops.cuda import _build
+    _card()
+    src = Path(__file__).resolve().parent / "cuda_emu" / "jacobi_thread.cu"
+    out = tmp_path_factory.mktemp("jacobi_thread") / "libjacobi_thread.so"
+    proc = subprocess.run([_build._nvcc(), *_build._FLAGS,
+                           f"-I{_build.SOURCE_DIR}", "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.jacobi_thread_launch.argtypes = [p, p, p, i, i, i, p]
+    lib.jacobi_thread_launch.restype = i
+    return lib
+
+
 @pytest.mark.parametrize("m", [1, 6, 8])
-def test_warp_jacobi_matches_thread_jacobi(m):
-    """Kernel 15's lane-group Jacobi (its test entry) against kernel 14's
-    thread Jacobi on the card, on the same matrices: within a few ulps of
-    each matrix's peak where the compiler contracts alike, 1e-5 at most."""
+def test_warp_jacobi_matches_thread_jacobi(thread_jacobi, m):
+    """Kernel 15's lane-group Jacobi (its test entry) against jacobi.cuh's
+    one-thread statements of the TPU kernel's cyclic Jacobi on the card,
+    on the same matrices: within a few ulps of each matrix's peak where
+    the compiler contracts alike, 1e-5 at most."""
     from setk_tpu_torch.ops.cuda import _build
     dev = _card()
     rng = np.random.default_rng(m)
@@ -739,7 +765,10 @@ def test_warp_jacobi_matches_thread_jacobi(m):
     got, got_ld = torch.empty_like(a), torch.empty(1000, device=dev)
     _build.launch("cacgmm_em", "warp_jacobi_launch", dev, a.data_ptr(),
                   got.data_ptr(), got_ld.data_ptr(), 1000, m, es.SWEEPS)
-    ref, ref_ld = es.regularized_inverse(a)
+    ref, ref_ld = torch.empty_like(a), torch.empty(1000, device=dev)
+    _build.check(thread_jacobi.jacobi_thread_launch(
+        a.data_ptr(), ref.data_ptr(), ref_ld.data_ptr(), 1000, m, es.SWEEPS,
+        torch.cuda.current_stream().cuda_stream), "jacobi_thread_launch")
     peak = ref.abs().amax(dim=(-1, -2))
     assert float(((got - ref).abs().amax(dim=(-1, -2)) / peak).max()) < 1e-5
     assert float((got_ld - ref_ld).abs().max()) < 1e-5 * m

@@ -48,7 +48,8 @@ stops the tool); a source without hermitian_eigh_form_launch runs its
 hermitian_eigh_launch (one form).  Both builds are timed in turns
 (parent, this, this, parent), each with its library in the port's table,
 and kernel 14 (regularized_inverse, same source) is checked to give the
-same bits from both.
+same bits from both where the parent's entry takes its form argument
+(tools/inverse_profile.py times kernel 14 against an older one).
 """
 
 import argparse
@@ -336,8 +337,10 @@ def main() -> int:
                         "sweeps_taken": int(cycles[7]) / threads}
     emit({"phases": phases, "sm_clock": _smi("clocks.sm"), "card": card})
 
-    # ---- kernel 14 from both builds: the same bits ----
-    if "parent" in shipped:
+    # ---- kernel 14 from both builds: the same bits (a parent with its
+    # form argument) ----
+    if "parent" in shipped and hasattr(shipped["parent"][0],
+                                       "regularized_inverse_pick"):
         k14 = {}
         for label, count in (("resume_514", 514), ("c1_65792", 65792)):
             x = torch.complex(*torch.randn((2, count, cs.N, 16), device=dev,

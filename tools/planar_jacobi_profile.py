@@ -23,7 +23,9 @@ enhance_batch step with its device profile, and the P2 step.  Inputs are chip_sm
 (numpy.random.default_rng seeds).
 
 --parent DIR: DIR holds another planar_stft.cu and eigh_small.cu (with
-jacobi.cuh) with the same C entry points, e.g. a parent commit's
+jacobi.cuh) with the same C entry points (kernel 14's with its form
+argument: tools/inverse_profile.py times an older one), e.g. a
+parent commit's
 setk_tpu_torch/csrc unpacked by `git archive` into a gitignored directory.
 Both builds are then timed in turns (parent, this, this, parent) on the
 same inputs, each turn with its build's libraries in the port's library
@@ -144,7 +146,7 @@ def main() -> int:
                                       0),
             "resume_514": _hermitian(np, torch, dev, 2 * 257, cs.N, 1)}
     mats.update(_em_covariances(np, torch, dev, cs))
-    plain = {k: es.jacobi_regularized_inverse_plain(a)
+    plain = {k: es.regularized_inverse_plain(a)
              for k, a in mats.items()}
 
     # ---- kernel 9 ----
