@@ -202,7 +202,37 @@ the CUDA toolkit.  In order it:
      enhance_batch on the CPU copies (1e-4 of the peak), and the WPD scan
      at N taps = 132 against wpd on the CPU (cosine and mask correlation
      >= 0.995, W5's bar), with exact launch sets;
-  20. times each kernel (20 launches replayed from one CUDA graph, so the
+  20. S1-S3, the spatial layer and separation (``_spatial_slice``): a
+     far-field source in band-limited noise bursts (200-7000 Hz) from a
+     DoA drawn on a 1 degree grid (the line's 20-160 degrees), delayed
+     to each mic in the frequency domain, sensor noise at 0.05 of the
+     source, 8 utterances of 8 s, int16 wav files and 0.95/0.05 masks
+     in a temporary directory under setk_tpu_torch/_build, on the 6-mic
+     circle of radius 0.05 (360 DoAs) and the 4-mic line 0,0.05,0.1,0.15
+     (181 DoAs), 512/256: every command on the card against the same
+     command with --device cpu, seconds an utterance on each.  S1:
+     compute_steer_vector (bit-equal), do_ssl with ml, srp and music,
+     masked, offline (every DoA within 2 grid steps of the scene's) and
+     on the circle online (--chunk-len 32 --look-back 125, the first 2
+     utterances), the DoAs equal wherever the CPU's top two scores are
+     apart by more than the score tolerance; music launches exactly
+     hermitian_eigh, once an utterance or a chunk, ml and srp nothing.
+     S2: compute_circular_srp, compute_ipd_and_linear_srp (srp, ipd,
+     msc), compute_df_on_geometry and compute_df_on_mask, archives
+     finite and within 1e-4 of their peak (IPD wrapped);
+     compute_df_on_mask launches exactly masked_covar and hermitian_eigh
+     once an utterance, the others nothing.  S3: apply_ds_beamformer
+     and apply_sd_beamformer on both arrays with --utt2doa and with
+     chunk tracks (--chunk-len 32), apply_fixed_beamformer (3-D weights,
+     --utt2beam), wav_separate (with and without --phase-ref) and
+     oracle_separate (irm, ibm, iam, psm): no kernel, every file within
+     2 int16 steps of the CPU's (sd on the circle, whose diffuse
+     covariance has kappa ~6e5 at the lowest bins: 64 steps, and its
+     weights within max(kappa_f 1e-6, 1e-5) of each bin's peak); ds and
+     sd with the scene's DoA correlate with
+     the source at the steering origin better than mic 0 does with the
+     source at mic 0 (sd on the circle: both high-passed at 406 Hz);
+  21. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
      function where there is one (torch.stft, torch.istft, torch.einsum,
@@ -221,7 +251,7 @@ the CUDA toolkit.  In order it:
      and prints the kernels line (kernels 16-19 timed at W's scene, with
      the wpe, wpd and BatchWpe steps and their idle shares, 20-21 and the
      BLSTM steps from step 18);
-  21. prints {"ok": true, "device": {...}} as the last line.
+  22. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2, says
 which on stdout and stderr, and prints no result.
@@ -1918,6 +1948,444 @@ def _evd_slice(np, torch, dev, card="cuda", counts=V_COUNTS,
     return [row], {"V2": v2, "V3": v3, "fused_mvdr_steps_ms": steps}
 
 
+# ---- the spatial layer and separation (S1-S3) ----
+# a far-field source in band-limited noise bursts, delayed to each mic in
+# the frequency domain (plane_steer_vector's model at c = 340 m/s),
+# sensor noise at 0.05 of the source; the CLIs' default arrays
+S_UTTS, S_SECS, S_ONLINE_UTTS = 8, 8, 2
+S_BAND = (200.0, 7000.0)
+S_LEVEL, S_NOISE, S_BURST = 0.2, 0.05, 2048
+S_CHUNK, S_LOOK_BACK = 32, 125
+S_GEOMETRY = {
+    "circular": {"mics": 6, "doas": 360, "range": "0,360",
+                 "srp_pair": "0,3;1,4;2,5"},
+    "linear": {"mics": 4, "doas": 181, "range": "0,180",
+               "srp_pair": "0,1;1,2;2,3;0,3"}}
+S_LINEAR_TOPO = (0.0, 0.05, 0.1, 0.15)
+S_FEAT_TOL = 1e-4          # card against CPU, of each archive's peak
+S_SCORE_TOL = {"ml": 2e-5, "srp": 1e-5, "music": 1e-5}
+S_LSB = 2
+# superdirective weights on the circle solve a diffuse covariance loaded
+# with 1e-5 I (kappa_f ~6e5 at bins 0-2, > 1e3 at bins 0-12, below
+# 406.25 Hz): two f32 solves part there by up to kappa_f eps, so the
+# weights are held per bin to max(kappa_f 1e-6, 1e-5) of the bin's peak
+# and those outputs to 64 int16 steps (tests/test_torch_separate_cli.py)
+S_SD_CIRCLE_LSB, S_LOW_HZ = 64, 406.25
+
+
+def _s_delays(np, geometry, doa):
+    """Seconds each mic hears a far-field source from ``doa`` degrees
+    after the steering origin (mic 0 of the line, the circle's center)."""
+    rad = doa * np.pi / 180
+    if geometry == "linear":
+        return np.asarray(S_LINEAR_TOPO) * np.cos(rad) / 340.0
+    dirc = np.arange(6) * 2 * np.pi / 6
+    return -0.05 * np.cos(dirc - rad) / 340.0
+
+
+def _write_spatial_corpus(np, root, geometry, count, secs, seed):
+    """``count`` utterances (int16 wav files, T x F .npy masks 0.95/0.05
+    on the bursts) with DoAs on a 1 degree grid; scps wav, mask, src (the
+    source as mic 0 hears it), other (a second source in the gaps), mix
+    (mic 0 plus it) and utt2doa, utt2doa_track (each chunk's DoA), utt2idx,
+    utt2beam.  Returns {key: (doa, frames, the source at the origin)}."""
+    from setk_tpu_torch.io.wave import write_wav
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    s = secs * SR
+    frames = 1 + s // 256
+    freqs = np.fft.rfftfreq(s, 1 / SR)
+    gate = (np.arange(s) // S_BURST) % 2 == 0
+    on = gate[np.minimum(np.arange(frames) * 256, s - 1)]
+    mask = np.broadcast_to(np.where(on, 0.95, 0.05)[:, None],
+                           (frames, 257)).astype(np.float32)
+    # the line's DoAs keep 20 degrees from endfire, where a degree moves
+    # the largest TDoA by under a microsecond and no backend resolves it
+    lo, hi = (20, 160) if geometry == "linear" else (0, 359)
+    span = 180 if geometry == "linear" else 359
+    info, lines = {}, {}
+    for i in range(count):
+        key = f"{geometry[0]}{i}"
+        doa = float(rng.integers(lo, hi + 1))
+        spec = np.fft.rfft(rng.standard_normal(s))
+        spec *= (freqs >= S_BAND[0]) & (freqs <= S_BAND[1])
+        src = np.fft.irfft(spec, n=s)
+        src = src / src.std() * S_LEVEL * gate
+        clean = np.fft.irfft(np.fft.rfft(src)[None] * np.exp(
+            -2j * np.pi * freqs[None] * _s_delays(np, geometry,
+                                                  doa)[:, None]), n=s)
+        wav = clean + rng.standard_normal(clean.shape) * S_NOISE * S_LEVEL
+        other = np.roll(clean[0], S_BURST) * 0.8
+        for name, data, suffix in (("wav", wav, ".wav"),
+                                   ("src", clean[0], ".src.wav"),
+                                   ("other", other, ".other.wav"),
+                                   ("mix", wav[0] + other, ".mix.wav")):
+            write_wav(root / f"{key}{suffix}", data.astype(np.float32),
+                      sr=SR)
+            lines.setdefault(name, []).append(f"{key} {root}/{key}{suffix}")
+        np.save(root / f"{key}.npy", mask)
+        lines.setdefault("mask", []).append(f"{key} {root}/{key}.npy")
+        chunks = -(-frames // S_CHUNK)
+        track = " ".join(str((doa + 10 * (c % 2)) % (span + 1))
+                         for c in range(chunks))
+        lines.setdefault("utt2doa", []).append(f"{key} {doa}")
+        lines.setdefault("utt2doa_track", []).append(f"{key} {track}")
+        idx = int(round(doa * (S_GEOMETRY[geometry]["doas"] - 1) / 180)
+                  if geometry == "linear" else round(doa))
+        lines.setdefault("utt2idx", []).append(f"{key} {idx}")
+        lines.setdefault("utt2beam", []).append(f"{key} {i % 3}")
+        info[key] = (doa, frames, src.astype(np.float32))
+    for name, rows in lines.items():
+        (root / f"{name}.scp").write_text("\n".join(rows) + "\n")
+    return info
+
+
+def _s_index_error(np, geometry, output, doa):
+    """Grid steps between do_ssl's DoA (index i printed as
+    linspace(lo, hi, A + 1)[i]) and the scene's."""
+    g = S_GEOMETRY[geometry]
+    lo, hi = map(float, g["range"].split(","))
+    idx = int(np.argmin(np.abs(np.linspace(lo, hi, g["doas"] + 1) -
+                               output)))
+    true = doa * (g["doas"] - 1) / 180 if geometry == "linear" else doa
+    d = abs(idx - round(true))
+    return min(d, g["doas"] - d) if geometry == "circular" else d
+
+
+def _s_wav_gap(np, got, ref, ill_conditioned):
+    """int16 steps between two outputs, held to S_LSB (S_SD_CIRCLE_LSB
+    where ``ill_conditioned``); raises past the bar."""
+    gap = float(np.abs(got - ref).max())
+    if gap > (S_SD_CIRCLE_LSB if ill_conditioned else S_LSB):
+        raise AssertionError(f"{gap} int16 steps")
+    return gap
+
+
+def _s_sd_weights_gap(np, torch, card, doas):
+    """The circle's superdirective weights at ``doas`` on the card
+    against the CPU: the largest per-bin error over its bar
+    max(kappa_f 1e-6, 1e-5) of the bin's peak (<= 1 passes)."""
+    from setk_tpu_torch.enhance.beamformer import sd_weights
+    from setk_tpu_torch.spatial import steer as st
+    rn = st.diffuse_covar(257, st.circular_distance_matrix(0.05, 6),
+                          diag_eps=1e-5)
+    bar = np.maximum(np.linalg.cond(rn.astype(np.complex128)) * 1e-6,
+                     1e-5)
+    worst = 0.0
+    for doa in doas:
+        d = torch.from_numpy(st.circular_steer_vector(0.05, 6, doa, 257) /
+                             6)
+        w = [sd_weights(d.to(dev), torch.from_numpy(rn).to(dev)).cpu()
+             for dev in (card, "cpu")]
+        err = ((w[0] - w[1]).abs().amax(-1) /
+               w[1].abs().amax(-1)).numpy()
+        worst = max(worst, float((err / bar).max()))
+    return worst
+
+
+def _s_corr(np, a, b, high_pass=False):
+    n = min(a.size, b.size)
+    a, b = a[:n].astype(np.float64), b[:n].astype(np.float64)
+    if high_pass:
+        keep = np.fft.rfftfreq(n, 1 / SR) >= S_LOW_HZ
+        a = np.fft.irfft(np.fft.rfft(a) * keep, n=n)
+        b = np.fft.irfft(np.fft.rfft(b) * keep, n=n)
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+
+
+def _spatial_slice(np, torch, smi, card="cuda", utts=S_UTTS, secs=S_SECS,
+                   online_utts=S_ONLINE_UTTS):
+    """Phases S1-S3: every command of the spatial and separation slice on
+    ``card`` against ``--device cpu`` over the far-field scene, on both
+    default arrays.  Returns a summary (seconds an utterance by command
+    and device, the gaps, the launches)."""
+    import importlib
+    from setk_tpu_torch.io import ScriptReader
+    from setk_tpu_torch.io.wave import read_wav
+    from setk_tpu_torch.ops.cuda import _build
+    from setk_tpu_torch.spatial import ssl
+    from setk_tpu_torch.dsp.stft import StftConfig, forward_stft
+    summary = {"S1": {}, "S2": {}, "S3": {}, "times": {}}
+
+    def both(phase, label, command, argv_of, keys, want=None):
+        """The command on the card (launches counted: exactly ``want``,
+        {name: count}) and on the CPU; returns {device: out_dir}."""
+        mod = importlib.import_module(f"setk_tpu_torch.cli.{command}")
+        outs = {}
+        for device in (card, "cpu"):
+            out = tmp / phase / f"{label}-{device}"
+            out.mkdir(parents=True)
+            args = mod.make_parser().parse_args(
+                argv_of(out) + ["--device", device])
+            t0 = time.perf_counter()
+            if device == card:
+                _, counts = _launched(torch, lambda: mod.run(args),
+                                      f"{phase} {label}", set(want or {}))
+                if counts != (want or {}):
+                    raise AssertionError(f"{phase} {label}: launched "
+                                         f"{counts}, needs {want}")
+            else:
+                mod.run(args)
+            summary["times"].setdefault(label, {})[
+                "card_s_per_utt" if device == card else "cpu_s_per_utt"] = \
+                (time.perf_counter() - t0) / len(keys)
+            outs[device] = out
+        return outs
+
+    def archives(phase, label, outs, wrapped=False):
+        ref = dict(ScriptReader(str(outs["cpu"] / "feats.scp")))
+        got = dict(ScriptReader(str(outs[card] / "feats.scp")))
+        if list(got) != list(ref) or not ref:
+            raise AssertionError(f"{phase} {label}: keys {list(got)} vs "
+                                 f"{list(ref)}")
+        worst = 0.0
+        for key, r in ref.items():
+            g = got[key]
+            if g.shape != r.shape or not np.isfinite(g).all():
+                raise AssertionError(f"{phase} {label} {key}: shape "
+                                     f"{g.shape} vs {r.shape} or not finite")
+            d = np.abs(g - r)
+            if wrapped:
+                d = np.minimum(d, 2 * np.pi - d)
+            worst = max(worst, float(d.max() / np.abs(r).max()))
+        summary[phase][label] = worst
+        if not worst <= S_FEAT_TOL:
+            raise AssertionError(f"{phase} {label}: card vs CPU {worst} of "
+                                 f"the peak > {S_FEAT_TOL}")
+
+    def wavs(phase, label, outs, keys, ill_conditioned=False):
+        gaps = {}
+        for key in keys:
+            paths = [outs[d] / f"{key}.wav" for d in (card, "cpu")]
+            if not all(p.exists() for p in paths):
+                raise AssertionError(f"{phase} {label}: {key} not written")
+            got, ref = (read_wav(p, normalize=False) for p in paths)
+            if got.shape != ref.shape:
+                raise AssertionError(f"{phase} {label} {key}: shape")
+            try:
+                gaps[key] = _s_wav_gap(np, got, ref, ill_conditioned)
+            except AssertionError as exc:
+                raise AssertionError(f"{phase} {label} {key}: card vs CPU "
+                                     f"{exc}") from None
+        summary[phase][label] = max(gaps.values())
+        return outs
+
+    cfg = StftConfig()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_dir:
+        tmp = Path(tmp_dir)
+        for geometry, g in S_GEOMETRY.items():
+            root = tmp / geometry
+            info = _write_spatial_corpus(np, root, geometry, utts, secs,
+                                         seed=41 if geometry == "linear"
+                                         else 42)
+            keys = list(info)
+            (root / "online.scp").write_text("".join(
+                (root / "wav.scp").read_text().splitlines(True)[
+                    :online_utts]))
+            chunks = sum(-(-info[k][1] // S_CHUNK) for k in
+                         keys[:online_utts])
+
+            # ---- S1: the steering grid and localization ----
+            outs = both("S1", f"compute_steer_vector-{geometry}",
+                        "compute_steer_vector", lambda out: [
+                            str(out / "sv.npy"), "--geometry", geometry,
+                            "--num-doas", str(g["doas"])], [None])
+            sv = {d: np.load(outs[d] / "sv.npy") for d in outs}
+            if not np.array_equal(sv[card], sv["cpu"]):
+                raise AssertionError("S1 compute_steer_vector: the grids "
+                                     "differ")
+            sv_path = outs["cpu"] / "sv.npy"
+            grid = torch.from_numpy(sv["cpu"])
+            for backend in ("ml", "srp", "music"):
+                for online in (False, True):
+                    if online and geometry == "linear":
+                        continue
+                    label = (f"do_ssl-{backend}-{geometry}-"
+                             f"{'online' if online else 'offline'}")
+                    scp = root / ("online.scp" if online else "wav.scp")
+                    extra = ["--backend", backend, "--doa-range",
+                             g["range"], "--mask-scp",
+                             str(root / "mask.scp")]
+                    if backend == "srp":
+                        extra += ["--srp-pair", g["srp_pair"]]
+                    if online:
+                        extra += ["--chunk-len", str(S_CHUNK),
+                                  "--look-back", str(S_LOOK_BACK)]
+                    n_keys = online_utts if online else utts
+                    want = ({"hermitian_eigh": chunks if online else utts}
+                            if backend == "music" else None)
+                    outs = both("S1", label, "do_ssl", lambda out: [
+                        str(scp), str(sv_path), str(out / "doa")] + extra,
+                        keys[:n_keys], want)
+                    doas = {}
+                    for d in outs:
+                        doas[d] = {}
+                        for line in (outs[d] / "doa").read_text(
+                                ).splitlines():
+                            key, vals = line.split("\t")
+                            doas[d][key] = [float(v) for v in vals.split()]
+                    flips, worst = 0, 0
+                    for key in keys[:n_keys]:
+                        if not online:
+                            worst = max(worst, _s_index_error(
+                                np, geometry, doas[card][key][0],
+                                info[key][0]))
+                        for c, (a, b) in enumerate(zip(doas[card][key],
+                                                       doas["cpu"][key])):
+                            if a == b:
+                                continue
+                            # a flip: only at a near-tie of the CPU's scores
+                            wav = torch.from_numpy(read_wav(
+                                root / f"{key}.wav"))
+                            x = forward_stft(wav, cfg)
+                            m = torch.from_numpy(np.load(root /
+                                                         f"{key}.npy"))
+                            if online:
+                                s = max(c * S_CHUNK - S_LOOK_BACK, 0)
+                                x = x[:, s:(c + 1) * S_CHUNK]
+                                m = m[s:(c + 1) * S_CHUNK]
+                            if backend == "ml":
+                                sc = ssl.ml_ssl(x, grid, compression=-1,
+                                                eps=1.1920929e-07, mask=m,
+                                                return_scores=True)[1]
+                            elif backend == "srp":
+                                p = [tuple(map(int, q.split(","))) for q in
+                                     g["srp_pair"].split(";")]
+                                sc = ssl.srp_ssl(x, grid, (
+                                    [q[0] for q in p], [q[1] for q in p]),
+                                    mask=m, return_scores=True)[1]
+                            else:
+                                sc = -ssl.music_ssl(x, grid, mask=m,
+                                                    return_scores=True)[1]
+                            top = torch.sort(sc).values
+                            if float(top[-1] - top[-2]) > S_SCORE_TOL[
+                                    backend] * float(sc.abs().max()):
+                                raise AssertionError(
+                                    f"S1 {label} {key} chunk {c}: card "
+                                    f"{a} vs CPU {b} past a near-tie")
+                            flips += 1
+                    summary["S1"][label] = {"flips_at_near_ties": flips,
+                                            "grid_steps_worst": worst}
+                    if worst > 2:
+                        raise AssertionError(f"S1 {label}: a DoA {worst} "
+                                             f"grid steps off")
+
+            # ---- S2: spatial and directional features ----
+            feats = lambda out: [str(out / "feats.ark"), "--scp",
+                                 str(out / "feats.scp")]
+            if geometry == "circular":
+                archives("S2", "compute_circular_srp", both(
+                    "S2", "compute_circular_srp", "compute_circular_srp",
+                    lambda out: [str(root / "wav.scp")] + feats(out),
+                    keys))
+            else:
+                for kind, extra in (("srp", []),
+                                    ("ipd", ["--ipd.pair", "0,1;0,3"]),
+                                    ("msc", [])):
+                    label = f"compute_ipd_and_linear_srp-{kind}"
+                    archives("S2", label, both(
+                        "S2", label, "compute_ipd_and_linear_srp",
+                        lambda out: [str(root / "wav.scp")] + feats(out) +
+                        ["--type", kind] + extra, keys),
+                        wrapped=kind == "ipd")
+            pairs = "0,1;0,2;1,3;2,3"
+            label = f"compute_df_on_geometry-{geometry}"
+            archives("S2", label, both(
+                "S2", label, "compute_df_on_geometry", lambda out: [
+                    str(root / "wav.scp"), str(sv_path)] + feats(out) +
+                ["--utt2idx", str(root / "utt2idx.scp"), "--df-pair",
+                 pairs], keys))
+            label = f"compute_df_on_mask-{geometry}"
+            archives("S2", label, both(
+                "S2", label, "compute_df_on_mask", lambda out: [
+                    str(root / "wav.scp"), str(root / "mask.scp")] +
+                feats(out) + ["--fmt", "numpy", "--df-pair", pairs], keys,
+                {"masked_covar": utts, "hermitian_eigh": utts}))
+
+            # ---- S3: fixed beamformers and separation ----
+            if geometry == "circular":
+                gap = _s_sd_weights_gap(np, torch, card,
+                                        [info[k][0] for k in keys])
+                summary["S3"]["sd_weights_circle_over_kappa_bar"] = gap
+                if not gap <= 1:
+                    raise AssertionError(f"S3 sd weights on the circle: "
+                                         f"card vs CPU {gap} x the kappa "
+                                         f"bar")
+            for bfm in ("ds", "sd"):
+                ill = geometry == "circular" and bfm == "sd"
+                for track in (False, True):
+                    label = (f"apply_{bfm}_beamformer-{geometry}-"
+                             f"{'track' if track else 'utt2doa'}")
+                    extra = ["--geometry", geometry, "--utt2doa",
+                             str(root / ("utt2doa_track.scp" if track
+                                         else "utt2doa.scp"))]
+                    if track:
+                        extra += ["--chunk-len", str(S_CHUNK)]
+                    outs = wavs("S3", label, both(
+                        "S3", label, f"apply_{bfm}_beamformer",
+                        lambda out: [str(root / "wav.scp"), str(out)] +
+                        extra, keys), keys, ill)
+                    if track:
+                        continue
+                    # the output hears the source at the steering origin
+                    # better than mic 0 hears it at mic 0
+                    corr = []
+                    for key in keys:
+                        got = read_wav(outs[card] / f"{key}.wav")
+                        mic0 = read_wav(root / f"{key}.wav")[0]
+                        src0 = read_wav(root / f"{key}.src.wav")
+                        corr.append((_s_corr(np, got, info[key][2], ill),
+                                     _s_corr(np, mic0, src0, ill)))
+                    summary["S3"][f"{label}-corr_min_out_and_mic0"] = [
+                        min(c for c, _ in corr), min(m for _, m in corr)]
+                    if not all(c > m for c, m in corr):
+                        raise AssertionError(f"S3 {label}: correlations "
+                                             f"(output, mic 0) {corr}")
+            mics = g["mics"]
+            topo = [0.05 * k for k in range(mics)]
+            from setk_tpu_torch.spatial.steer import linear_steer_vector
+            np.save(root / "w.npy", linear_steer_vector(
+                topo, [30.0, 90.0, 150.0], 257) / mics)
+            label = f"apply_fixed_beamformer-{geometry}"
+            wavs("S3", label, both("S3", label, "apply_fixed_beamformer",
+                                   lambda out: [
+                                       str(root / "wav.scp"),
+                                       str(root / "w.npy"), str(out),
+                                       "--utt2beam",
+                                       str(root / "utt2beam.scp")], keys),
+                 keys)
+            for label, extra in (("wav_separate", []),
+                                 ("wav_separate-phase-ref", [
+                                     "--phase-ref", str(root / "mix.scp")])):
+                label = f"{label}-{geometry}"
+                wavs("S3", label, both("S3", label, "wav_separate",
+                                       lambda out: [
+                                           str(root / "wav.scp"),
+                                           str(root / "mask.scp"), str(out),
+                                           "--fmt", "numpy"] + extra, keys),
+                     keys)
+            if geometry == "circular":
+                for mask in ("irm", "ibm", "iam", "psm"):
+                    label = f"oracle_separate-{mask}"
+                    wavs("S3", label, both(
+                        "S3", label, "oracle_separate", lambda out: [
+                            str(root / "mix.scp"),
+                            f"{root / 'src.scp'},{root / 'other.scp'}",
+                            str(out), "--mask", mask], keys),
+                        [f"{k}.spk{s}" for k in keys for s in (1, 2)])
+    print(json.dumps({"S1_localization": summary["S1"],
+                      "S2_features_card_vs_cpu": summary["S2"],
+                      "feat_tol": S_FEAT_TOL,
+                      "S3_wavs_card_vs_cpu_int16_steps": summary["S3"],
+                      "lsb": S_LSB, "sd_circle_lsb": S_SD_CIRCLE_LSB,
+                      "utterances": utts, "secs": secs,
+                      "online_utterances": online_utts}))
+    print(json.dumps({"S_seconds_per_utterance": summary["times"],
+                      "card": smi}))
+    return summary
+
+
 # ---- the BLSTM mask estimator (kernels 20-21) ----
 # MaskNet(arch="blstm") at the train CLI's width (setk_tpu/cli/
 # train_mask_estimator.py:114-115: hidden 512, 3 layers, 257 bins) and the
@@ -3165,7 +3633,11 @@ def main() -> int:
     # ---- 19. V1-V3: the Hermitian EVD and the per-utterance CLI ----
     evd_kernels, evd_steps = _evd_slice(np, torch, dev)
 
-    # ---- 20. timing at the bench shape ----
+    # ---- 20. S1-S3: localization, spatial features, fixed beamformers
+    # and separation ----
+    _spatial_slice(np, torch, smi)
+
+    # ---- 21. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"

@@ -7,5 +7,7 @@ mpdr-whiten) and online (chunked EMA) mvdr:
 ``parallel.executor.BatchEnhancer`` ->
 ``parallel.enhance_step.enhance_batch`` -> the fused CUDA kernels under
 ``ops/cuda`` (sources in ``csrc/``), and the adaptive-beamformer CLI
-over it (``python -m setk_tpu_torch.cli``, I/O in ``io/``).
+over it (``python -m setk_tpu_torch.cli``, I/O in ``io/``), with the
+clustering, WPE/WPD, mask-estimator, separation and spatial (``spatial/``:
+steering grids, localization, spatial features) commands beside it.
 """

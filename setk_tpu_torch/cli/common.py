@@ -1,15 +1,16 @@
 """Shared CLI plumbing: the STFT argparse fragment and small helpers.
 
 The port's copy of ``setk_tpu/cli/common.py`` (StftParser, strtobool,
-stft_config_from_args, pad_to_bucket).
+str2tuple, stft_config_from_args, pad_to_bucket), and the ``--device``
+flag every command of the port takes.
 """
 
 import argparse
 
 import numpy as np
 
-__all__ = ["StftParser", "strtobool", "stft_config_from_args",
-           "pad_to_bucket", "refuse_data_parallel"]
+__all__ = ["StftParser", "strtobool", "str2tuple", "stft_config_from_args",
+           "pad_to_bucket", "refuse_data_parallel", "add_device_flag"]
 
 
 def strtobool(value):
@@ -19,6 +20,19 @@ def strtobool(value):
     if value in ("n", "no", "f", "false", "off", "0"):
         return False
     raise ValueError(f"Invalid bool value: {value}")
+
+
+def str2tuple(string, sep=","):
+    """Map "1.0,2.0" => (1.0, 2.0)."""
+    return tuple(map(float, string.split(sep)))
+
+
+def add_device_flag(parser):
+    """``--device``: where a command computes (``cuda`` by default)."""
+    parser.add_argument("--device", default="cuda",
+                        help="Where to run: cuda (the card) or cpu (the "
+                        "plain path)")
+    return parser
 
 
 class StftParser:

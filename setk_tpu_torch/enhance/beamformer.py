@@ -1,8 +1,9 @@
 """Mask-weighted PSDs and the supervised weight solves — the plain path.
 
 Counterpart of ``setk_tpu/enhance/beamformer.py`` (the mvdr, mpdr,
-gevd and pmwf weights, one-shot and online runs), batched over leading
-axes, with the same layouts (F: bins, N: mics, T: frames):
+gevd and pmwf weights, one-shot and online runs; the fixed ds and sd
+weights and the beam pattern), batched over leading axes, with the same
+layouts (F: bins, N: mics, T: frames):
 
     obs     (..., F, N, T)   complex STFT observations
     mask    (..., F, T)      real T-F masks
@@ -38,8 +39,8 @@ from setk_tpu_torch.ops.linalg import (solve_pevd, hermitianize,
 
 __all__ = [
     "covar_stats", "compute_covar", "compute_covar_pair", "beamform",
-    "do_ban", "rank1_constraint", "fix_steer_phase", "mvdr_weights",
-    "mpdr_weights", "gevd_weights", "pmwf_weights", "pmwf_select_ref",
+    "beam_pattern", "ds_weights", "sd_weights", "do_ban", "rank1_constraint",
+    "fix_steer_phase", "mvdr_weights", "mpdr_weights", "gevd_weights", "pmwf_weights", "pmwf_select_ref",
     "pmwf_select_powers", "supervised_run", "online_supervised_run",
     "WEIGHT_FNS"
 ]
@@ -140,6 +141,17 @@ def beamform(weight: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
     return (weight.conj()[..., None] * obs).sum(-2)
 
 
+def beam_pattern(weight: torch.Tensor,
+                 steer_vector: torch.Tensor) -> torch.Tensor:
+    """|w^H d| over a steering grid.
+
+    weight (..., F, N), steer_vector (F, D, N): the contraction is over
+    the mic axis, giving (..., F, D).
+    """
+    return torch.einsum("fdn,...fn->...fd", steer_vector,
+                        weight.conj()).abs()
+
+
 def do_ban(weight: torch.Tensor, rn: torch.Tensor) -> torch.Tensor:
     """Blind Analytic Normalization post-filter."""
     num = torch.einsum("...a,...ab,...bc,...c->...", weight.conj(), rn, rn,
@@ -180,6 +192,19 @@ def _capon(steer: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     den = torch.where(den.abs() < EPSILON,
                       torch.full_like(den, EPSILON), den)
     return num / den[..., None]
+
+
+def ds_weights(steer: torch.Tensor,
+               num_mics: int | None = None) -> torch.Tensor:
+    """Delay-and-sum: the steer vector over the mic count."""
+    n = num_mics if num_mics is not None else steer.shape[-1]
+    return steer / n
+
+
+def sd_weights(steer: torch.Tensor, diffuse_rn: torch.Tensor) -> torch.Tensor:
+    """Superdirective: the distortionless (Capon) solution against a
+    diffuse-field covariance model."""
+    return _capon(steer, diffuse_rn)
 
 
 def mvdr_weights(rs: torch.Tensor, rn: torch.Tensor,

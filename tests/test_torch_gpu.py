@@ -1008,3 +1008,124 @@ def test_masknet_blstm_runs_kernels_only():
     loss = trainer.train_batch(x, (x > 0).float(), torch.ones(3, 50))
     assert np.isfinite(loss)
     assert _lstm_launches() == [2, 2, 0, 2, 2, 0]
+
+
+# ---- the spatial layer: card against CPU ----
+
+def _spatial_obs(geometry, secs=2.0):
+    """(stft (M, T, F), mask (T, F), grid (A, M, F)) of a far-field
+    source at 67 degrees (tests/spatial_scene.py), numpy."""
+    from spatial_scene import (CIRCLE_MICS, CIRCLE_RADIUS, LINEAR_TOPO,
+                               burst_mask, scene)
+    from setk_tpu_torch.dsp.stft import forward_stft
+    from setk_tpu_torch.spatial.steer import steer_vector_grid
+    wav, _, gate = scene(np.random.default_rng(4), geometry, 67.0,
+                         int(secs * 16000))
+    spec = forward_stft(torch.from_numpy(wav), StftConfig()).numpy()
+    mask = burst_mask(gate, spec.shape[1], spec.shape[2])
+    _, grid = steer_vector_grid(geometry, 181 if geometry == "linear"
+                                else 360, 257,
+                                linear_topo=list(LINEAR_TOPO),
+                                circular_radius=CIRCLE_RADIUS,
+                                circular_around=CIRCLE_MICS)
+    return spec, mask, np.ascontiguousarray(grid.transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("geometry", ["linear", "circular"])
+def test_spatial_features_card_vs_cpu(geometry):
+    from setk_tpu_torch.spatial import features as sf
+    from setk_tpu_torch.utils.device import full_f32_matmuls
+    dev = _card()
+    full_f32_matmuls(dev)
+    spec, _, grid = _spatial_obs(geometry)
+    x_c = torch.from_numpy(spec)
+    x_d = x_c.to(dev)
+    topo = [0.05 * k for k in range(spec.shape[0])]
+    for name, fn in (
+            ("srp", lambda x: sf.srp_phat_linear(x, topo, num_bins=257)),
+            ("gcc_diag", lambda x: sf.gcc_phat_diag(x[0], x[2], 0.0, 0.1,
+                                                    num_bins=257)),
+            ("msc", lambda x: sf.msc(x, context=1)),
+            ("cos_ipd", lambda x: sf.ipd(x[0], x[1], cos=True, sin=True)),
+            ("df", lambda x: sf.directional_feats(
+                x.transpose(1, 2), torch.as_tensor(grid[40],
+                                                   device=x.device)))):
+        got, ref = fn(x_d).cpu(), fn(x_c)
+        assert _rel(got, ref) <= 1e-5, name
+    got = sf.ipd(x_d[0], x_d[1]).cpu()
+    d = (got - sf.ipd(x_c[0], x_c[1])).abs()
+    assert torch.minimum(d, 2 * np.pi - d).max() <= 1e-5 * np.pi
+
+
+@pytest.mark.parametrize("geometry", ["linear", "circular"])
+def test_ssl_card_vs_cpu(geometry):
+    """Scores within 1e-5 of the peak (2e-5 for ML), the index equal where
+    the top two differ by more; music launches the EVD kernel once."""
+    from setk_tpu_torch.spatial import ssl
+    dev = _card()
+    spec, mask, grid = _spatial_obs(geometry)
+    pairs = ([0, 1, 2], [3, 4, 5]) if geometry == "circular" else \
+        ([0, 0, 1], [1, 3, 2])
+    for name, fn, tol in (
+            ("ml", lambda x, m, g: ssl.ml_ssl(x, g, compression=-1,
+                                              eps=1.2e-7, mask=m,
+                                              return_scores=True), 2e-5),
+            ("srp", lambda x, m, g: ssl.srp_ssl(x, g, pairs, mask=m,
+                                                return_scores=True), 1e-5),
+            ("music", lambda x, m, g: ssl.music_ssl(x, g, mask=m,
+                                                    return_scores=True),
+             1e-5)):
+        es.hermitian_eigh.launches = 0
+        idx_d, sc_d = fn(*(torch.from_numpy(a).to(dev)
+                           for a in (spec, mask, grid)))
+        torch.cuda.synchronize()
+        assert es.hermitian_eigh.launches == (name == "music"), name
+        idx_c, sc_c = fn(*(torch.from_numpy(a) for a in (spec, mask, grid)))
+        assert _rel(sc_d.cpu(), sc_c) <= tol, name
+        top = torch.sort(sc_c if name != "music" else -sc_c).values
+        if float(top[-1] - top[-2]) > tol * float(sc_c.abs().max()):
+            assert int(idx_d) == int(idx_c), name
+
+
+@pytest.mark.parametrize("geometry,eps", [("linear", 0.1),
+                                          ("circular", 1e-5)])
+def test_sd_weights_card_vs_cpu(geometry, eps):
+    """Within max(kappa_f 1e-6, 1e-5) of each bin's peak."""
+    from setk_tpu_torch.spatial import steer as st
+    dev = _card()
+    if geometry == "linear":
+        topo = [0.0, 0.05, 0.1, 0.15]
+        dist = st.linear_distance_matrix(topo)
+        steer = st.linear_steer_vector(topo, 30.0, 257)
+    else:
+        dist = st.circular_distance_matrix(0.05, 6)
+        steer = st.circular_steer_vector(0.05, 6, 30.0, 257)
+    rn = st.diffuse_covar(257, dist, diag_eps=eps)
+    steer = torch.from_numpy(steer / steer.shape[-1])
+    rn_t = torch.from_numpy(rn)
+    got = bf.sd_weights(steer.to(dev), rn_t.to(dev)).cpu()
+    ref = bf.sd_weights(steer, rn_t)
+    kappa = torch.from_numpy(np.linalg.cond(rn.astype(np.complex128)))
+    err = (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+    assert (err <= torch.clamp(kappa * 1e-6, min=1e-5)).all()
+
+
+def test_df_on_mask_path_launches_covar_and_eigh_once():
+    """compute_df_on_mask's steps on the card: kernel 13 and the EVD
+    kernel once each, the features within 1e-5 of the CPU's."""
+    from setk_tpu_torch.ops.linalg import solve_pevd
+    from setk_tpu_torch.spatial.features import directional_feats
+    dev = _card()
+    spec, mask, _ = _spatial_obs("circular")
+    obs = torch.from_numpy(np.ascontiguousarray(spec.transpose(0, 2, 1)))
+    m = torch.from_numpy(np.ascontiguousarray(mask.T))
+
+    def run(o, w):
+        sv = solve_pevd(bf.compute_covar(o.transpose(0, 1), w))
+        return directional_feats(o, sv.T)
+
+    mc.masked_covar.launches = es.hermitian_eigh.launches = 0
+    got = run(obs.to(dev), m.to(dev)).cpu()
+    torch.cuda.synchronize()
+    assert (mc.masked_covar.launches, es.hermitian_eigh.launches) == (1, 1)
+    assert _rel(got, run(obs, m)) <= 1e-5
