@@ -232,7 +232,35 @@ the CUDA toolkit.  In order it:
      sd with the scene's DoA correlate with
      the source at the steering origin better than mic 0 does with the
      source at mic 0 (sd on the circle: both high-passed at 406 Hz);
-  21. times each kernel (20 launches replayed from one CUDA graph, so the
+  21. O1-O3, single-channel and blind enhancement, features and the
+     metrics (``_omlsa_slice``): O1 holds the OM-LSA kernel
+     (csrc/omlsa.cu, MCRA and iMCRA; it replaces a lax.scan, no TPU
+     kernel) against its plain version on the card at one 8 s utterance
+     (T = 501) of a noise floor with bursts, F = 257, 513 and 1025, and
+     non-default configurations (MCRA L 40 w_global 7, iMCRA U 4 V 10):
+     the largest gain difference within 1e-4, the share above 1e-5 and
+     the gains moved past 1e-3 (a crossed threshold: none allowed)
+     printed; it times the kernel (graph replay and eager), the plain
+     loop on the card, an L = 128 launch, and prints its layout and
+     ptxas' registers and spills.  O2 runs apply_ns (both estimators,
+     wave and gain) over 8 utterances of 8 s and apply_auxiva on a 2- and
+     a 4-channel convolutive mixture of 8 s (20 epochs) on the card
+     against --device cpu: exact launches (omlsa once an utterance,
+     masked_covar ceil(N / 4) an epoch), waves within 2 int16 steps
+     (AuxIVA 16 and a correlation of 0.9999), gain archives within
+     1e-5 (iMCRA) and 5e-4 (MCRA) of max(1, |gain|) of the CPU's and
+     within 1e-4 of the same command through the plain version on the
+     card, seconds an utterance on each and the idle share of one warm
+     apply_ns utterance.  O3 runs compute_fbank, compute_spectrogram,
+     wav_estimate (--phase-ref; Griffin-Lim at 5 epochs within 2 steps
+     and at 30 within O_GL_LSB) and compute_si_snr the same way:
+     archives within 1e-5 of their peak (log features as the magnitudes
+     they are the log of), printed lines equal; Griffin-Lim's card-CPU
+     gap by epoch on two utterances from two phase seeds, in f32 and in
+     float64 (within 2 steps), the card's f32 no further from float64
+     than twice the CPU's f32 (or 2 steps); compute_sdr and compute_wer (host only)
+     once, their lines against the port's bss_eval_sdr and permute_ed;
+  22. times each kernel (20 launches replayed from one CUDA graph, so the
      wrapper's host work is not counted; the eager per-call time beside
      it), its plain version, the one PyTorch call that computes the same
      function where there is one (torch.stft, torch.istft, torch.einsum,
@@ -250,8 +278,8 @@ the CUDA toolkit.  In order it:
      (torch.profiler: device time by kernel, the device's idle share)
      and prints the kernels line (kernels 16-19 timed at W's scene, with
      the wpe, wpd and BatchWpe steps and their idle shares, 20-21 and the
-     BLSTM steps from step 18);
-  22. prints {"ok": true, "device": {...}} as the last line.
+     BLSTM steps from step 18, the EVD from step 19, omlsa from step 21);
+  23. prints {"ok": true, "device": {...}} as the last line.
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the setk_tpu_torch package beside this file, it exits 2, says
 which on stdout and stderr, and prints no result.
@@ -489,7 +517,7 @@ def _ptxas_summary(log: str) -> dict:
                       r"|hermitian_eigh_lanes|hermitian_eigh"
                       r"|hermitian_solve"
                       r"|gram_solve"
-                      r"|wpe_gram|wpe_apply|em_warp|warp_jacobi)"
+                      r"|wpe_gram|wpe_apply|em_warp|warp_jacobi|imcra|mcra)"
                       r"_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?([fs]?)E",
                       line)
         if "Compiling entry function" in line and m:
@@ -633,6 +661,7 @@ def _all_counted():
     from setk_tpu_torch.ops.cuda import fused_mvdr as fm
     from setk_tpu_torch.ops.cuda import lstm_seq as ls
     from setk_tpu_torch.ops.cuda import mvdr as mv
+    from setk_tpu_torch.ops.cuda import omlsa as om
     from setk_tpu_torch.ops.cuda import planar as pl
     from setk_tpu_torch.ops.cuda import wpe_gram as wg
     return (fm.stft_covar, fm.beamform_istft, fm.covar_ema,
@@ -645,7 +674,8 @@ def _all_counted():
             ch.solve_wpe_gram, wg.wpe_gram, wg.wpe_apply,
             ls.lstm_seq_forward, ls.lstm_seq_forward_resident,
             ls.lstm_seq_forward_stream, ls.lstm_seq_backward,
-            ls.lstm_seq_backward_resident, ls.lstm_seq_backward_stream)
+            ls.lstm_seq_backward_resident, ls.lstm_seq_backward_stream,
+            om.omlsa)
 
 
 def _launched(torch, run, label, want):
@@ -2386,6 +2416,496 @@ def _spatial_slice(np, torch, smi, card="cuda", utts=S_UTTS, secs=S_SECS,
     return summary
 
 
+# ---- single-channel and blind enhancement, features, metrics (O1-O3) ----
+# the OM-LSA kernel at one 8 s utterance (T = 501 frames of 512/256) and
+# the bin counts of n_fft 512, 1024 and 2048; the commands over 8
+# utterances of 8 s: speech-like bursts (200-4000 Hz noise, on for 2400
+# samples in every 4800) in white noise at 0.1 of their level, and a
+# second burst source on the other half-periods
+O_T, O_F, O_UTTS, O_SECS = 501, (257, 513, 1025), 8, 8
+O_CONF = {"mcra": {"L": 40, "w_global": 7}, "imcra": {"U": 4, "V": 10}}
+O_TOL = 1e-4             # kernel vs plain, absolute gain
+O_SHARE = 1e-5           # the share of gains further apart than this
+O_FLIP = 1e-3            # a gain that moves this far crossed a threshold
+O_AUX_EPOCHS = 20
+# AuxIVA card vs CPU: 20 epochs of IP updates through cuSOLVER's and
+# LAPACK's solves and kernel 13's sums in another order than the plain
+# product's; the outputs are held to 16 int16 steps (5e-4 of full scale)
+# and a correlation of 0.9999 (tests/test_torch_auxiva.py: the port lies
+# 5e-6 to 8e-5 of the peak from JAX on the CPU)
+O_AUX_LSB, O_AUX_CORR = 16, 0.9999
+O_ARK_TOL = 1e-5         # archives card vs CPU, of the peak
+# apply_ns's gain archives, of max(1, |gain|): the card's against the
+# same command's through the plain version on the card (O1's bar), and
+# against --device cpu at the CPU tests' bars (tests/test_torch_ns.py:
+# iMCRA 1e-5; MCRA 5e-4, two f32 runs whose roundings differ, here the
+# card's math library against the CPU's, which MCRA's recursion carries
+# from frame to frame)
+O_GAIN_TOL = {"imcra": 1e-5, "mcra": 5e-4}
+# Griffin-Lim card vs CPU: both start from one CPU generator's phase, and
+# each iteration's STFT and iSTFT (cuFFT against pocketfft, ~1e-7 of the
+# peak apart) feeds the next phase.  The gap by epoch is read on two
+# utterances from two phase seeds each.  The same loops in float64 must
+# agree within O_GL64_LSB int16 steps (the card computes the CPU's
+# function; 4.9e-10 to 4.0e-9 steps measured), and the card's f32 run
+# may lie no further from the CPU's float64 run than the larger of
+# O_GL64_LSB and twice the furthest the CPU's own f32 run lies from it
+# (the f32 rounding floor: CPU 0.19-5.8 steps, card 0.46-3.3 measured).
+# 5 epochs are held to the CPU test's 2 int16 steps, the command's
+# default 30 to O_GL_LSB and a correlation of O_GL_CORR: two f32 runs
+# each within the floor of the float64 loop, where the command's 30
+# epochs measured 6 and 14 steps over 8 utterances in two runs
+O_GL_EPOCHS, O_GL_SEEDS, O_GL64_LSB = (5, 10, 20, 30), (0, 1), 2
+O_GL_LSB, O_GL_CORR = 32, 0.99999
+
+
+def _o_scene(np, t, f, seed):
+    """|X|^2 of tests/ns_scene.py's STFT scene (a noise floor with bursts
+    of 30x its amplitude in a band, every third run of 12 frames)."""
+    rng = np.random.default_rng(seed)
+    noise = (rng.standard_normal((t, f)) +
+             1j * rng.standard_normal((t, f))) * 0.1
+    gate = ((np.arange(t) // 12) % 3 == 1)[:, None]
+    band = np.exp(-((np.arange(f) - f / 3) / (f / 6))**2)[None]
+    speech = (rng.standard_normal((t, f)) +
+              1j * rng.standard_normal((t, f))) * 3.0 * band * gate
+    return (np.abs(noise + speech)**2).astype(np.float32)
+
+
+def _flops_omlsa(estimator, cfg, rows, t, f):
+    """Operations of the recursion, a transcendental counted as one: per
+    bin and frame ~95 (MCRA) or ~85 (iMCRA) outside the convolutions,
+    2 a tap of each convolution (MCRA: |X|^2 by w_m, zeta by w_g and
+    w_l; iMCRA: |X|^2, the indicator and |X|^2 x indicator by w_m), and
+    MCRA's frame mean (1 a bin, ~30 a frame)."""
+    wm = 2 * cfg.w_mcra + 1
+    if estimator == "mcra":
+        per = 95 + 2 * (wm + 2 * cfg.w_global + 1 + 2 * cfg.w_local + 1) + 1
+        return rows * t * (f * per + 30)
+    return rows * t * f * (85 + 6 * wm)
+
+
+def _write_o_corpus(np, root, count, secs, seed):
+    """``count`` utterances of ``secs`` s (int16 wav files): noisy,
+    clean, other; a 2- and a 4-channel convolutive mixture of the first
+    utterance's sources; two speakers' transcripts.  Returns the keys."""
+    from setk_tpu_torch.io.wave import write_wav
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    s = secs * SR
+    freqs = np.fft.rfftfreq(s, 1 / SR)
+
+    def bursts(phase):
+        spec = np.fft.rfft(rng.standard_normal(s))
+        spec *= (freqs > 200) & (freqs < 4000)
+        sig = np.fft.irfft(spec, n=s)
+        gate = ((np.arange(s) + phase) // 2400) % 2 == 0
+        return sig / sig.std() * 0.2 * gate
+
+    lines, keys = {}, []
+    for i in range(count):
+        key = f"o{i}"
+        keys.append(key)
+        clean, other = bursts(0), bursts(2400)
+        noisy = clean + 0.02 * rng.standard_normal(s)
+        data = {"noisy": noisy, "clean": clean, "other": other,
+                "onoisy": other + 0.02 * rng.standard_normal(s)}
+        if i == 0:
+            srcs = [clean, other, bursts(1200), bursts(3600)]
+            for n in (2, 4):
+                taps = rng.standard_normal((n, n, 6)) * 0.5**np.arange(6)
+                taps[np.arange(n), np.arange(n), 0] = 1.5
+                mix = np.stack([sum(np.convolve(srcs[j], taps[m, j])[:s]
+                                    for j in range(n)) for m in range(n)])
+                data[f"mix{n}"] = mix / np.abs(mix).max() * 0.5
+        for name, x in data.items():
+            path = root / f"{key}.{name}.wav"
+            write_wav(path, x.astype(np.float32), sr=SR)
+            lines.setdefault(name, []).append(f"{key} {path}")
+    words = "a b c d e f g h".split()
+    for name in ("hyp1", "hyp2", "ref1", "ref2"):
+        lines[name] = [f"{k} " + " ".join(rng.choice(words, 6)) for k in keys]
+    for name, rows in lines.items():
+        (root / f"{name}.scp").write_text("\n".join(rows) + "\n")
+    return keys
+
+
+def _gl_drift(np, torch, card, feats, keys):
+    """Griffin-Lim on ``card`` against the CPU from the same initial
+    phase, in int16 steps of full scale: f32 after each of O_GL_EPOCHS,
+    float64 after the last, and the CPU's and the card's f32 against the
+    CPU's float64 run, for each key (log magnitudes in ``feats``) and
+    seed of O_GL_SEEDS.  Fails where the f32 run at 30 epochs passes
+    O_GL_LSB, float64 passes O_GL64_LSB, or the card's f32 run lies
+    further from the float64 run than the larger of O_GL64_LSB and twice
+    the CPU's f32 run's furthest."""
+    from setk_tpu_torch.dsp.griffin_lim import _griffin_lim_from
+    from setk_tpu_torch.dsp.stft import StftConfig
+    cfg, last, rows = StftConfig(), O_GL_EPOCHS[-1], {}
+    for key in keys:
+        mag = torch.from_numpy(np.exp(np.asarray(feats[key], np.float64)))
+        for seed in O_GL_SEEDS:
+            phase0 = torch.rand(mag.shape, dtype=torch.float64,
+                                generator=torch.Generator().manual_seed(
+                                    seed))
+            runs = {}
+            for dtype in (torch.float32, torch.float64):
+                for device in (card, "cpu"):
+                    for epochs in (O_GL_EPOCHS if dtype == torch.float32
+                                   else (last,)):
+                        runs[dtype, device, epochs] = _griffin_lim_from(
+                            mag.to(device, dtype), phase0.to(device, dtype),
+                            cfg, epochs, None).double().cpu()
+            steps = lambda a, b: float((runs[a] - runs[b]).abs().max() *
+                                       32768)
+            f32, f64 = torch.float32, torch.float64
+            row = {f"f32_{e}": steps((f32, card, e), (f32, "cpu", e))
+                   for e in O_GL_EPOCHS}
+            row[f"f64_{last}"] = steps((f64, card, last), (f64, "cpu", last))
+            row[f"cpu_f32_vs_f64_{last}"] = steps((f32, "cpu", last),
+                                                  (f64, "cpu", last))
+            row[f"card_f32_vs_cpu_f64_{last}"] = steps((f32, card, last),
+                                                       (f64, "cpu", last))
+            rows[f"{key},seed={seed}"] = row
+            if not (row[f"f32_{last}"] <= O_GL_LSB and
+                    row[f"f64_{last}"] <= O_GL64_LSB):
+                raise AssertionError(f"O3 Griffin-Lim {key} seed {seed}: "
+                                     f"{row}")
+    floor = max(row[f"cpu_f32_vs_f64_{last}"] for row in rows.values())
+    worst = max(row[f"card_f32_vs_cpu_f64_{last}"] for row in rows.values())
+    if not worst <= max(O_GL64_LSB, 2 * floor):
+        raise AssertionError(f"O3 Griffin-Lim: the card's f32 lies {worst} "
+                             f"steps from float64, the CPU's {floor}")
+    return rows
+
+
+def _sdr_lines(np, root, keys, ests, refs):
+    """compute_sdr's printed lines (``--details``) from the port's
+    bss_eval_sdr on the corpus' wav files."""
+    from setk_tpu_torch.io.wave import read_wav
+    from setk_tpu_torch.metrics import bss_eval_sdr
+    lines, scores = [], []
+    for key in keys:
+        est, ref = (np.stack([read_wav(root / f"{key}.{n}.wav")
+                              for n in names]) for names in (ests, refs))
+        scores.append(float(np.mean(bss_eval_sdr(est, ref)[0])))
+        lines.append(f"{key} {scores[-1]:.2f}")
+    return lines + [f"SDR: {np.mean(scores):.3f} dB over {len(keys)} "
+                    f"utterances"]
+
+
+def _wer_lines(root, keys):
+    """compute_wer's printed line from the port's permute_ed on the two
+    speakers' transcripts."""
+    from setk_tpu_torch.metrics import permute_ed
+    text = {}
+    for name in ("hyp1", "hyp2", "ref1", "ref2"):
+        for line in (root / f"{name}.scp").read_text().splitlines():
+            key, *words = line.split()
+            text[name, key] = words
+    err = sum(permute_ed([text["hyp1", k], text["hyp2", k]],
+                         [text["ref1", k], text["ref2", k]]) for k in keys)
+    total = sum(len(text["ref1", k]) + len(text["ref2", k]) for k in keys)
+    return [f"Total WER: {err * 100 / total:.2f}%, {len(keys)} utterances"]
+
+
+def _omlsa_slice(np, torch, smi, card="cuda", utts=O_UTTS, secs=O_SECS,
+                 t_frames=O_T, bins=O_F):
+    """Phases O1-O3: the OM-LSA kernel against its plain version, then
+    the eight commands of the slice on ``card`` against ``--device cpu``.
+    Returns the kernel's row for the kernels line."""
+    import contextlib
+    import importlib
+    import io
+    from setk_tpu_torch.enhance import ns
+    from setk_tpu_torch.io import ExrawScriptReader, ScriptReader
+    from setk_tpu_torch.io.wave import read_wav
+    from setk_tpu_torch.ops.cuda import _build
+    from setk_tpu_torch.ops.cuda import omlsa as om
+    configs = {"mcra": ns.MCRAConfig, "imcra": ns.IMCRAConfig}
+    dev = torch.device(card)
+
+    # ---- O1: the kernel against its plain version ----
+    o1, worst = {}, 0.0
+    cases = [(est, f, {}) for est in configs for f in bins] + [
+        (est, bins[0], conf) for est, conf in O_CONF.items()]
+    for est, f, conf in cases:
+        cfg = configs[est](**conf)
+        pw = torch.from_numpy(_o_scene(np, t_frames, f, seed=f))[None].to(dev)
+        gap = (om.omlsa(pw, est, cfg) - om.omlsa_plain(pw, est, cfg)).abs()
+        label = f"{est},F={f}" + "".join(f",{k}={v}" for k, v in conf.items())
+        o1[label] = {"max_abs_err": float(gap.max()),
+                     "share_above_1e-5": float((gap > O_SHARE).float().mean()),
+                     "flipped": int((gap > O_FLIP).sum())}
+        worst = max(worst, o1[label]["max_abs_err"])
+    torch.cuda.synchronize()
+    print(json.dumps({"O1_omlsa_kernel_vs_plain": o1, "tol": O_TOL,
+                      "flip_bar": O_FLIP, "frames": t_frames}))
+    bad = {k: v for k, v in o1.items()
+           if not v["max_abs_err"] <= O_TOL or v["flipped"]}
+    if bad:
+        raise AssertionError(f"O1: the OM-LSA kernel against its plain "
+                             f"version {bad}")
+    timing, f0 = {}, bins[0]
+    for est, make in configs.items():
+        cfg = make()
+        for f in bins:
+            pw = torch.from_numpy(_o_scene(np, t_frames, f, seed=f))[None].to(
+                dev)
+            timing[f"{est},F={f}"] = {
+                "ms": _graph_ms(torch, lambda: om.omlsa(pw, est, cfg),
+                                iters=5),
+                "eager_ms": _time_ms(torch, lambda: om.omlsa(pw, est, cfg),
+                                     iters=5, warmup=1),
+                "layout": om.omlsa_layout(est, f, getattr(cfg, "U", 0),
+                                          len(om._params(est, cfg, 1e-7, 1,
+                                                         f)[2]), dev)}
+        pw = torch.from_numpy(_o_scene(np, t_frames, f0, seed=f0))[None].to(
+            dev)
+        row = timing[f"{est},F={f0}"]
+        row["plain_ms"] = _time_ms(
+            torch, lambda: om.omlsa_plain(pw, est, cfg), iters=2, warmup=1)
+        rows128 = pw.expand(128, -1, -1).contiguous()
+        row["L128_ms"] = _graph_ms(
+            torch, lambda: om.omlsa(rows128, est, cfg), iters=3)
+        row["bound"] = _bound(2 * pw.nbytes, _flops_omlsa(
+            est, cfg, 1, t_frames, f0))
+    ptxas = _ptxas_summary((_build.BUILD_DIR / "ptxas.log").read_text()) \
+        if (_build.BUILD_DIR / "ptxas.log").exists() else {}
+    print(json.dumps({"O1_omlsa_ms": timing, "ptxas": {
+        k: v for k, v in ptxas.items() if "mcra" in k}, "card": smi}))
+
+    # ---- O2, O3: the commands, card against CPU ----
+    summary = {"O2": {}, "O3": {}, "times": {}, "launches": {}}
+
+    def both(phase, label, command, argv_of, n_utts, want=None):
+        """The command on the card (exactly ``want``'s launches) and on
+        the CPU; returns {device: (out_dir, stdout)}."""
+        mod = importlib.import_module(f"setk_tpu_torch.cli.{command}")
+        outs = {}
+        for device in (card, "cpu"):
+            out = tmp / phase / f"{label}-{device}"
+            out.mkdir(parents=True)
+            args = mod.make_parser().parse_args(
+                argv_of(out) + ["--device", device])
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                if device == card:
+                    _, counts = _launched(torch, lambda: mod.run(args),
+                                          f"{phase} {label}",
+                                          set(want or {}))
+                    if counts != (want or {}):
+                        raise AssertionError(f"{phase} {label}: launched "
+                                             f"{counts}, needs {want}")
+                    summary["launches"][label] = counts
+                else:
+                    mod.run(args)
+            summary["times"].setdefault(label, {})[
+                "card_s_per_utt" if device == card else "cpu_s_per_utt"] = \
+                (time.perf_counter() - t0) / n_utts
+            outs[device] = (out, printed.getvalue())
+        return outs
+
+    def wavs(phase, label, outs, names, lsb):
+        gaps, corr = [], []
+        for name in names:
+            paths = [outs[d][0] / f"{name}.wav" for d in (card, "cpu")]
+            if not all(p.exists() for p in paths):
+                raise AssertionError(f"{phase} {label}: {name} not written")
+            got, ref = (read_wav(p, normalize=False) for p in paths)
+            if got.shape != ref.shape or np.abs(ref).max() < 100:
+                raise AssertionError(f"{phase} {label} {name}: shape or "
+                                     f"silence")
+            gaps.append(float(np.abs(got - ref).max()))
+            corr.append(_s_corr(np, got, ref))
+        summary[phase][label] = {"int16_steps": max(gaps),
+                                 "min_corr": min(corr)}
+        if not max(gaps) <= lsb:
+            raise AssertionError(f"{phase} {label}: card vs CPU {max(gaps)} "
+                                 f"int16 steps > {lsb}")
+        return min(corr)
+
+    def archives(phase, label, outs, log, reader=ScriptReader):
+        ref = dict(reader(str(outs["cpu"][0] / "feats.scp")))
+        got = dict(reader(str(outs[card][0] / "feats.scp")))
+        if list(got) != list(ref) or not ref:
+            raise AssertionError(f"{phase} {label}: keys differ")
+        worst = 0.0
+        for key, r in ref.items():
+            g = np.asarray(got[key], dtype=np.float64)
+            r = np.asarray(r, dtype=np.float64)
+            if g.shape != r.shape or not np.isfinite(g).all():
+                raise AssertionError(f"{phase} {label} {key}: shape or "
+                                     f"not finite")
+            if log:   # as the magnitudes they are the log of
+                g, r = np.exp(g), np.exp(r)
+            worst = max(worst, float(np.abs(g - r).max() / np.abs(r).max()))
+        summary[phase][label] = worst
+        if not worst <= O_ARK_TOL:
+            raise AssertionError(f"{phase} {label}: card vs CPU {worst} of "
+                                 f"the peak > {O_ARK_TOL}")
+
+    def host(command, argv, want, n_utts):
+        """A host-only command once; its printed lines must be ``want``."""
+        mod = importlib.import_module(f"setk_tpu_torch.cli.{command}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.run(mod.make_parser().parse_args(argv))
+        summary["times"][command] = {
+            "host_s_per_utt": (time.perf_counter() - t0) / n_utts}
+        got = out.getvalue().strip().splitlines()
+        if got != want:
+            raise AssertionError(f"O3 {command}: printed {got} vs {want}")
+        summary["O3"][command] = got[-1]
+
+    def printed(phase, label, outs):
+        if outs[card][1] != outs["cpu"][1] or not outs["cpu"][1]:
+            raise AssertionError(f"{phase} {label}: printed {outs[card][1]!r}"
+                                 f" vs {outs['cpu'][1]!r}")
+        summary[phase][label] = outs["cpu"][1].strip().splitlines()[-1]
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_dir:
+        tmp = Path(tmp_dir)
+        root = tmp / "corpus"
+        keys = _write_o_corpus(np, root, utts, secs, seed=43)
+        scp = lambda name: str(root / f"{name}.scp")
+        (root / "two.scp").write_text("".join(
+            f"{k} {root / f'{k}.noisy.wav'}\n" for k in keys[:2]))
+        ns_cli = importlib.import_module("setk_tpu_torch.cli.apply_ns")
+
+        def gain_gap(dir_a, dir_b, key):
+            a, b = (np.load(d / f"{key}.npy") for d in (dir_a, dir_b))
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"O2 gain {key}: shape or not finite")
+            return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+
+        # ---- O2: apply_ns and apply_auxiva ----
+        for est in configs:
+            label = f"apply_ns-{est}"
+            wavs("O2", label, both("O2", label, "apply_ns", lambda out: [
+                scp("noisy"), str(out), "--estimator", est], utts,
+                {"omlsa": utts}), keys, S_LSB)
+            outs = both("O2", f"{label}-gain", "apply_ns", lambda out: [
+                scp("noisy"), str(out), "--estimator", est, "--output",
+                "gain"], utts, {"omlsa": utts})
+            gap = max(gain_gap(outs[card][0], outs["cpu"][0], k)
+                      for k in keys)
+            summary["O2"][f"{label}-gain"] = gap
+            if not gap <= O_GAIN_TOL[est]:
+                raise AssertionError(f"O2 {label}-gain: card vs CPU {gap} "
+                                     f"> {O_GAIN_TOL[est]}")
+            # the same command through the plain version on the card, on
+            # the first two utterances
+            plain_out = tmp / "O2" / f"{label}-gain-plain"
+            saved, ns.omlsa_kernel = ns.omlsa_kernel, om.omlsa_plain
+            try:
+                ns_cli.run(ns_cli.make_parser().parse_args(
+                    [str(root / "two.scp"), str(plain_out), "--estimator",
+                     est, "--output", "gain", "--device", card]))
+            finally:
+                ns.omlsa_kernel = saved
+            gap = max(gain_gap(outs[card][0], plain_out, k)
+                      for k in keys[:2])
+            summary["O2"][f"{label}-gain-vs-plain"] = gap
+            if not gap <= O_TOL:
+                raise AssertionError(f"O2 {label}-gain: kernel vs plain on "
+                                     f"the card {gap} > {O_TOL}")
+        for n in (2, 4):
+            label = f"apply_auxiva-{n}"
+            (root / f"mix{n}.scp").write_text(
+                f"o0 {root / f'o0.mix{n}.wav'}\n")
+            corr = wavs("O2", label, both(
+                "O2", label, "apply_auxiva", lambda out: [
+                    scp(f"mix{n}"), str(out), "--epochs", str(O_AUX_EPOCHS)],
+                1, {"masked_covar": O_AUX_EPOCHS * -(-n // 4)}),
+                [f"o0.src{i + 1}" for i in range(n)], O_AUX_LSB)
+            if not corr >= O_AUX_CORR:
+                raise AssertionError(f"O2 {label}: correlation {corr}")
+        # the idle share of one warm apply_ns utterance on the card
+        (root / "one.scp").write_text(f"{keys[0]} {root / 'o0.noisy.wav'}\n")
+        one = ns_cli.make_parser().parse_args(
+            [str(root / "one.scp"), str(tmp / "idle"), "--device", card])
+        step_ms = _time_ms(torch, lambda: ns_cli.run(one), iters=3,
+                           warmup=1)
+        summary["O2"]["apply_ns_idle"] = _device_profile(
+            torch, lambda: ns_cli.run(one), step_ms, iters=3, top=5)
+        print(json.dumps({"O2_card_vs_cpu": summary["O2"], "lsb": S_LSB,
+                          "gain_tol": O_GAIN_TOL, "gain_vs_plain_tol": O_TOL,
+                          "auxiva_lsb": O_AUX_LSB,
+                          "auxiva_corr": O_AUX_CORR,
+                          "launches": summary["launches"],
+                          "utterances": utts, "secs": secs}))
+
+        # ---- O3: features, reconstruction, metrics ----
+        feats = lambda out: [str(out / "feats.ark"), "--scp",
+                             str(out / "feats.scp")]
+        archives("O3", "compute_fbank", both(
+            "O3", "compute_fbank", "compute_fbank",
+            lambda out: [scp("noisy")] + feats(out), utts), log=True)
+        spec = both("O3", "compute_spectrogram", "compute_spectrogram",
+                    lambda out: [scp("noisy")] + feats(out), utts)
+        archives("O3", "compute_spectrogram", spec, log=True)
+        archives("O3", "compute_spectrogram-pow", both(
+            "O3", "compute_spectrogram-pow", "compute_spectrogram",
+            lambda out: [scp("noisy")] + feats(out) + [
+                "--apply-log", "false", "--apply-pow", "true"], utts),
+            log=False)
+        mags = str(spec["cpu"][0] / "feats.scp")
+        wavs("O3", "wav_estimate-phase-ref", both(
+            "O3", "wav_estimate-phase-ref", "wav_estimate", lambda out: [
+                mags, str(out), "--apply-log", "true", "--phase-ref",
+                scp("noisy")], utts), keys, S_LSB)
+        for epochs, lsb in ((5, S_LSB), (30, O_GL_LSB)):
+            label = f"wav_estimate-griffin-lim-{epochs}"
+            corr = wavs("O3", label, both(
+                "O3", label, "wav_estimate", lambda out: [
+                    mags, str(out), "--apply-log", "true", "--gl-epochs",
+                    str(epochs)], utts), keys, lsb)
+            if not corr >= O_GL_CORR:
+                raise AssertionError(f"O3 {label}: correlation {corr}")
+        summary["O3"]["griffin_lim_by_epoch"] = _gl_drift(
+            np, torch, card, dict(ScriptReader(mags)), keys[:2])
+        printed("O3", "compute_si_snr", both(
+            "O3", "compute_si_snr", "compute_si_snr", lambda out: [
+                scp("noisy"), scp("clean"), "--details"], utts))
+        printed("O3", "compute_si_snr-align", both(
+            "O3", "compute_si_snr-align", "compute_si_snr", lambda out: [
+                f"{scp('onoisy')},{scp('noisy')}",
+                f"{scp('clean')},{scp('other')}", "--align", "--details"],
+            utts))
+        # compute_sdr and compute_wer compute on the host (no --device):
+        # once each, their printed lines against the port's bss_eval_sdr
+        # and permute_ed (held to setk_tpu's by the CPU tests)
+        ests, refs = ("onoisy", "noisy"), ("clean", "other")
+        host("compute_sdr", [",".join(scp(n) for n in ests),
+                             ",".join(scp(n) for n in refs), "--details"],
+             _sdr_lines(np, root, keys, ests, refs), utts)
+        host("compute_wer", [f"{scp('hyp1')},{scp('hyp2')}",
+                             f"{scp('ref1')},{scp('ref2')}"],
+             _wer_lines(root, keys), utts)
+    print(json.dumps({"O3_card_vs_cpu": summary["O3"],
+                      "ark_tol": O_ARK_TOL, "lsb": S_LSB,
+                      "griffin_lim_30_lsb": O_GL_LSB,
+                      "griffin_lim_corr": O_GL_CORR,
+                      "griffin_lim_float64_lsb": O_GL64_LSB}))
+    print(json.dumps({"O_seconds_per_utterance": summary["times"],
+                      "card": smi}))
+    main = timing[f"imcra,F={f0}"]
+    return [{
+        "name": "omlsa", "route": "cuda",
+        "source": "setk_tpu_torch/csrc/omlsa.cu",
+        "replaces": "none: a lax.scan on the host "
+                    "(setk_tpu/enhance/ns.py:147, :267)",
+        "launches": summary["launches"]["apply_ns-imcra"]["omlsa"],
+        "max_abs_err": worst, "ms": main["ms"], "eager_ms": main["eager_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound"][0],
+        "bound_by": main["bound"][1], "library_ms": None,
+        "shape": f"iMCRA, one row of T = {t_frames} frames, F = {f0}",
+        "by_estimator_and_bins": timing}]
+
+
 # ---- the BLSTM mask estimator (kernels 20-21) ----
 # MaskNet(arch="blstm") at the train CLI's width (setk_tpu/cli/
 # train_mask_estimator.py:114-115: hidden 512, 3 layers, 257 bins) and the
@@ -3637,7 +4157,11 @@ def main() -> int:
     # and separation ----
     _spatial_slice(np, torch, smi)
 
-    # ---- 21. timing at the bench shape ----
+    # ---- 21. O1-O3: OM-LSA noise suppression, AuxIVA, mel features,
+    # Griffin-Lim and the metrics ----
+    omlsa_kernels = _omlsa_slice(np, torch, smi)
+
+    # ---- 22. timing at the bench shape ----
     wav_f = (wav_d.float() / 32768.0).contiguous()
     frames = torch.nn.functional.pad(
         wav_f.reshape(B * N, 1, S), (256, 256), mode="reflect"
@@ -3939,7 +4463,7 @@ def main() -> int:
             row[label] = info[name]
         row.update(row_extra.get(name, {}))
         kernels.append(row)
-    kernels += wpe_kernels + blstm_kernels + evd_kernels
+    kernels += wpe_kernels + blstm_kernels + evd_kernels + omlsa_kernels
     gevd50_ms = _graph_ms(torch, lambda: mv.gevd_power(grs, grn,
                                                        power_iters=50))
     step_ms = _time_ms(torch, lambda: enhance_batch(

@@ -31,9 +31,14 @@ SOURCES = {"mvdr_power": "mvdr_power.cu", "fused_mvdr": "fused_mvdr.cu",
            "covariance_pair": "covariance_pair.cu",
            "covariance": "covariance.cu", "eigh_small": "eigh_small.cu",
            "cacgmm_em": "cacgmm_em.cu", "cholesky": "cholesky.cu",
-           "wpe_gram": "wpe_gram.cu", "lstm_seq": "lstm_seq.cu"}
+           "wpe_gram": "wpe_gram.cu", "lstm_seq": "lstm_seq.cu",
+           "omlsa": "omlsa.cu"}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source beside _FLAGS: the OM-LSA recursion rounds every
+# product and sum as its plain version's separate PyTorch launches do
+# (csrc/omlsa.cu's note)
+_SOURCE_FLAGS = {"omlsa": ["-fmad=false"]}
 
 # C entry points and their ctypes signatures
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -109,6 +114,10 @@ _SIGNATURES = {
         "lstm_bwd_resident_launch": [_P] * 14 + [_I] * 4 + [_P],
         "lstm_bwd_layout": [_I] * 5 + [_P],
     },
+    "omlsa": {
+        "omlsa_launch": [_P] * 6 + [_I, _I, _P],
+        "omlsa_layout": [_I] * 4 + [_P],
+    },
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -136,8 +145,12 @@ def _included(path: Path, seen: set) -> list:
     return files
 
 
+def _flags(name: str) -> list:
+    return _FLAGS + _SOURCE_FLAGS.get(name, [])
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in _included(SOURCE_DIR / SOURCES[name], set()):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
@@ -150,7 +163,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(SOURCE_DIR / SOURCES[name])]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+           str(SOURCE_DIR / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

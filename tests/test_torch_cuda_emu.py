@@ -16,8 +16,9 @@ entries, a frame mask, K = 3) and the BLSTM recurrence forward and
 backward (f32 and bf16 weights, T = 1, ragged last row tiles; kernels 20
 and 21's resident variants as cooperative launches on an emulated card of
 6 SMs, with ragged unit slices, idle blocks, several h tiles and, for
-kernel 21, several dgates chunks and batch tiles) against their
-plain PyTorch versions without a card; it says nothing of speed, and the
+kernel 21, several dgates chunks and batch tiles) and the OM-LSA frame
+recursion (MCRA and iMCRA, the ring and the rows in a global scratch)
+against their plain PyTorch versions without a card; it says nothing of speed, and the
 card's own compiler is checked by chip_smoke.py.  Skips when no g++ with
 C++20 is present (decided inside the fixture).
 """
@@ -2260,3 +2261,126 @@ def test_library_names_follow_sources_and_headers(tmp_path, monkeypatch):
     after = {name: _build._target(name).name for name in _build.SOURCES}
     assert {name for name in before if before[name] != after[name]} == {
         "eigh_small", "cacgmm_em"}
+
+
+# ---- the OM-LSA frame recursion (csrc/omlsa.cu) ----
+# Both estimators against the plain version on the noise-and-bursts scene
+# of tests/test_torch_ns.py: F = 33, 129 and an odd 67 (a partial last
+# warp), T = 140-160 (MCRA's restart at t = 134, iMCRA's boundaries with a
+# full ring), non-default configurations, three rows a launch and a
+# thread of two bins (F = 1100).  Bar: 1e-5 of max(1, |gain|) (the
+# emulator's libm and PyTorch's vectorized transcendentals differ by an
+# ulp; measured ~1e-6); a flipped decision would move a whole frame.
+OMLSA_TOL = 1e-5
+OMLSA_CASES = [
+    ("mcra", {}, 160, 129, 1), ("imcra", {}, 160, 129, 1),
+    ("mcra", {}, 140, 33, 1), ("imcra", {}, 140, 33, 1),
+    ("mcra", {}, 100, 67, 1), ("imcra", {}, 100, 67, 1),
+    ("mcra", {"L": 40, "w_global": 7, "M": 32}, 120, 129, 1),
+    ("imcra", {"U": 4, "V": 10}, 120, 129, 1),
+    ("imcra", {"w_mcra": 2, "V": 6, "U": 9}, 60, 67, 3),
+    ("mcra", {"L": 15}, 40, 129, 3), ("mcra", {}, 30, 1100, 1)]
+
+
+def _omlsa_scene(t, f, rows, seed):
+    from ns_scene import scene
+    return torch.from_numpy(np.stack([
+        np.abs(scene(t, f, seed + r))**2 for r in range(rows)]).astype(
+            np.float32))
+
+
+def _omlsa_run(lib, estimator, cfg, pw):
+    """The kernel through its C entry on CPU tensors; returns (gain,
+    layout)."""
+    from setk_tpu_torch.ops.cuda import omlsa as om
+    rows, t, f = pw.shape
+    floats, ints, taps = om._params(estimator, cfg, 1e-7, t, f)
+    layout = (ctypes.c_int * 6)()
+    assert lib.omlsa_layout(int(estimator == "imcra"), f,
+                            ints[om._INT_FIELDS.index("U")], taps.size,
+                            ctypes.addressof(layout)) == 0
+    scratch = torch.full((max(rows * layout[5], 1),), float("nan"))
+    taps = torch.from_numpy(taps)
+    gain = torch.full_like(pw, float("nan"))
+    err = lib.omlsa_launch(pw.data_ptr(), gain.data_ptr(), taps.data_ptr(),
+                           scratch.data_ptr(), ctypes.addressof(floats),
+                           ctypes.addressof(ints), rows,
+                           int(estimator == "imcra"), None)
+    assert err == 0
+    return gain, list(layout)
+
+
+def _omlsa_config(estimator, conf):
+    from setk_tpu_torch.enhance import ns
+    return (ns.MCRAConfig if estimator == "mcra" else ns.IMCRAConfig)(**conf)
+
+
+def _omlsa_gap(got, ref):
+    return float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+
+
+@pytest.mark.parametrize("estimator,conf,t,f,rows", OMLSA_CASES)
+def test_omlsa_kernel_matches_plain(libs, estimator, conf, t, f, rows):
+    from setk_tpu_torch.ops.cuda import omlsa as om
+    cfg = _omlsa_config(estimator, conf)
+    pw = _omlsa_scene(t, f, rows, seed=f + t)
+    gain, layout = _omlsa_run(libs["omlsa"], estimator, cfg, pw)
+    threads, bpt = layout[:2]
+    assert threads % 32 == 0 and threads * bpt >= f and threads <= 1024
+    assert layout[3:5] == [0, 0]  # rows and ring in shared memory
+    assert _omlsa_gap(gain, om.omlsa_plain(pw, estimator, cfg)) <= OMLSA_TOL
+
+
+def test_omlsa_ring_in_global_scratch(libs):
+    """iMCRA with a ring of U = 300 windowed minima (2 U F floats past the
+    opt-in at F = 129) keeps the ring in the global scratch."""
+    from setk_tpu_torch.ops.cuda import omlsa as om
+    cfg = _omlsa_config("imcra", {"U": 300, "V": 40})
+    pw = _omlsa_scene(130, 129, 1, seed=3)
+    gain, layout = _omlsa_run(libs["omlsa"], "imcra", cfg, pw)
+    assert layout[3:] == [0, 1, 2 * 300 * 129]
+    assert _omlsa_gap(gain, om.omlsa_plain(pw, "imcra", cfg)) <= OMLSA_TOL
+
+
+@pytest.mark.parametrize("estimator", ["mcra", "imcra"])
+def test_omlsa_rows_in_global_scratch(libs, estimator):
+    """Past the opt-in the frame rows move to the scratch too (an
+    emulated card of 2 KB a block): the same barrier orders them."""
+    from setk_tpu_torch.ops.cuda import omlsa as om
+    cfg = _omlsa_config(estimator, {"L": 30} if estimator == "mcra" else {})
+    pw = _omlsa_scene(60, 129, 2, seed=4)
+    lib = libs["omlsa"]
+    lib.emu_set_device_attributes(EMU_SMS, 2048)
+    try:
+        gain, layout = _omlsa_run(lib, estimator, cfg, pw)
+    finally:
+        lib.emu_set_device_attributes(EMU_SMS, EMU_SMEM)
+    nrows = 4 if estimator == "mcra" else 6
+    ring = 2 * 8 * 129 if estimator == "imcra" else 0
+    assert layout[3:] == [1, int(estimator == "imcra"), nrows * 129 + ring]
+    assert _omlsa_gap(gain, om.omlsa_plain(pw, estimator, cfg)) <= OMLSA_TOL
+
+
+def test_omlsa_layout_takes_every_stft_width(libs):
+    """Every F = n_fft / 2 + 1 of n_fft 64-32768 launches: threads a
+    multiple of 32, at most 1,024, enough bins; past 17,408 bins the
+    launch is refused."""
+    lib = libs["omlsa"]
+    out = (ctypes.c_int * 6)()
+    for f in [2**k + 1 for k in range(5, 15)] + [200, 1000, 17408]:
+        for imcra in (0, 1):
+            assert lib.omlsa_layout(imcra, f, 8, 37, ctypes.addressof(out)) \
+                == 0
+            threads, bpt = out[0], out[1]
+            assert threads % 32 == 0 and threads <= 1024
+            assert threads * bpt >= f > (threads - 32) * bpt
+    assert lib.omlsa_layout(1, 17409, 8, 3, ctypes.addressof(out)) != 0
+    assert lib.omlsa_layout(1, 129, 0, 3, ctypes.addressof(out)) != 0
+
+
+def test_omlsa_builds_without_fma_contraction():
+    """Only the OM-LSA source builds with -fmad=false (csrc/omlsa.cu's
+    note), and the flag names its library."""
+    assert "-fmad=false" in _build._flags("omlsa")
+    assert all("-fmad=false" not in _build._flags(name)
+               for name in _build.SOURCES if name != "omlsa")

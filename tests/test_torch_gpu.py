@@ -25,6 +25,7 @@ from setk_tpu_torch.ops.cuda import eigh_small as es
 from setk_tpu_torch.ops.cuda import fused_mvdr as fm
 from setk_tpu_torch.ops.cuda import lstm_seq as ls
 from setk_tpu_torch.ops.cuda import mvdr as mv
+from setk_tpu_torch.ops.cuda import omlsa as om
 from setk_tpu_torch.ops.cuda import planar as pl
 from setk_tpu_torch.ops.cuda import wpe_gram as wgr
 from setk_tpu_torch.parallel.enhance_step import enhance_batch
@@ -1129,3 +1130,71 @@ def test_df_on_mask_path_launches_covar_and_eigh_once():
     torch.cuda.synchronize()
     assert (mc.masked_covar.launches, es.hermitian_eigh.launches) == (1, 1)
     assert _rel(got, run(obs, m)) <= 1e-5
+
+
+# ---- the OM-LSA frame recursion (csrc/omlsa.cu) ----
+
+def _ns_config(estimator, conf):
+    from setk_tpu_torch.enhance import ns
+    return (ns.MCRAConfig if estimator == "mcra" else ns.IMCRAConfig)(**conf)
+
+
+def _ns_power(t, f, rows, seed):
+    from ns_scene import scene
+    return torch.from_numpy(np.stack([
+        np.abs(scene(t, f, seed + r))**2 for r in range(rows)]).astype(
+            np.float32))
+
+
+@pytest.mark.parametrize("estimator", ["mcra", "imcra"])
+@pytest.mark.parametrize("f,conf", [(129, {}), (257, {}), (513, {}),
+                                    (1025, {}), (67, {"L": 40, "V": 10,
+                                                      "U": 4})])
+def test_omlsa_kernel_matches_plain(estimator, f, conf):
+    """One 8 s utterance's frames (T = 501) at every bin count of a
+    power-of-two n_fft 256-2048 and an odd one, against the plain version
+    on the card: 1e-4 absolute (the source builds without FMA
+    contraction, so the two round alike)."""
+    dev = _card()
+    conf = {k: v for k, v in conf.items()
+            if k in ({"L"} if estimator == "mcra" else {"U", "V"})}
+    cfg = _ns_config(estimator, conf)
+    pw = _ns_power(501, f, 1, seed=f).to(dev)
+    om.omlsa.launches = 0
+    got = om.omlsa(pw, estimator, cfg)
+    torch.cuda.synchronize()
+    assert om.omlsa.launches == 1
+    ref = om.omlsa_plain(pw, estimator, cfg)
+    assert float((got - ref).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("estimator,conf", [("mcra", {"L": 30}),
+                                            ("imcra", {"U": 300, "V": 40})])
+def test_omlsa_rows_and_global_ring_match_plain(estimator, conf):
+    """Three rows a launch; iMCRA's ring of U = 300 in the global
+    scratch."""
+    dev = _card()
+    cfg = _ns_config(estimator, conf)
+    pw = _ns_power(200, 257, 3, seed=5).to(dev)
+    got = om.omlsa(pw, estimator, cfg)
+    if estimator == "imcra":
+        assert om.omlsa_layout("imcra", 257, 300, 3, dev)["ring_global"] == 1
+    assert float((got - om.omlsa_plain(pw, estimator, cfg)).abs().max()) \
+        <= TOL
+
+
+def test_auxiva_launches_kernel_13_once_an_epoch_per_four_sources():
+    from setk_tpu_torch.enhance.auxiva import auxiva
+    dev = _card()
+    rng = np.random.default_rng(0)
+    for n in (2, 5):
+        x = (rng.laplace(size=(n, 100, 65)) + 1j * rng.laplace(
+            size=(n, 100, 65))).astype(np.complex64)
+        mc.masked_covar.launches = 0
+        got = auxiva(torch.from_numpy(x).to(dev), epochs=4).cpu()
+        torch.cuda.synchronize()
+        assert mc.masked_covar.launches == 4 * ((n + 3) // 4)
+        ref = auxiva(torch.from_numpy(x), epochs=4)
+        assert _rel(got, ref) <= 1e-4
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        auxiva(np.zeros((9, 10, 5), np.complex64), device="cuda")
