@@ -240,9 +240,13 @@ the CUDA toolkit.  In order it:
      non-default configurations (MCRA L 40 w_global 7, iMCRA U 4 V 10):
      the largest gain difference within 1e-4, the share above 1e-5 and
      the gains moved past 1e-3 (a crossed threshold: none allowed)
-     printed; it times the kernel (graph replay and eager), the plain
-     loop on the card, an L = 128 launch, and prints its layout and
-     ptxas' registers and spills.  O2 runs apply_ns (both estimators,
+     printed; it times the kernel (graph replay and eager) at each F,
+     the plain loop on the card, an L = 128 launch, each stage's device
+     ms (torch.profiler; a reading held to the call's launches and graph
+     ms, taken again where it is off) at F = 257 and at L = 128, and the
+     chain stage's ns a frame, and prints its layout and ptxas' registers
+     and spills (tools/omlsa_profile.py --parent times it beside the
+     parent's design in turns).  O2 runs apply_ns (both estimators,
      wave and gain) over 8 utterances of 8 s and apply_auxiva on a 2- and
      a 4-channel convolutive mixture of 8 s (20 epochs) on the card
      against --device cpu: exact launches (omlsa once an utterance,
@@ -517,7 +521,9 @@ def _ptxas_summary(log: str) -> dict:
                       r"|hermitian_eigh_lanes|hermitian_eigh"
                       r"|hermitian_solve"
                       r"|gram_solve"
-                      r"|wpe_gram|wpe_apply|em_warp|warp_jacobi|imcra|mcra)"
+                      r"|wpe_gram|wpe_apply|em_warp|warp_jacobi"
+                      r"|omlsa_conv|mcra_chain|mcra_frame|mcra_out"
+                      r"|imcra_pre|imcra_ind_conv|imcra_chain|imcra_out)"
                       r"_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?([fs]?)E",
                       line)
         if "Compiling entry function" in line and m:
@@ -825,6 +831,41 @@ def _device_profile(torch, run, step_ms, iters=5, top=8):
     return {"step_ms": step_ms, "device_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / step_ms,
             "top": [[name, ms] for ms, name in kernels[:top]]}
+
+
+def _stage_ms(torch, run, graph_ms, kernels, calls=3, tries=3, tol=0.06):
+    """Device ms a launch of each kernel that ``run`` launches
+    (torch.profiler over ``calls`` calls after a warm-up), largest first,
+    each kernel's total over its own count of launches.  The profiler has
+    read a kernel at a third of its time with its count whole, and has
+    left a kernel out, so a reading holds only where it has ``kernels``
+    kernels, each launched ``calls`` times, whose ms sum to within
+    ``tol`` of ``graph_ms``, the same call's time from a CUDA graph; one
+    that does not is taken again, ``tries`` times at most: ->
+    {"by_kernel": [[name, ms], ...], "sum_ms", "graph_ms", "agrees",
+    "tries"}."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.count]
+        by_kernel = sorted(
+            ([ev.key[:70], ev.self_device_time_total / 1e3 / ev.count]
+             for ev in events), key=lambda row: -row[1])
+        total = sum(ms for _, ms in by_kernel)
+        agrees = (len(events) == kernels and
+                  all(ev.count == calls for ev in events) and
+                  abs(total - graph_ms) <= tol * graph_ms)
+        if agrees:
+            break
+    return {"by_kernel": by_kernel, "sum_ms": total, "graph_ms": graph_ms,
+            "agrees": agrees, "tries": attempt}
 
 
 # ---- clustering: CGMM/CACGMM mask estimation (kernels 13-15) ----
@@ -2670,10 +2711,21 @@ def _omlsa_slice(np, torch, smi, card="cuda", utts=O_UTTS, secs=O_SECS,
             torch, lambda: om.omlsa(rows128, est, cfg), iters=3)
         row["bound"] = _bound(2 * pw.nbytes, _flops_omlsa(
             est, cfg, 1, t_frames, f0))
+        # each stage's device ms (the kernels of one call, by name),
+        # checked against the call's launches and graph ms
+        for label, x, ms in (("stages", pw, row["ms"]),
+                             ("L128_stages", rows128, row["L128_ms"])):
+            row[label] = _stage_ms(torch, lambda: om.omlsa(x, est, cfg),
+                                   ms, row["layout"]["launches"])
+        chain = [ms for name, ms in row["stages"]["by_kernel"]
+                 if "chain" in name]
+        row["chain_ns_a_frame"] = chain[0] * 1e6 / t_frames \
+            if chain and row["stages"]["agrees"] else None
     ptxas = _ptxas_summary((_build.BUILD_DIR / "ptxas.log").read_text()) \
         if (_build.BUILD_DIR / "ptxas.log").exists() else {}
     print(json.dumps({"O1_omlsa_ms": timing, "ptxas": {
-        k: v for k, v in ptxas.items() if "mcra" in k}, "card": smi}))
+        k: v for k, v in ptxas.items() if "mcra" in k or "omlsa" in k},
+        "card": smi}))
 
     # ---- O2, O3: the commands, card against CPU ----
     summary = {"O2": {}, "O3": {}, "times": {}, "launches": {}}

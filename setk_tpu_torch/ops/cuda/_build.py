@@ -117,6 +117,7 @@ _SIGNATURES = {
     "omlsa": {
         "omlsa_launch": [_P] * 6 + [_I, _I, _P],
         "omlsa_layout": [_I] * 4 + [_P],
+        "omlsa_div_launch": [_P] * 4 + [_L, _P],
     },
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)

@@ -5,17 +5,18 @@ Replaces no TPU kernel: the JAX package runs each estimator as one
 pins its command to the host.  Kernel source ``setk_tpu_torch/csrc/
 omlsa.cu``:
 
-  omlsa: power (L, T, F) f32 (|X|^2 of L rows) -> gains (L, T, F) f32,
-      one block a row, a thread one or more bins with that bins' carries
-      in registers; the frame's cross-bin steps (the smoothing windows'
-      'same' convolutions, MCRA's frame mean of zeta) read rows that the
-      block publishes in shared memory (double-buffered, so a frame
-      needs one barrier); iMCRA's ring of U windowed minima sits in
-      shared memory where it fits, else in a global scratch.
+  omlsa: power (L, T, F) f32 (|X|^2 of L rows) -> gains (L, T, F) f32.
+      Only the gain's carry chain is serial; a call runs it as a thread a
+      bin of a row looping over t, with its carries in registers and no
+      barrier, and the cross-bin and output work in passes parallel over
+      (row, frame, bin): MCRA 4 CUDA launches (the 'same' convolution of
+      |X|^2, the chain, the frame level of each row, the gains), iMCRA 5
+      (the convolution, the first smoothing's recursion, the indicator's
+      two convolutions, the chain with the second smoothing, the gains).
 
-CUDA C++ and not Triton: the work is a serial chain of T frames with a
-block-wide barrier and cross-bin reductions between its steps inside one
-block, not one elementwise or reduction pass over a tensor.
+CUDA C++ and not Triton: the heart of the work is a serial chain of T
+frames a bin, with rings of windowed minima indexed at run time, not one
+elementwise or reduction pass over a tensor.
 
 ``omlsa_plain`` is its plain version: the same recursion as a per-frame
 PyTorch loop in the JAX module's order of operations (``exp1`` with the
@@ -33,11 +34,8 @@ import torch
 from setk_tpu_torch.dsp.window import make_window
 from setk_tpu_torch.ops.cuda import _build
 
-__all__ = ["exp1", "omlsa", "omlsa_plain", "omlsa_layout", "MAX_BINS",
-           "RESTART_PHASE"]
+__all__ = ["exp1", "omlsa", "omlsa_plain", "omlsa_layout", "RESTART_PHASE"]
 
-# the bins a block takes: 1,024 threads of at most 17 bins each
-MAX_BINS = 17408
 # MCRA's minimum tracking restarts at frames t with (t + 1) % L == 10
 RESTART_PHASE = 10
 # csrc/omlsa.cu's Params: the float fields, then the int fields, in order
@@ -362,20 +360,29 @@ def _taps_on(taps: bytes, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
+_LAYOUTS = {}
+
+
 def omlsa_layout(estimator: str, f: int, u: int, ntaps: int,
                  device=None) -> dict:
-    """The launch ``csrc/omlsa.cu`` takes for F bins: threads a block,
-    bins a thread, dynamic shared memory, and whether the rows and
-    iMCRA's ring sit in a global scratch (the shared memory a block may
-    opt in to cannot hold them)."""
-    out = (ctypes.c_int * 6)()
-    with torch.cuda.device(device):
-        _build.check(_build.library("omlsa").omlsa_layout(
-            int(estimator == "imcra"), f, u, ntaps, ctypes.addressof(out)),
-            "omlsa_layout")
-    keys = ("threads", "bins_a_thread", "smem_bytes", "rows_global",
-            "ring_global", "scratch_floats")
-    return dict(zip(keys, list(out)))
+    """The launch ``csrc/omlsa.cu`` takes for F bins (U windowed minima,
+    ``ntaps`` window taps), once a device and configuration: threads a
+    block and blocks a row of the loops over t, scratch floats a row and
+    frame and a row besides (the rings of windowed minima, where they do
+    not fit in shared memory), the rings in shared memory, and the CUDA
+    launches a call."""
+    device = torch.device(device if device is not None else "cuda")
+    key = (device.index, estimator, f, u, ntaps)
+    if key not in _LAYOUTS:
+        out = (ctypes.c_int * 6)()
+        with torch.cuda.device(device):
+            _build.check(_build.library("omlsa").omlsa_layout(
+                int(estimator == "imcra"), f, u, ntaps,
+                ctypes.addressof(out)), "omlsa_layout")
+        _LAYOUTS[key] = dict(zip(
+            ("threads", "blocks_a_row", "floats_a_frame", "floats_a_row",
+             "ring_shared", "launches"), out))
+    return _LAYOUTS[key]
 
 
 def omlsa(power: torch.Tensor, estimator: str, cfg,
@@ -383,8 +390,11 @@ def omlsa(power: torch.Tensor, estimator: str, cfg,
     """The OM-LSA kernel: gains (L, T, F) f32 of power (L, T, F) f32.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (``omlsa.launches`` counts those launches, one a call).  The
-    card takes F <= MAX_BINS and T >= 1.
+    kernels, any F >= 1 and T >= 1 (``omlsa.launches`` counts calls: one
+    a call, of 4 CUDA launches for MCRA and 5 for iMCRA).  The scratch
+    (``torch.empty``) holds the intermediates the passes hand on, each an
+    (L, T, F) f32 array, MCRA 4 and iMCRA 6 of them: ~0.5 MB an array at
+    one 8 s utterance (T = 501, F = 257), ~66 MB at L = 128.
     """
     _check_estimator(estimator)
     if power.device.type == "cpu":
@@ -395,14 +405,14 @@ def omlsa(power: torch.Tensor, estimator: str, cfg,
                          f"float32 (L, T, F) CUDA tensor, got {power.dtype} "
                          f"{tuple(power.shape)}")
     rows, t_frames, f = power.shape
-    if f > MAX_BINS:
-        raise ValueError(f"omlsa: F = {f} > {MAX_BINS} bins on the card")
     floats, ints, taps = _params(estimator, cfg, eps, t_frames, f)
     taps_d = _taps_on(taps.tobytes(), power.device)
     layout = omlsa_layout(estimator, f, ints[_INT_FIELDS.index("U")],
                           taps.size, power.device)
-    scratch = torch.empty(max(rows * layout["scratch_floats"], 1),
-                          dtype=torch.float32, device=power.device)
+    scratch = torch.empty(
+        max(rows * (t_frames * layout["floats_a_frame"] +
+                    layout["floats_a_row"]), 1),
+        dtype=torch.float32, device=power.device)
     gain = torch.empty_like(power)
     _build.launch("omlsa", "omlsa_launch", power.device, power.data_ptr(),
                   gain.data_ptr(), taps_d.data_ptr(), scratch.data_ptr(),

@@ -2267,10 +2267,12 @@ def test_library_names_follow_sources_and_headers(tmp_path, monkeypatch):
 # Both estimators against the plain version on the noise-and-bursts scene
 # of tests/test_torch_ns.py: F = 33, 129 and an odd 67 (a partial last
 # warp), T = 140-160 (MCRA's restart at t = 134, iMCRA's boundaries with a
-# full ring), non-default configurations, three rows a launch and a
-# thread of two bins (F = 1100).  Bar: 1e-5 of max(1, |gain|) (the
-# emulator's libm and PyTorch's vectorized transcendentals differ by an
-# ulp; measured ~1e-6); a flipped decision would move a whole frame.
+# full ring), non-default configurations, three rows a launch and F =
+# 1100 (35 chain blocks).  Bar: 1e-5 of max(1, |gain|) (the emulator's
+# libm and PyTorch's vectorized transcendentals differ by an ulp;
+# measured ~1e-6); a flipped decision would move a whole frame.  The
+# scratch and the gains start as NaN, so an intermediate or a gain that
+# no pass wrote shows.
 OMLSA_TOL = 1e-5
 OMLSA_CASES = [
     ("mcra", {}, 160, 129, 1), ("imcra", {}, 160, 129, 1),
@@ -2290,7 +2292,7 @@ def _omlsa_scene(t, f, rows, seed):
 
 
 def _omlsa_run(lib, estimator, cfg, pw):
-    """The kernel through its C entry on CPU tensors; returns (gain,
+    """The kernels through their C entry on CPU tensors; returns (gain,
     layout)."""
     from setk_tpu_torch.ops.cuda import omlsa as om
     rows, t, f = pw.shape
@@ -2299,7 +2301,8 @@ def _omlsa_run(lib, estimator, cfg, pw):
     assert lib.omlsa_layout(int(estimator == "imcra"), f,
                             ints[om._INT_FIELDS.index("U")], taps.size,
                             ctypes.addressof(layout)) == 0
-    scratch = torch.full((max(rows * layout[5], 1),), float("nan"))
+    scratch = torch.full((rows * (t * layout[2] + layout[3]),),
+                         float("nan"))
     taps = torch.from_numpy(taps)
     gain = torch.full_like(pw, float("nan"))
     err = lib.omlsa_launch(pw.data_ptr(), gain.data_ptr(), taps.data_ptr(),
@@ -2319,33 +2322,49 @@ def _omlsa_gap(got, ref):
     return float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
 
 
+def _omlsa_layout_holds(layout, estimator, f, u=8):
+    """The layout's invariants: one-warp blocks of the loops over t,
+    enough of them for F bins and no more, MCRA's 4 or iMCRA's 6 scratch
+    floats a bin and frame (MCRA's frame mean and decision 2 more a
+    frame), iMCRA's rings in shared memory up to U = 128 (16 KB a block)
+    and else 2 U F floats of the scratch a row, 4 or 5 launches."""
+    threads, blocks, a_frame, a_row, ring_shared, launches = layout
+    imcra = estimator == "imcra"
+    assert threads == 32 and blocks * threads >= f > (blocks - 1) * threads
+    assert a_frame == (6 * f if imcra else 4 * f + 2)
+    assert ring_shared == int(imcra and u <= 128)
+    assert a_row == (2 * u * f if imcra and u > 128 else 0)
+    assert launches == (5 if imcra else 4)
+
+
 @pytest.mark.parametrize("estimator,conf,t,f,rows", OMLSA_CASES)
 def test_omlsa_kernel_matches_plain(libs, estimator, conf, t, f, rows):
     from setk_tpu_torch.ops.cuda import omlsa as om
     cfg = _omlsa_config(estimator, conf)
     pw = _omlsa_scene(t, f, rows, seed=f + t)
     gain, layout = _omlsa_run(libs["omlsa"], estimator, cfg, pw)
-    threads, bpt = layout[:2]
-    assert threads % 32 == 0 and threads * bpt >= f and threads <= 1024
-    assert layout[3:5] == [0, 0]  # rows and ring in shared memory
+    _omlsa_layout_holds(layout, estimator, f, getattr(cfg, "U", 0))
     assert _omlsa_gap(gain, om.omlsa_plain(pw, estimator, cfg)) <= OMLSA_TOL
 
 
 def test_omlsa_ring_in_global_scratch(libs):
-    """iMCRA with a ring of U = 300 windowed minima (2 U F floats past the
-    opt-in at F = 129) keeps the ring in the global scratch."""
+    """iMCRA with a ring of U = 300 windowed minima (past the 16 KB a
+    one-warp block keeps in shared memory) keeps both rings in the global
+    scratch."""
     from setk_tpu_torch.ops.cuda import omlsa as om
     cfg = _omlsa_config("imcra", {"U": 300, "V": 40})
     pw = _omlsa_scene(130, 129, 1, seed=3)
     gain, layout = _omlsa_run(libs["omlsa"], "imcra", cfg, pw)
-    assert layout[3:] == [0, 1, 2 * 300 * 129]
+    assert layout[3:] == [2 * 300 * 129, 0, 5]
+    _omlsa_layout_holds(layout, "imcra", 129, 300)
     assert _omlsa_gap(gain, om.omlsa_plain(pw, "imcra", cfg)) <= OMLSA_TOL
 
 
 @pytest.mark.parametrize("estimator", ["mcra", "imcra"])
 def test_omlsa_rows_in_global_scratch(libs, estimator):
-    """Past the opt-in the frame rows move to the scratch too (an
-    emulated card of 2 KB a block): the same barrier orders them."""
+    """Every row the passes hand on lies in the global scratch, and the
+    layout reads nothing of the card: an emulated card of 2 KB a block
+    runs the same launches, two rows a launch."""
     from setk_tpu_torch.ops.cuda import omlsa as om
     cfg = _omlsa_config(estimator, {"L": 30} if estimator == "mcra" else {})
     pw = _omlsa_scene(60, 129, 2, seed=4)
@@ -2355,27 +2374,163 @@ def test_omlsa_rows_in_global_scratch(libs, estimator):
         gain, layout = _omlsa_run(lib, estimator, cfg, pw)
     finally:
         lib.emu_set_device_attributes(EMU_SMS, EMU_SMEM)
-    nrows = 4 if estimator == "mcra" else 6
-    ring = 2 * 8 * 129 if estimator == "imcra" else 0
-    assert layout[3:] == [1, int(estimator == "imcra"), nrows * 129 + ring]
+    _omlsa_layout_holds(layout, estimator, 129)
+    assert layout[2:4] == ([6 * 129, 0] if estimator == "imcra"
+                           else [4 * 129 + 2, 0])
     assert _omlsa_gap(gain, om.omlsa_plain(pw, estimator, cfg)) <= OMLSA_TOL
 
 
 def test_omlsa_layout_takes_every_stft_width(libs):
-    """Every F = n_fft / 2 + 1 of n_fft 64-32768 launches: threads a
-    multiple of 32, at most 1,024, enough bins; past 17,408 bins the
-    launch is refused."""
+    """Every F = n_fft / 2 + 1 of n_fft 64-32768, and past it (17,409 and
+    65,537 bins), launches one-warp blocks enough for its bins; a bin
+    count or U below 1 is refused."""
     lib = libs["omlsa"]
     out = (ctypes.c_int * 6)()
-    for f in [2**k + 1 for k in range(5, 15)] + [200, 1000, 17408]:
+    for f in [2**k + 1 for k in range(5, 15)] + [1, 200, 1000, 17408,
+                                                   17409, 65537]:
         for imcra in (0, 1):
             assert lib.omlsa_layout(imcra, f, 8, 37, ctypes.addressof(out)) \
                 == 0
-            threads, bpt = out[0], out[1]
-            assert threads % 32 == 0 and threads <= 1024
-            assert threads * bpt >= f > (threads - 32) * bpt
-    assert lib.omlsa_layout(1, 17409, 8, 3, ctypes.addressof(out)) != 0
+            _omlsa_layout_holds(list(out), "imcra" if imcra else "mcra", f)
     assert lib.omlsa_layout(1, 129, 0, 3, ctypes.addressof(out)) != 0
+    assert lib.omlsa_layout(0, 0, 0, 3, ctypes.addressof(out)) != 0
+
+
+def _omlsa_v1(pw, estimator):
+    """v = gamma xi / (1 + xi) of frame 1, in float64, from the first two
+    frames' statements of the plain version (gh1 of frame 0, and lambda
+    after it, which stays |X|^2 of frame 0 up to rounding)."""
+    from setk_tpu_torch.ops.cuda import omlsa as om
+    x0, x1 = pw[0, 0].double(), pw[0, 1].double()
+    alpha = 0.92
+    scale = 1.0 if estimator == "mcra" else 1.47  # MCRA's 1, iMCRA's beta
+    gamma0 = torch.ones_like(x0) / scale
+    xi0 = alpha * gamma0 + (1 - alpha) * (gamma0 - 1).clamp(min=0)
+    v0 = gamma0 * xi0 / (1 + xi0)
+    gh1 = xi0 * torch.exp(0.5 * om.exp1(v0)) / (1 + xi0)
+    gamma1 = x1 / x0 / scale
+    xi1 = alpha * gh1**2 * gamma1 + (1 - alpha) * (gamma1 - 1).clamp(min=0)
+    return (gamma1 * xi1 / (1 + xi1)).numpy()
+
+
+def _omlsa_peaks(t, f, seed):
+    """|X|^2 whose level rises and falls in slow waves over the frames
+    (periods of 50-200 frames, 30 dB deep) over a noise floor, so that
+    MCRA's frame mean of zeta rises, peaks and falls many times."""
+    rng = np.random.default_rng(seed)
+    frames = np.arange(t)[:, None]
+    level = 10**(1.5 * (np.sin(2 * np.pi * frames / 200) +
+                        np.sin(2 * np.pi * frames / 50) / 2))
+    noise = rng.standard_normal((t, f))**2 + rng.standard_normal((t, f))**2
+    return torch.from_numpy((noise * (0.01 + level))[None].astype(
+        np.float32))
+
+
+def _omlsa_rows_of_three(t, f, seed):
+    """Three rows of different scenes: the bursts, a stationary noise
+    floor of another level, and bursts 1,000 times stronger in power."""
+    from ns_scene import scene
+    rng = np.random.default_rng(seed)
+    floor = (rng.standard_normal((t, f))**2 +
+             rng.standard_normal((t, f))**2) * 0.03
+    return torch.from_numpy(np.stack([
+        np.abs(scene(t, f, seed))**2, floor,
+        np.abs(scene(t, f, seed + 1))**2 * 1e3]).astype(np.float32))
+
+
+def _omlsa_extremes(t, f, seed):
+    """The bursts with every fifth bin at 1e-30 (below the loops' fast
+    division's range), every seventh at 1e30 (above it) and every
+    eleventh silent: those bins' frames run again with the exact
+    division."""
+    from ns_scene import scene
+    pw = np.abs(scene(t, f, seed))**2
+    bins = np.arange(f)
+    pw[:, bins % 5 == 0] = 1e-30
+    pw[:, bins % 7 == 0] = 1e30
+    pw[:, bins % 11 == 0] = 0.0
+    return torch.from_numpy(pw[None].astype(np.float32))
+
+
+def _omlsa_straddle(t, f, seed):
+    """Noise whose bins alternate from frame 1 on between 0.2 and 6 times
+    frame 0's level: in every warp some bins' v lies below 1 and some
+    above, within one frame."""
+    rng = np.random.default_rng(seed)
+    noise = 1 + 0.1 * rng.random((t, f))
+    factor = np.where(np.arange(f) % 2 == 0, 0.2, 6.0)[None]
+    noise[1:] *= factor
+    return torch.from_numpy(noise[None].astype(np.float32))
+
+
+OMLSA_EDGES = [
+    pytest.param("mcra", {}, "straddle", 20, 64, id="mcra-exp1-straddle"),
+    pytest.param("imcra", {}, "straddle", 20, 64, id="imcra-exp1-straddle"),
+    pytest.param("mcra", {}, "bursts", 12, 1025, id="mcra-F1025"),
+    pytest.param("imcra", {}, "bursts", 12, 1025, id="imcra-F1025"),
+    pytest.param("mcra", {}, "bursts", 2, 17409, id="mcra-F17409"),
+    pytest.param("imcra", {}, "bursts", 2, 17409, id="imcra-F17409"),
+    pytest.param("mcra", {}, "three", 60, 65, id="mcra-three-scenes"),
+    pytest.param("imcra", {}, "three", 60, 65, id="imcra-three-scenes"),
+    # MCRA restarts at t = 9, 21, 33, 45; iMCRA's boundaries at t = 3 and
+    # 7 find 4 and 8 of the ring's 10 slots written
+    pytest.param("mcra", {"L": 12}, "bursts", 50, 40,
+                 id="mcra-restart-frames"),
+    pytest.param("imcra", {"U": 10, "V": 4}, "bursts", 30, 40,
+                 id="imcra-partly-filled-ring"),
+    # more frames than the frame pass's 1,024-frame scan chunk
+    pytest.param("mcra", {}, "peaks", 1100, 17,
+                 id="mcra-zeta-peak-rises-and-falls"),
+    pytest.param("mcra", {}, "extremes", 60, 70, id="mcra-exact-fallback"),
+    pytest.param("imcra", {}, "extremes", 60, 70,
+                 id="imcra-exact-fallback"),
+    pytest.param("mcra", {}, "bursts", 1, 1, id="mcra-one-frame-one-bin"),
+    pytest.param("imcra", {}, "bursts", 1, 1, id="imcra-one-frame-one-bin"),
+]
+
+
+@pytest.mark.parametrize("estimator,conf,kind,t,f", OMLSA_EDGES)
+def test_omlsa_edges_match_plain(libs, estimator, conf, kind, t, f):
+    from setk_tpu_torch.ops.cuda import omlsa as om
+    cfg = _omlsa_config(estimator, conf)
+    pw = {"bursts": lambda: _omlsa_scene(t, f, 1, seed=t + f),
+          "three": lambda: _omlsa_rows_of_three(t, f, seed=t + f),
+          "peaks": lambda: _omlsa_peaks(t, f, seed=t + f),
+          "extremes": lambda: _omlsa_extremes(t, f, seed=t + f),
+          "straddle": lambda: _omlsa_straddle(t, f, seed=t + f)}[kind]()
+    if kind == "straddle":
+        v1 = _omlsa_v1(pw, estimator)
+        for warp in range(f // 32):
+            lanes = v1[32 * warp:32 * warp + 32]
+            assert lanes.min() < 0.9 and lanes.max() > 1.1
+    gain, layout = _omlsa_run(libs["omlsa"], estimator, cfg, pw)
+    _omlsa_layout_holds(layout, estimator, f, getattr(cfg, "U", 0))
+    assert bool(torch.isfinite(gain).all())
+    assert _omlsa_gap(gain, om.omlsa_plain(pw, estimator, cfg)) <= OMLSA_TOL
+
+
+def test_omlsa_fast_division_range(libs):
+    """The loops' branch-free division takes a / b within [2^-60, 2^60]
+    (a = +0 too) and flags the rest, whose frames run again with the
+    exact division: zero, -0, subnormal, tiny, huge, infinite and NaN
+    operands are out.  (The reciprocal's approximation is exact here;
+    tests/test_torch_gpu.py holds the card's against IEEE division.)"""
+    lo, hi = 2.0**-60, 2.0**60
+    a = np.array([1.5, 0.0, -0.0, 3e-39, lo, lo / 2, hi, hi * 2, np.inf,
+                  np.nan, -7.25, 1.0, 1.0, 1.0, 1.0, 1.0, 1e-7, 5.0],
+                 np.float32)
+    b = np.array([3.0, 2.0, 2.0, 2.0, 2.0, 2.0, 2.0, 2.0, 2.0, 2.0, 3.0,
+                  lo, lo / 2, hi, hi * 2, 0.0, 1e-7, -np.inf], np.float32)
+    want = [1, 1, 0, 0, 1, 0, 1, 0, 0, 0, 1, 1, 0, 1, 0, 0, 1, 0]
+    q = torch.empty(len(a))
+    safe = torch.empty(len(a), dtype=torch.int32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert libs["omlsa"].omlsa_div_launch(
+        ta.data_ptr(), tb.data_ptr(), q.data_ptr(), safe.data_ptr(),
+        len(a), None) == 0
+    assert safe.tolist() == want
+    ok = safe.bool()
+    assert torch.equal(q[ok], (ta / tb)[ok])
 
 
 def test_omlsa_builds_without_fma_contraction():

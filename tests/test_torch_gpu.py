@@ -1178,9 +1178,86 @@ def test_omlsa_rows_and_global_ring_match_plain(estimator, conf):
     pw = _ns_power(200, 257, 3, seed=5).to(dev)
     got = om.omlsa(pw, estimator, cfg)
     if estimator == "imcra":
-        assert om.omlsa_layout("imcra", 257, 300, 3, dev)["ring_global"] == 1
+        assert om.omlsa_layout("imcra", 257, 300, 3, dev)["ring_shared"] == 0
     assert float((got - om.omlsa_plain(pw, estimator, cfg)).abs().max()) \
         <= TOL
+
+
+def _division_pairs(seed):
+    """Pairs with |a|, |b| in [2^-60, 2^60]: every significand of a
+    against eight divisors (3, 1 + 2^-23, 2 - 2^-23, 1.5, pi, e, 1.1,
+    1.9 at random exponents), and 2^23 random pairs; random signs."""
+    rng = np.random.default_rng(seed)
+    sig = 1 + np.arange(2**23) / 2**23
+    divisors = [3.0, 1 + 2**-23, 2 - 2**-23, 1.5, np.pi, np.e, 1.1, 1.9]
+    a = [sig * 2.0**rng.integers(-59, 59, sig.size) for _ in divisors]
+    b = [np.full(sig.size, d) * 2.0**rng.integers(-59, 59, sig.size)
+         for d in divisors]
+    n = 2**23
+    a.append(rng.uniform(1, 2, n) * 2.0**rng.integers(-59, 59, n))
+    b.append(rng.uniform(1, 2, n) * 2.0**rng.integers(-59, 59, n))
+    a, b = (np.concatenate(x).astype(np.float32) for x in (a, b))
+    sign = rng.choice([-1.0, 1.0], (2, a.size)).astype(np.float32)
+    return a * sign[0], b * sign[1]
+
+
+def test_omlsa_fast_division_rounds_as_ieee():
+    """The loops' branch-free division (rcp.approx, a Newton step, a
+    corrected quotient) against the card's IEEE division on 9 x 2^23
+    pairs in its range: every quotient equal, every pair in range."""
+    from setk_tpu_torch.ops.cuda import _build
+    dev = _card()
+    a, b = (torch.from_numpy(x).to(dev) for x in _division_pairs(3))
+    q = torch.empty_like(a)
+    safe = torch.empty(a.shape, dtype=torch.int32, device=dev)
+    _build.launch("omlsa", "omlsa_div_launch", dev, a.data_ptr(),
+                  b.data_ptr(), q.data_ptr(), safe.data_ptr(), a.numel())
+    torch.cuda.synchronize()
+    assert bool(safe.bool().all())
+    assert torch.equal(q, a / b)
+
+
+@pytest.mark.parametrize("estimator", ["mcra", "imcra"])
+def test_omlsa_any_bin_count_matches_plain(estimator):
+    """F = 17,409 bins (past the 17,408 one block a row took before the
+    chain became a thread a bin), two rows: one call, against the plain
+    version on the card."""
+    dev = _card()
+    cfg = _ns_config(estimator, {})
+    pw = _ns_power(40, 17409, 2, seed=9).to(dev)
+    om.omlsa.launches = 0
+    got = om.omlsa(pw, estimator, cfg)
+    torch.cuda.synchronize()
+    assert om.omlsa.launches == 1
+    assert float((got - om.omlsa_plain(pw, estimator, cfg)).abs().max()) \
+        <= TOL
+
+
+@pytest.mark.parametrize("estimator", ["mcra", "imcra"])
+def test_omlsa_frames_run_again_match_plain(estimator):
+    """Bins whose |X|^2 leaves the loops' fast division's range (every
+    fifth at 1e-30, every seventh at 1e30, every eleventh silent): their
+    frames run again from the saved carries with IEEE division, against
+    the plain version on the card at 1e-5 of max(1, |gain|), the
+    emulator's bar for this scene: the gains of the bins at 1e-30 and 0
+    reach ~300, where the card's powf and PyTorch's pow part by a few
+    ulps (1.8e-4, every intermediate equal)."""
+    from ns_scene import scene
+    dev = _card()
+    cfg = _ns_config(estimator, {})
+    t, f = 60, 70
+    pw = np.abs(scene(t, f, t + f))**2
+    bins = np.arange(f)
+    pw[:, bins % 5 == 0] = 1e-30
+    pw[:, bins % 7 == 0] = 1e30
+    pw[:, bins % 11 == 0] = 0.0
+    pw = torch.from_numpy(pw[None].astype(np.float32)).to(dev)
+    got = om.omlsa(pw, estimator, cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    ref = om.omlsa_plain(pw, estimator, cfg)
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) \
+        <= 1e-5
 
 
 def test_auxiva_launches_kernel_13_once_an_epoch_per_four_sources():

@@ -36,6 +36,8 @@ absolute; MCRA's reach ~22 on a burst, gh1 > 1):
   rounded transcendental, MCRA's do (through gh1, xi and zeta).
 """
 
+import contextlib
+import ctypes
 import dataclasses
 
 import jax
@@ -205,16 +207,64 @@ def test_frame_mean_is_the_mean():
 
 def test_card_refusals_before_any_build():
     """On a tensor off the CPU the wrapper checks before it builds or
-    launches: type, shape, the bin limit, the estimator."""
+    launches: type, shape, the estimator."""
     cfg = tns.IMCRAConfig()
     meta = torch.empty((1, 10, 257), device="meta")
     with pytest.raises(ValueError, match="float32"):
         om.omlsa(meta.to(torch.float16), "imcra", cfg)
     with pytest.raises(ValueError, match="float32"):
         om.omlsa(torch.empty((10, 257), device="meta"), "imcra", cfg)
-    with pytest.raises(ValueError, match="bins on the card"):
-        om.omlsa(torch.empty((1, 4, om.MAX_BINS + 1), device="meta"),
-                 "imcra", cfg)
     with pytest.raises(ValueError, match="Unknown noise estimator"):
         om.omlsa(meta, "mmse", cfg)
     assert om.omlsa.launches == 0
+
+
+@pytest.mark.parametrize("estimator", ["mcra", "imcra"])
+def test_card_takes_any_bin_count(monkeypatch, estimator):
+    """Meta tensors stand for card tensors: F = 17,409 bins (past the
+    bins one block took before the kernels became a thread a bin) goes to
+    the one launch, with a scratch of rows x (T x floats a frame + floats
+    a row) from the layout, which the wrapper asks for once a
+    configuration."""
+    cfg = tns.MCRAConfig() if estimator == "mcra" else tns.IMCRAConfig()
+    asked, launched, sizes, make = [], [], [], torch.empty
+    power = torch.empty((2, 4, 17409), device="meta")
+    layout = {"threads": 32, "blocks_a_row": 545, "floats_a_frame": 7,
+              "floats_a_row": 3, "ring_shared": 1, "launches": 5}
+
+    def library(name):
+        assert name == "omlsa"
+
+        class Lib:
+            @staticmethod
+            def omlsa_layout(imcra, f, u, ntaps, out):
+                asked.append((imcra, f, u, ntaps))
+                values = (ctypes.c_int * 6).from_address(out)
+                values[:] = list(layout.values())
+                return 0
+        return Lib
+
+    def launch(name, fn, dev, *args):
+        launched.append(fn)
+
+    def empty(*size, **kwargs):
+        sizes.append(size)
+        return make(*size, **kwargs)
+
+    monkeypatch.setattr(om._build, "library", library)
+    monkeypatch.setattr(om._build, "launch", launch)
+    monkeypatch.setattr(om, "_LAYOUTS", {})
+    monkeypatch.setattr(om.torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(om.omlsa, "launches", 0)
+    monkeypatch.setattr(om.torch, "empty", empty)
+    for _ in range(2):
+        gain = om.omlsa(power, estimator, cfg)
+        assert gain.shape == (2, 4, 17409) and gain.device.type == "meta"
+    assert om.omlsa.launches == 2
+    assert launched == ["omlsa_launch"] * 2
+    assert sizes == [(2 * (4 * 7 + 3),)] * 2
+    u = cfg.U if estimator == "imcra" else 0
+    ntaps = 3 if estimator == "imcra" else 3 + 31 + 3
+    assert asked == [(int(estimator == "imcra"), 17409, u, ntaps)]
+    assert om.omlsa_layout(estimator, 17409, u, ntaps, "meta") == layout
